@@ -14,14 +14,20 @@ Phases (any failure raises and the script exits non-zero):
      sparse, dense, empty, NaN, tied and 3-scale (N=4410) inputs;
   4. the slice: a seeded yolo_mobilev1 (alpha 0.75) served in bf16 through
      ``Predictor.predict_batch`` (128 canvases of 240x320, mixed image sizes)
-     and ``predict_image``, then again with dense-scene head biases; the
-     head kernel's launch count must rise, and the detections must match
+     and ``predict_image``, in three scenes: obj_thresh 0.7 (no detections
+     from random weights), obj_thresh 0.25 (most rows keep 30 boxes) and
+     dense-scene head biases.  The head kernel must have been launched once
+     per call, and the detections of the scenes that have any must match
      the same Predictor's forward through the plain head;
   5. times, from CUDA events: serving images/s at batch 128, batch-1
-     latency, and the head kernel against its plain version.
+     latency, and the head kernel against its plain version;
+  6. where the device time goes: torch.profiler kernel events (each kernel
+     once) of one serving call at batch 128 and at batch 1.
 
 The next-to-last line is one JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
+line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
+script imports only the port, whose one module from the JAX package is the
+numpy-only ``config``.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ BOX_TOL = dict(rtol=1e-3, atol=0.05)
 BORDER = 1e-5
 FLAVOURS = ((False, 0.7), (True, 0.03))   # (class_softmax, score_thresh)
 IOU = 0.3
+# the mid scene's threshold: the seeded random net's scores,
+# sigmoid(cls) * sigmoid(conf) of logits near 0, lie around it
+MID_THRESH = 0.25
 
 
 def gpu_label() -> str:
@@ -71,6 +80,55 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+KERNEL_CATEGORIES = (
+    ("head kernel", ("yolo_head",)),
+    ("conv/matmul", ("conv2d", "convolve", "depthwise", "gemm",
+                     "cudnn", "xmma", "cutlass", "fprop")),
+)
+
+
+def kernel_profile(fn, iters: int):
+    """Device activity of one call of ``fn``, averaged over ``iters`` calls
+    under torch.profiler.  Only device events count (kernels, memcpy,
+    memset), each once: the host-side op events that launched them are
+    left out.  Returns (kernels per call, device ms per call, {category: ms
+    per call}, the 8 costliest kernels as (name, ms per call, launches per
+    call))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_name = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        count, us = per_name.get(ev.name, (0, 0.0))
+        per_name[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
+    by_cat = {"head kernel": 0.0, "conv/matmul": 0.0,
+              "elementwise/other": 0.0, "memcpy/memset": 0.0}
+    n_kernels = 0
+    for name, (count, us) in per_name.items():
+        low = name.lower()
+        if low.startswith(("memcpy", "memset")):
+            cat = "memcpy/memset"
+        else:
+            n_kernels += count
+            cat = next((c for c, keys in KERNEL_CATEGORIES
+                        if any(k in low for k in keys)), "elementwise/other")
+        by_cat[cat] += us / 1e3 / iters
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return (n_kernels / iters, sum(by_cat.values()), by_cat,
+            [(name, us / 1e3 / iters, count / iters)
+             for name, (count, us) in top])
+
+
 def to_np(res):
     return type(res)(*(t.cpu().numpy() for t in res))
 
@@ -96,23 +154,6 @@ def compare_heads(got, want, thresh: float):
         d = np.where(a == b, 0.0, np.abs(a.astype(np.float64) - b))
         err = max(err, float(d.max(initial=0.0)))
     return err, int(flip.sum())
-
-
-def batched(dets):
-    """A list of Detections -> [B, N] arrays for utils/detmatch."""
-    from k210_yolo_framework_tpu.ops.nms import NmsResult
-
-    n = max(1, max(len(d.scores) for d in dets))
-    boxes = np.zeros((len(dets), n, 4), np.float32)
-    scores = np.zeros((len(dets), n), np.float32)
-    classes = np.zeros((len(dets), n), np.int32)
-    valid = np.zeros((len(dets), n), bool)
-    for b, d in enumerate(dets):
-        k = len(d.scores)
-        boxes[b, :k], scores[b, :k], classes[b, :k] = (d.boxes, d.scores,
-                                                       d.classes)
-        valid[b, :k] = True
-    return NmsResult(boxes, scores, classes, valid)
 
 
 def head_cases(spec, spec3, device):
@@ -159,13 +200,18 @@ def main() -> int:
 def run(device) -> int:
     import torch
 
-    from k210_yolo_framework_tpu.utils.detmatch import assert_detections_close
     from k210_yolo_framework_tpu_torch import YoloSpec, voc_spec
-    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.inference import (
+        Predictor,
+        stack_detections,
+    )
     from k210_yolo_framework_tpu_torch.models import build_network
     from k210_yolo_framework_tpu_torch.ops import _build
     from k210_yolo_framework_tpu_torch.ops import letterbox as LB
     from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
 
     # fp32 comparisons run in full fp32 (TF32 off for cuDNN and matmul)
     torch.backends.cudnn.allow_tf32 = False
@@ -218,17 +264,17 @@ def run(device) -> int:
     net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
                         spec.class_num, alpha=0.75,
                         generator=torch.Generator().manual_seed(0))
-    pred = Predictor(net, None, spec, obj_thresh=0.7, iou_thresh=IOU,
-                     compute_dtype=torch.bfloat16, device=device)
+    serve = dict(iou_thresh=IOU, compute_dtype=torch.bfloat16, device=device)
+    pred = Predictor(net, None, spec, obj_thresh=0.7, **serve)
+    mid_pred = Predictor(net, None, spec, obj_thresh=MID_THRESH, **serve)
     dense_state = {k: v.clone() for k, v in net.state_dict().items()}
     e = 5 + spec.class_num
     for layer in ("y1_out", "y2_out"):
         bias = dense_state[f"head.{layer}.dark_conv_out.bias"]
         for a in range(spec.nanchors):
             bias[a * e + 4:(a + 1) * e] += 3.0   # conf and every class
-    dense_pred = Predictor(net, dense_state, spec, obj_thresh=0.7,
-                           iou_thresh=IOU, compute_dtype=torch.bfloat16,
-                           device=device)
+    dense_pred = Predictor(net, dense_state, spec, obj_thresh=0.7, **serve)
+    scenes = (("sparse", pred), ("mid", mid_pred), ("dense", dense_pred))
 
     rng = np.random.default_rng(2)
     hws = np.tile(np.asarray(CANVAS_HW, np.int32), (BATCH, 1))
@@ -241,50 +287,56 @@ def run(device) -> int:
     image = rng.integers(0, 256, (375, 500, 3)).astype(np.uint8)
 
     TH.fused_decode_nms.launches = 0
-    dets = pred.predict_batch(canvases, hws)
-    one = pred.predict_image(image)
-    dense_dets = dense_pred.predict_batch(canvases, hws)
+    served = {name: (p.predict_batch(canvases, hws), p.predict_image(image))
+              for name, p in scenes}
     launches = TH.fused_decode_nms.launches
-    print(f"slice: predict_batch x{BATCH} -> {sum(len(d.scores) for d in dets)} "
-          f"detections; predict_image -> {len(one.scores)}; dense "
-          f"predict_batch -> {sum(len(d.scores) for d in dense_dets)} "
-          f"of {BATCH * spec.class_num * 30}; head kernel launches "
-          f"{launches}")
-    if launches < 3:
+    print(f"slice: head kernel launches {launches} in "
+          f"{2 * len(scenes)} serving calls")
+    if launches != 2 * len(scenes):
         raise AssertionError(f"head kernel launched {launches} times, "
                              "expected one per serving call")
-    for d in dets + dense_dets + [one]:
-        if not (np.isfinite(d.scores).all() and (d.scores >= 0.7).all()
-                and ((d.classes >= 0) & (d.classes < spec.class_num)).all()
-                and d.boxes.shape == (len(d.scores), 4)):
-            raise AssertionError("malformed detections")
-    if sum(len(d.scores) for d in dense_dets) == 0:
-        raise AssertionError("dense scene produced no detections")
+    for name, p in scenes:
+        dets, one = served[name]
+        print(f"slice {name:<6} (obj_thresh {p.obj_thresh}): predict_batch "
+              f"x{BATCH} -> {sum(len(d.scores) for d in dets)} of "
+              f"{BATCH * spec.class_num * 30} slots; predict_image -> "
+              f"{len(one.scores)}")
+        for d in dets + [one]:
+            if not (np.isfinite(d.scores).all()
+                    and (d.scores >= p.obj_thresh).all()
+                    and ((d.classes >= 0) & (d.classes < spec.class_num)).all()
+                    and d.boxes.shape == (len(d.scores), 4)):
+                raise AssertionError(f"{name}: malformed detections")
+        if name != "sparse" and (sum(len(d.scores) for d in dets) == 0
+                                 or len(one.scores) == 0):
+            raise AssertionError(f"{name} scene produced no detections")
 
     # the same Predictors with the plain head, on the same forward
     c_dev = torch.from_numpy(canvases).to(device)
     h_dev = torch.from_numpy(hws).to(device)
+    img_t = torch.from_numpy(image).to(device)
+    hw1 = torch.tensor([image.shape[:2]], dtype=torch.int32, device=device)
     slice_err, slice_preds = 0.0, None
-    for label, p, served in (("sparse", pred, dets),
-                             ("dense", dense_pred, dense_dets)):
-        preds = p._forward_batch(c_dev, h_dev)
-        got = p._head(preds, h_dev)
-        want = TH.fused_decode_nms_reference(preds, spec, h_dev, 0.7, IOU, 30)
-        err, flip = compare_heads(got, want, 0.7)
-        slice_err = max(slice_err, err)
-        assert_detections_close(batched(served), to_np(want))
-        print(f"slice vs plain head: {label:<6} kept={int(got.valid.sum())} "
-              f"max_abs_err={err:.3g} borderline_flips={flip}")
+    for name, p in scenes:
+        dets, one = served[name]
+        with torch.inference_mode():
+            lb = LB.letterbox_image(img_t[None], hw1, spec.in_hw,
+                                    torch.float32).to(torch.uint8)
+            inputs = ((p._forward_batch(c_dev, h_dev), h_dev, dets),
+                      (p._forward(lb), hw1, [one]))
+        for what, (preds, hws_, dets_) in zip(("batch", "image"), inputs):
+            got = p._head(preds, hws_)
+            want = TH.fused_decode_nms_reference(preds, spec, hws_,
+                                                 p.obj_thresh, IOU, 30)
+            err, flip = compare_heads(got, want, p.obj_thresh)
+            slice_err = max(slice_err, err)
+            n_a, n_b = assert_detections_close(stack_detections(dets_),
+                                               to_np(want))
+            print(f"slice vs plain head: {name:<6} {what}: served {n_a}, "
+                  f"plain {n_b}; same forward max_abs_err={err:.3g} "
+                  f"borderline_flips={flip}")
         if slice_preds is None:
-            slice_preds = preds
-    with torch.inference_mode():
-        img_t = torch.from_numpy(image).to(device)
-        hw1 = torch.tensor([image.shape[:2]], dtype=torch.int32, device=device)
-        lb = LB.letterbox_image(img_t[None], hw1, spec.in_hw,
-                                torch.float32).to(torch.uint8)
-        want1 = TH.fused_decode_nms_reference(pred._forward(lb), spec, hw1,
-                                              0.7, IOU, 30)
-    assert_detections_close(batched([one]), to_np(want1))
+            slice_preds = inputs[0][0]
 
     # a small input, fp32 on the card against fp32 on the CPU
     small = dict(obj_thresh=0.2, iou_thresh=0.45,
@@ -294,7 +346,8 @@ def run(device) -> int:
     part = slice(BATCH // 2 - 4, BATCH // 2 + 4)   # full and cut images
     a = on_gpu.predict_batch(canvases[part], hws[part])
     b = ref_cpu.predict_batch(canvases[part], hws[part])
-    n_a, n_b = assert_detections_close(batched(a), batched(b))
+    n_a, n_b = assert_detections_close(stack_detections(a),
+                                       stack_detections(b))
     print(f"slice fp32 card vs CPU (8 images, obj_thresh 0.2): {n_a} vs "
           f"{n_b} detections match")
 
@@ -345,6 +398,22 @@ def run(device) -> int:
         print(f"head b{BATCH} {name:<6}: kernel {k1:.4f}/{k2:.4f} ms, plain "
               f"{p1:.4f}/{p2:.4f} ms; whole call {call_k:.4f} ms, plain "
               f"call {call_p:.4f} ms {tag}")
+
+    # ---- 6. where the device time goes ----------------------------------
+    for label, fn, wall_ms in (
+            (f"b{BATCH}", lambda: pred._run_batch(c_dev, h_dev), serve_ms),
+            ("b1", lambda: pred._run_batch(c_dev[:1], h_dev[:1]), b1_ms)):
+        n_kernels, dev_ms, by_cat, top = kernel_profile(fn, iters=5)
+        if n_kernels == 0:
+            print(f"profile {label}: the profiler recorded no device events; "
+                  f"device time not measured {tag}")
+            continue
+        cats = ", ".join(f"{k} {v:.3f} ms" for k, v in by_cat.items())
+        print(f"profile {label} sparse: {n_kernels:g} kernels/call, device "
+              f"{dev_ms:.3f} ms/call of {wall_ms:.3f} ms timed (busy share "
+              f"{dev_ms / wall_ms:.3f}); {cats} {tag}")
+        for name, ms, count in top:
+            print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
 
     k_ms, p_ms = head_times["slice"]
     print(json.dumps({"kernels": [{

@@ -211,6 +211,24 @@ extern "C" {
 // Shared memory one block needs for n candidates.
 size_t yolo_head_smem_bytes(int n) { return (size_t)5 * n * sizeof(float); }
 
+// The most dynamic shared memory a block of the kernel may ask for on the
+// current device: the opt-in limit less the kernel's static shared memory.
+// Returns the cudaError_t of the queries.
+int yolo_head_max_dynamic_smem(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, yolo_head_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *bytes = optin - (int)attr.sharedSizeBytes;
+  return 0;
+}
+
 // Launches the kernel on `stream`; returns the cudaError_t of the launch.
 int yolo_head_decode_nms(const float* preds, const float* geom,
                          const float* lbox, float* out_scores,

@@ -20,13 +20,14 @@ from typing import List, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from k210_yolo_framework_tpu.config import YoloSpec
+from k210_yolo_framework_tpu_torch.config import YoloSpec
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
 from k210_yolo_framework_tpu_torch.ops import letterbox as LB
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
 from k210_yolo_framework_tpu_torch.ops.yolo_head_pallas import fused_decode_nms
 
-__all__ = ["Detections", "Predictor", "VOC_LABELS", "draw_detections"]
+__all__ = ["Detections", "Predictor", "VOC_LABELS", "draw_detections",
+           "stack_detections"]
 
 # 20-class VOC label table
 VOC_LABELS = [
@@ -46,6 +47,22 @@ def _detections(res: NmsResult, b: int) -> Detections:
     valid = res.valid[b]
     return Detections(res.boxes[b][valid], res.scores[b][valid],
                       res.classes[b][valid])
+
+
+def stack_detections(dets: List[Detections]) -> NmsResult:
+    """Per-image Detections -> one padded NmsResult of numpy arrays
+    ([B, N] with N the largest count), the layout
+    ``utils/detmatch.assert_detections_close`` reads."""
+    n = max([1] + [len(d.scores) for d in dets])
+    boxes = np.zeros((len(dets), n, 4), np.float32)
+    scores = np.zeros((len(dets), n), np.float32)
+    classes = np.zeros((len(dets), n), np.int32)
+    valid = np.zeros((len(dets), n), bool)
+    for b, d in enumerate(dets):
+        k = len(d.scores)
+        boxes[b, :k], scores[b, :k], classes[b, :k] = d.boxes, d.scores, d.classes
+        valid[b, :k] = True
+    return NmsResult(boxes, scores, classes, valid)
 
 
 class Predictor:

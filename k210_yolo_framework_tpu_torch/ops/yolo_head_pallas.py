@@ -23,7 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from k210_yolo_framework_tpu.config import YoloSpec
+from k210_yolo_framework_tpu_torch.config import YoloSpec
 from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops.letterbox import _const
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
@@ -33,9 +33,6 @@ __all__ = ["candidate_geometry", "letterbox_inverse_params",
            "fused_decode_nms", "fused_decode_nms_reference"]
 
 _NEG = -1e9
-# the kernel's dynamic shared memory (5 floats per candidate) must fit the
-# 227 KB a block may use on Hopper
-_MAX_SMEM = 232448
 
 
 def candidate_geometry(spec: YoloSpec) -> np.ndarray:
@@ -180,7 +177,28 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.yolo_head_decode_nms.restype = ctypes.c_int
     lib.yolo_head_error_string.argtypes = [ctypes.c_int]
     lib.yolo_head_error_string.restype = ctypes.c_char_p
+    lib.yolo_head_max_dynamic_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.yolo_head_max_dynamic_smem.restype = ctypes.c_int
     return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"yolo_head {what} failed: "
+                           + lib.yolo_head_error_string(err).decode())
+
+
+@functools.cache
+def _max_candidates(device: torch.device) -> int:
+    """Most candidates one block's shared memory holds on ``device`` (5
+    floats each): the device's opt-in limit per block, less the kernel's
+    static shared memory (227 KB - 80 bytes on an H100)."""
+    lib = _kernel_lib()
+    nbytes = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(lib, lib.yolo_head_max_dynamic_smem(ctypes.byref(nbytes)),
+               "shared-memory query")
+    return nbytes.value // 20
 
 
 def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
@@ -198,10 +216,10 @@ def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
         raise ValueError(f"shape mismatch: logits {tuple(p.shape)}, geometry "
                          f"{tuple(geom.shape)}, lbox {tuple(lbox.shape)}, "
                          f"classes {classes}")
-    if 5 * n * 4 > _MAX_SMEM:
+    if n > _max_candidates(p.device):
         raise ValueError(f"{n} candidates need {5 * n * 4} bytes of shared "
                          f"memory per block; the kernel takes at most "
-                         f"{_MAX_SMEM // 20}")
+                         f"{_max_candidates(p.device)} on {p.device}")
     out_scores = torch.empty((bsz, classes, max_out), dtype=torch.float32,
                              device=p.device)
     out_boxes = torch.empty((bsz, classes, max_out, 4), dtype=torch.float32,
@@ -216,9 +234,7 @@ def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
             out_scores.data_ptr(), out_boxes.data_ptr(),
             bsz, n, classes, max_out, iou_thresh, score_thresh,
             int(class_softmax), stream)
-    if err != 0:
-        raise RuntimeError("yolo_head kernel launch failed: "
-                           + lib.yolo_head_error_string(err).decode())
+    _check(lib, err, "kernel launch")
     fused_decode_nms.launches += 1
     return out_scores, out_boxes
 

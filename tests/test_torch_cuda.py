@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from k210_yolo_framework_tpu.config import YoloSpec, voc_spec
+from k210_yolo_framework_tpu_torch.config import YoloSpec, voc_spec
 from k210_yolo_framework_tpu_torch.inference import Predictor
 from k210_yolo_framework_tpu_torch.models import build_network
 from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
@@ -103,10 +103,20 @@ def test_wrapper_rejects_bad_inputs(dev):
                    lbox, **kw)
     with pytest.raises(ValueError, match="shape"):
         TH._launch(p, geom, lbox[:1], **kw)
-    big = torch.zeros((1, 12000, 25), device=dev)
+    limit = TH._max_candidates(dev)
+    optin = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", None)
+    if optin is not None:
+        # the kernel's static shared memory (80 bytes) comes off the limit
+        assert 0 < limit * 20 <= optin - 80
+    big = torch.zeros((1, limit + 1, 25), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        TH._launch(big, torch.zeros((8, 12000), device=dev),
+        TH._launch(big, torch.zeros((8, limit + 1), device=dev),
                    lbox[:1].contiguous(), **kw)
+    # the largest accepted candidate count launches
+    TH._launch(big[:, :limit].contiguous(), torch.zeros((8, limit), device=dev),
+               lbox[:1].contiguous(), **kw)
+    torch.cuda.synchronize()
 
 
 def test_predictor_on_card_uses_the_kernel(dev):
