@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,9 @@ Phases (any failure raises and the script exits non-zero):
 
   1. device: requires ``torch.cuda.is_available()``; prints the card's name
      and power limit as nvidia-smi reports them;
-  2. build: compiles the port's CUDA kernel from the sources in this
-     checkout (``k210_yolo_framework_tpu_torch/csrc/yolo_head.cu``);
+  2. build: compiles the port's CUDA kernels from the sources in this
+     checkout (``k210_yolo_framework_tpu_torch/csrc/yolo_head.cu`` and
+     ``rotate3shear.cu``), one nvcc each, started together;
   3. the kernel against its plain PyTorch version on the card, at the
      serving shapes (VOC, B=128, N=1050, C=20), both score flavours, on
      sparse, dense, empty, NaN, tied and 3-scale (N=4410) inputs;
@@ -22,7 +24,29 @@ Phases (any failure raises and the script exits non-zero):
   5. times, from CUDA events: serving images/s at batch 128, batch-1
      latency, and the head kernel against its plain version;
   6. where the device time goes: torch.profiler kernel events (each kernel
-     once) of one serving call at batch 128 and at batch 1.
+     once) of one serving call at batch 128 and at batch 1;
+  7. the rotation against its plain PyTorch version on the card, both
+     through the public ``rotate_3shear`` / ``rotate_3shear_reference`` and
+     kernel against plain arithmetic on the same tables: 42 images of
+     224x320x3 in fp32 and in bf16 (the train batch's rotate slice at
+     B=128) and 6 of 96x96x3, at thetas U(-10, 10) degrees plus exactly
+     +-10 degrees, 0 and +-1e-4 rad;
+  8. the train slice: 256 synthetic JPEGs (20 classes) through
+     ``DataPipeline`` at batch 128 on 512x512 canvases, and ``fit`` of a
+     seeded yolo_mobilev1 (alpha 0.75, VOC spec) in bf16 with augment on,
+     for one epoch of 3 train steps and 1 validation step.  The rotation
+     kernel must run once per train step, every logged scalar be finite,
+     and the parameters and BN running statistics move.  Then 30 steps on
+     one fixed preprocessed batch (the loss must fall); and at B=8 in
+     fp32, the preprocess of one HostBatch with the same augment draws on
+     the card against the CPU, and train steps on the card against the
+     same steps on the CPU: a witness with smooth activations (every
+     gradient within GRAD_TOL), the activations alone (bit for bit), and
+     the net as trained (see GRAD_TOL);
+  9. times: train preprocess and step at batch 128 in bf16 with the
+     HostBatch on the card, the host loader's rate, the rotation kernel
+     against its plain version at N=42 bf16, and a kernel profile of one
+     train step.
 
 The next-to-last line is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
@@ -36,6 +60,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -82,6 +107,7 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 KERNEL_CATEGORIES = (
     ("head kernel", ("yolo_head",)),
+    ("rotate kernel", ("shear_kernel",)),
     ("conv/matmul", ("conv2d", "convolve", "depthwise", "gemm",
                      "cudnn", "xmma", "cutlass", "fprop")),
 )
@@ -111,7 +137,7 @@ def kernel_profile(fn, iters: int):
             continue
         count, us = per_name.get(ev.name, (0, 0.0))
         per_name[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
-    by_cat = {"head kernel": 0.0, "conv/matmul": 0.0,
+    by_cat = {"head kernel": 0.0, "rotate kernel": 0.0, "conv/matmul": 0.0,
               "elementwise/other": 0.0, "memcpy/memset": 0.0}
     n_kernels = 0
     for name, (count, us) in per_name.items():
@@ -187,6 +213,393 @@ def head_cases(spec, spec3, device):
             for name, s, ps in cases]
 
 
+ROT_N = 42            # the rotate slice of a stratified batch of 128
+TRAIN_BATCH = 128
+FIXED_STEPS = 30
+# card against CPU at B=8 in fp32 (TF32 off).  Preprocess: the letterbox
+# truncates to whole levels, so a sum that rounds the other way moves a
+# pixel by one level (1/255 of an image whose peak is 255; allowed up to
+# 1/64) in at most 1% of the pixels.  Train step, on the same preprocessed
+# batch: losses rtol 1e-4.  Gradients, each parameter's error taken as its
+# largest difference over its largest entry:
+# * the witness: the same net, weights and batch with a * x + (1 - a) *
+#   softplus(x) in place of every ReLU (a = 0) and LeakyReLU(a), held to
+#   GRAD_TOL flat for every parameter, the tolerance the CPU tests hold the
+#   port's gradients to JAX's with.  It runs every other op of the step,
+#   forward and backward (measured on an H100: 2.3e-5 at worst);
+# * the kinks themselves: ReLU and LeakyReLU forward and backward on the
+#   card, bit for bit against the CPU, on values that include zeros;
+# * the net as trained, kinks and all: its backbone and DarknetConvBN
+#   gradients are ill-conditioned at init.  On the CPU alone, moving every
+#   input pixel by one fp32 ulp, or summing on 1 thread instead of 8, moves
+#   some of them by 1.5-10% of their largest entry; the smooth witness
+#   moves by 3e-5 under the same noise.  So each parameter is held to
+#   GRAD_TOL + ENVELOPE x the CPU's own spread under NOISE_DRAWS one-ulp
+#   input perturbations, and never to more than GRAD_CAP.
+PIXEL_TOL, PIXEL_SHARE = 1.0 / 64, 0.01
+STEP_RTOL, GRAD_TOL, ENVELOPE, NOISE_DRAWS, GRAD_CAP = 1e-4, 1e-3, 2.0, 3, 0.1
+
+
+def rotate_mismatch(got, want, dtype):
+    """(max abs difference, elements outside the tolerance): fp32 rtol
+    1e-6 / atol 1e-4, bf16 one ulp of the plain value."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if dtype == torch.float32:
+        limit = 1e-4 + 1e-6 * w.abs()
+    else:
+        limit = torch.where(
+            w == 0, torch.full_like(w, 2.0 ** -133),
+            torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+    return float(d.max()), int((d > limit).sum())
+
+
+def rotate_phase(device) -> float:
+    """Phase 7: the rotation kernel against its plain version on the same
+    tables; returns the largest absolute difference."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+
+    rng = np.random.default_rng(3)
+    max_err = 0.0
+    for n, h, w, dtype in ((ROT_N, 224, 320, torch.float32),
+                           (ROT_N, 224, 320, torch.bfloat16),
+                           (6, 96, 96, torch.float32),
+                           (6, 96, 96, torch.bfloat16)):
+        imgs = torch.from_numpy(rng.uniform(0, 255, (n, h, w, 3)).astype(
+            np.float32)).to(device).to(dtype)
+        th = np.deg2rad(rng.uniform(-10, 10, n)).astype(np.float32)
+        th[:5] = [np.deg2rad(10.0), -np.deg2rad(10.0), 0.0, 1e-4, -1e-4]
+        thetas = torch.from_numpy(th).to(device)
+        tables = TR.shear_tables(thetas, h, w, dtype)
+        # the public wrapper (tables made on the card, then the kernel)
+        # against the public plain version, on the same card tensors; and
+        # the kernel alone against the plain arithmetic on the same tables
+        for what, got, want in (
+                ("rotate_3shear vs rotate_3shear_reference",
+                 TR.rotate_3shear(imgs, thetas),
+                 lambda: TR.rotate_3shear_reference(imgs, thetas)),
+                ("kernel vs plain, same tables", TR._launch(imgs, tables),
+                 lambda: TR._rotate_plain(imgs, tables))):
+            torch.cuda.synchronize()
+            want = want()
+            err, bad = rotate_mismatch(got, want, dtype)
+            n_diff = int((got != want).sum())
+            print(f"{what}: N={n} {h}x{w}x3 {str(dtype).split('.')[-1]}: "
+                  f"max_abs_err={err:.3g} elements_differing={n_diff} "
+                  f"outside_tolerance={bad}")
+            if bad or got.dtype != dtype or got.shape != imgs.shape:
+                raise AssertionError("rotate kernel disagrees with its plain "
+                                     "version")
+            if not torch.equal(got[2], imgs[2]):
+                raise AssertionError("rotate kernel: theta 0 is not the "
+                                     "identity")
+            max_err = max(max_err, err)
+    return max_err
+
+
+def smooth_activations(net):
+    """A copy of ``net`` with a * x + (1 - a) * softplus(x) in place of
+    each ConvBN's ReLU (a = 0) or LeakyReLU(a)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from k210_yolo_framework_tpu_torch.models.layers import ConvBN
+
+    net = copy.deepcopy(net)
+    for m in net.modules():
+        if isinstance(m, ConvBN) and m.act is not None:
+            with torch.no_grad():
+                a = -float(m.act(torch.tensor([-1.0])))   # slope below 0
+            m.act = lambda x, a=a: a * x + (1 - a) * F.softplus(x)
+    return net
+
+
+def activations_card_vs_cpu(device) -> None:
+    """ReLU and LeakyReLU(0.1, 0.3) with gradients on, forward and
+    backward, on the card against the CPU bit for bit."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.models import layers as TL
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(8, 64, 28, 40, generator=gen)
+    x[:, :, ::7] = 0.0
+    x[:, :, 1::7] = -0.0
+    g = torch.randn(x.shape, generator=gen)
+    for name, act in (("relu", TL.relu), ("leaky_relu(0.1)", TL.leaky_relu(0.1)),
+                      ("leaky_relu(0.3)", TL.leaky_relu(0.3))):
+        res = []
+        for dev in (device, torch.device("cpu")):
+            xx = x.to(dev).clone().requires_grad_()
+            y = act(xx)
+            y.backward(g.to(dev))
+            res.append((y.detach().cpu(), xx.grad.cpu()))
+        (y_card, g_card), (y_cpu, g_cpu) = res
+        same = torch.equal(y_card, y_cpu) and torch.equal(g_card, g_cpu)
+        print(f"activation card vs CPU: {name} forward and backward on "
+              f"{x.numel()} values ({int((x == 0).sum())} zeros): "
+              f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{name}: card and CPU differ")
+
+
+def card_vs_cpu_step(device, spec, cfg, init_net, host):
+    """Phase 8c: the fp32 preprocess of one HostBatch with the same augment
+    draws on the card and on the CPU; then fp32 train steps on each from
+    the same weights and the same (the card's) preprocessed batch: the
+    smooth witness, the activations alone, and the net as trained with
+    NOISE_DRAWS more CPU steps from one-ulp perturbations of the batch,
+    which measure how far its gradients move under rounding alone."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.ops import augment as TA
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    b = host.canvases.shape[0]
+    cfg_b = dataclasses.replace(cfg, batch_size=b)
+    params = TA.draw_params(b, spec.in_hw,
+                            generator=torch.Generator().manual_seed(2))
+    pp = PL.make_preprocess_fn(spec, True)
+    with torch.no_grad():
+        images, labels = pp(*host.to(device), params=params)
+        cpu_images, cpu_labels = pp(*host.to("cpu"), params=params)
+    d = (images.cpu() - cpu_images).abs()
+    share = float((d > 1e-3).float().mean())
+    lab_err = max(float((a.cpu() - b_).abs().max())
+                  for a, b_ in zip(labels, cpu_labels))
+    print(f"preprocess card vs CPU (B={b}, fp32): images max_abs_err "
+          f"{float(d.max()):.3g}, {share:.2e} of them above 1e-3; labels "
+          f"max_abs_err {lab_err:.3g}")
+    if float(d.max()) > PIXEL_TOL or share > PIXEL_SHARE or lab_err > 1e-6:
+        raise AssertionError("card and CPU preprocess differ")
+
+    cpu = torch.device("cpu")
+
+    def one_step(net, dev, imgs):
+        state = TT.create_train_state(copy.deepcopy(net), cfg_b, dev)
+        state, logs = TT.make_train_step(spec, cfg_b)(
+            state, imgs.to(dev), [lab.to(dev) for lab in labels])
+        return logs, {n: p.grad.cpu() for n, p in
+                      state.net.named_parameters()}
+
+    def grad_err(got, want):
+        return {n: float((got[n] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30) for n, g in want.items()}
+
+    def same_losses(what, card_logs, cpu_logs):
+        for k in ["loss"] + [f"l{l + 1}_loss" for l in range(2)]:
+            a, b_ = float(card_logs[k]), float(cpu_logs[k])
+            print(f"train step card vs CPU (B={b}, fp32, {what}): {k} "
+                  f"{a:.6f} vs {b_:.6f} (rel {abs(a - b_) / abs(b_):.2e})")
+            if abs(a - b_) > STEP_RTOL * abs(b_):
+                raise AssertionError(f"{what} {k}: card and CPU differ")
+
+    # the witness: smooth activations, every gradient at GRAD_TOL
+    smooth = smooth_activations(init_net)
+    card_logs, card = one_step(smooth, device, images)
+    cpu_logs, ref = one_step(smooth, cpu, images)
+    same_losses("smooth witness", card_logs, cpu_logs)
+    errs = grad_err(card, ref)
+    worst = sorted(errs, key=errs.get, reverse=True)
+    print(f"train step card vs CPU (smooth witness): gradient error (max "
+          f"difference over the CPU gradient's largest entry) at most "
+          f"{errs[worst[0]]:.2e} against {GRAD_TOL} flat, {len(errs)} "
+          f"parameters; worst 3: "
+          + ", ".join(f"{n} {errs[n]:.2e}" for n in worst[:3]))
+    if errs[worst[0]] > GRAD_TOL:
+        raise AssertionError("smooth witness: gradients differ between card "
+                             "and CPU")
+    activations_card_vs_cpu(device)
+
+    # the net as trained
+    card_logs, card = one_step(init_net, device, images)
+    cpu_logs, ref = one_step(init_net, cpu, images)
+    same_losses("as trained", card_logs, cpu_logs)
+    noise_gen = torch.Generator().manual_seed(9)
+    cpu_images = images.cpu()
+    spread = dict.fromkeys(ref, 0.0)
+    for _ in range(NOISE_DRAWS):
+        noisy = cpu_images * (1 + 2.0 ** -23 * torch.randn(
+            cpu_images.shape, generator=noise_gen))
+        for n, e in grad_err(one_step(init_net, cpu, noisy)[1], ref).items():
+            spread[n] = max(spread[n], e)
+    errs = grad_err(card, ref)
+    limit = {n: min(GRAD_TOL + ENVELOPE * spread[n], GRAD_CAP) for n in ref}
+    rows = sorted(((errs[n] / limit[n], n) for n in ref), reverse=True)
+    loose = [n for n in ref if limit[n] > 2 * GRAD_TOL]
+    print(f"train step card vs CPU (as trained): gradient error against "
+          f"min({GRAD_TOL} + {ENVELOPE} x CPU spread under {NOISE_DRAWS} "
+          f"one-ulp input perturbations, {GRAD_CAP}); {len(loose)} of "
+          f"{len(rows)} parameters held looser than {2 * GRAD_TOL} (limits "
+          f"up to {max(limit.values()):.3g}, "
+          f"{sum(limit[n] == GRAD_CAP for n in ref)} at the cap); worst 3: "
+          + ", ".join(f"{n} {errs[n]:.2e} (spread {spread[n]:.2e}, "
+                      f"{r:.2f} of limit)" for r, n in rows[:3]))
+    out = [n for n in errs if ".dark_conv_out." in n]
+    print(f"train step card vs CPU (as trained): largest gradient error "
+          f"{max(errs.values()):.2e} (the {len(out)} output-conv parameters: "
+          f"{max(errs[n] for n in out):.2e}), largest CPU spread "
+          f"{max(spread.values()):.2e} (output convs: "
+          f"{max(spread[n] for n in out):.2e})")
+    if rows[0][0] > 1.0:
+        raise AssertionError("gradients differ between card and CPU")
+
+
+def train_phases(device, tag):
+    """Phases 7-9.  Returns the rotation kernel's JSON fields."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch import voc_spec
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.data.annotations import (
+        split_train_test,
+    )
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    # ---- 7. rotation kernel against its plain version -------------------
+    rot_err = rotate_phase(device)
+
+    # ---- 8. the train slice ---------------------------------------------
+    spec = voc_spec()
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, max_epochs=1, augment=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ann = PL.synthetic_ann_list(tmp, n=256, class_num=spec.class_num)
+        print(f"train data: {len(ann)} synthetic JPEGs written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        train_ann, test_ann = split_train_test(ann, 0.5)
+        train_it = iter(PL.DataPipeline(train_ann, TRAIN_BATCH, seed=0))
+        test_it = iter(PL.DataPipeline(test_ann, TRAIN_BATCH, seed=1))
+        net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                            spec.class_num, alpha=0.75,
+                            generator=torch.Generator().manual_seed(0))
+        init_net = copy.deepcopy(net)
+        before = {k: v.clone() for k, v in net.state_dict().items()}
+        pp_train = PL.make_preprocess_fn(spec, cfg.augment, torch.bfloat16)
+        pp_test = PL.make_preprocess_fn(spec, False, torch.bfloat16)
+        scalars = []
+
+        TR.rotate_3shear.launches = 0
+        state = TT.fit(net, spec, cfg, train_it, test_it, pp_train, pp_test,
+                       3, 1, device=device,
+                       generator=torch.Generator().manual_seed(cfg.rand_seed),
+                       compute_dtype=torch.bfloat16,
+                       log_fn=lambda line: print(f"  fit: {line}"),
+                       scalar_logger=lambda s, d: scalars.append((s, d)))
+        torch.cuda.synchronize()
+        rot_launches = TR.rotate_3shear.launches
+        print(f"train slice: rotate kernel launches {rot_launches} in 3 "
+              f"train steps")
+        if rot_launches != 3:
+            raise AssertionError("the rotate kernel did not run once per "
+                                 "train step")
+        if [s for s, _ in scalars] != [1, 2, 3] or not all(
+                np.isfinite(v) for _, d in scalars for v in d.values()):
+            raise AssertionError(f"logged scalars: {scalars}")
+        after = net.state_dict()
+        moved = {kind: [not torch.equal(after[k].cpu(), before[k])
+                        for k in before if k.endswith(suffix)]
+                 for kind, suffix in (("params", ("weight", "bias")),
+                                      ("BN running stats",
+                                       ("running_mean", "running_var")))}
+        for kind, flags in moved.items():
+            print(f"train slice: {sum(flags)} of {len(flags)} {kind} moved")
+            if not all(flags):
+                raise AssertionError(f"some {kind} did not move")
+
+        hb = next(train_it).to(device)
+        with torch.no_grad():
+            images, labels = pp_train(
+                *hb, generator=torch.Generator().manual_seed(1))
+        step = TT.make_train_step(spec, cfg, torch.bfloat16)
+        losses = []
+        for _ in range(FIXED_STEPS):
+            state, logs = step(state, images, labels)
+            losses.append(logs["loss"])
+        losses = torch.stack(losses).tolist()
+        print(f"train slice: {FIXED_STEPS} steps on one batch: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({losses[-1] / losses[0]:.3f}x); min {min(losses):.4f}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError("the loss did not fall on a fixed batch")
+
+        host = next(train_it)
+        # stop the loader threads (and their prefetch) before anything is
+        # timed: they would share the host's cores with the timed calls
+        train_it.close()
+        test_it.close()
+        card_vs_cpu_step(device, spec, cfg, init_net,
+                         PL.HostBatch(*(a[:8] for a in host)))
+
+        # ---- 9. times ----------------------------------------------------
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            pp_ms = time_ms(lambda: pp_train(*hb, generator=gen), 10)
+            images, labels = pp_train(*hb, generator=gen)
+        step_ms = time_ms(lambda: step(state, images, labels), 10)
+        fused = TT.make_fused_train_step(spec, cfg, pp_train, torch.bfloat16)
+        fused_ms = time_ms(lambda: fused(state, *hb, gen), 10)
+        print(f"train b{TRAIN_BATCH} bf16: preprocess {pp_ms:.3f} ms, step "
+              f"{step_ms:.3f} ms; preprocess+step {fused_ms:.3f} ms = "
+              f"{TRAIN_BATCH * 1e3 / fused_ms:.1f} train imgs/s {tag}")
+        loader = iter(PL.DataPipeline(ann, TRAIN_BATCH, seed=5))
+        next(loader)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            next(loader)
+        dt = time.perf_counter() - t0
+        print(f"DataPipeline host loader: {8 * TRAIN_BATCH / dt:.1f} imgs/s "
+              f"(8 batches of {TRAIN_BATCH}, 512x512 canvases, "
+              f"{PL.DataPipeline(ann, 1, 0).num_workers} threads) {tag}")
+        loader.close()      # stop its threads before the files go
+
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(rng.integers(0, 256, (ROT_N, *spec.in_hw, 3))
+                            .astype(np.float32)).to(device).to(torch.bfloat16)
+    tables = TR.shear_tables(torch.from_numpy(np.deg2rad(
+        rng.uniform(-10, 10, ROT_N)).astype(np.float32)).to(device),
+        *spec.in_hw, torch.bfloat16)
+    plain = lambda: TR._rotate_plain(imgs, tables)  # noqa: E731
+    kern = lambda: TR._launch(imgs, tables)  # noqa: E731
+    p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 20),
+                      time_ms(kern, 20), time_ms(plain, 5))
+    print(f"rotate N={ROT_N} 224x320x3 bf16: kernel {k1:.4f}/{k2:.4f} ms, "
+          f"plain {p1:.4f}/{p2:.4f} ms {tag}")
+
+    n_kernels, dev_ms, by_cat, top = kernel_profile(
+        lambda: fused(state, *hb, gen), iters=3)
+    if n_kernels == 0:
+        print(f"profile train step: the profiler recorded no device events; "
+              f"device time not measured {tag}")
+    else:
+        cats = ", ".join(f"{k} {v:.3f} ms" for k, v in by_cat.items())
+        print(f"profile train step b{TRAIN_BATCH} bf16: {n_kernels:g} "
+              f"kernels/step, device {dev_ms:.3f} ms/step of {fused_ms:.3f} "
+              f"ms timed (busy share {dev_ms / fused_ms:.3f}); {cats} {tag}")
+        for name, ms, count in top:
+            print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
+    return {"launches": rot_launches, "max_abs_err": rot_err,
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+
+
 def main() -> int:
     import torch
 
@@ -227,11 +640,15 @@ def run(device) -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path, log = _build.build("yolo_head")
-    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    names = ("yolo_head", "rotate3shear")
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc each, together
+        built = dict(zip(names, pool.map(_build.build, names)))
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, (lib_path, log) in built.items():
+        print(f"  {name}: {lib_path.name}")
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
 
     # ---- 3. kernel against its plain version ---------------------------
     spec = voc_spec()
@@ -415,6 +832,8 @@ def run(device) -> int:
         for name, ms, count in top:
             print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
 
+    rot = train_phases(device, tag)
+
     k_ms, p_ms = head_times["slice"]
     print(json.dumps({"kernels": [{
         "name": "yolo_head_decode_nms",
@@ -425,6 +844,12 @@ def run(device) -> int:
         "max_abs_err": max(max_err, slice_err),
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "rotate3shear",
+        "route": "cuda",
+        "source": "k210_yolo_framework_tpu_torch/csrc/rotate3shear.cu",
+        "replaces": "k210_yolo_framework_tpu/ops/rotate_pallas.py:113",
+        **rot,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,16 @@ The JAX package ``k210_yolo_framework_tpu`` is the reference this package is
 held against.  Module names mirror it so each counterpart is easy to find:
 
     config          re-export of the numpy-only ``YoloSpec`` / ``voc_spec``
-    ops             letterbox, NMS result type, greedy selection, and the
-                    fused decode+NMS head (plain torch + a CUDA kernel)
-    models          yolo_mobilev1 forward (eval) as ``nn.Module``s
-    training        weight bridge between the native h5 layout and torch
+                    / ``TrainConfig``
+    ops             letterbox, boxes, label codec, augment, NMS result
+                    type, greedy selection, and two kernels with their
+                    plain torch versions: the fused decode+NMS head and
+                    the augment's 3-shear rotation
+    data            annotation lists, the threaded JPEG loader and the
+                    on-device preprocess
+    models          yolo_mobilev1 (train and eval) as ``nn.Module``s
+    training        loss, P/R metrics, Adam train step and ``fit``, and the
+                    weight bridge between the native h5 layout and torch
     inference       ``Predictor``: batched and single-image serving
     csrc            hand-written CUDA C++ kernels (built at first use)
 

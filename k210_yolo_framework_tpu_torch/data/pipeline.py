@@ -1,0 +1,183 @@
+"""Input pipeline: threaded host JPEG decode, then one on-device preprocess.
+
+Counterpart of ``k210_yolo_framework_tpu/data/pipeline.py`` (``HostBatch``,
+``stage_image``, ``make_preprocess_fn``, the thread path of
+``DataPipeline``, ``synthetic_ann_list``).  Host threads only decode each
+JPEG into a fixed zero canvas with its true (h, w) and the padded gt boxes.
+The device then letterboxes, augments (training), normalises each image by
+its max and encodes the grid labels, batched.
+
+The shuffle is the JAX package's: an infinite pass over the list with a
+numpy-seeded permutation per epoch, so the two loaders yield the same
+batches for the same seed.  The native C++ loader is not ported:
+``DataPipeline(use_native=True)`` raises.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from k210_yolo_framework_tpu_torch.config import YoloSpec
+from k210_yolo_framework_tpu_torch.data.annotations import read_image
+from k210_yolo_framework_tpu_torch.ops import augment as A
+from k210_yolo_framework_tpu_torch.ops import codec as C
+from k210_yolo_framework_tpu_torch.ops import letterbox as LB
+
+__all__ = ["CANVAS_HW", "HostBatch", "stage_image", "make_preprocess_fn",
+           "DataPipeline", "synthetic_ann_list"]
+
+# Staging canvas: covers the raw dataset (VOC images are <= 500 px a side).
+CANVAS_HW = (512, 512)
+
+
+class HostBatch(NamedTuple):
+    """What the host hands the device, all fixed-shape numpy arrays (or,
+    after :meth:`to`, tensors)."""
+
+    canvases: np.ndarray  # [B, canvas_h, canvas_w, 3] uint8
+    img_hws: np.ndarray   # [B, 2] int32 true (h, w)
+    boxes: np.ndarray     # [B, MAX_BOXES, 5] float32 (class, x, y, w, h)
+    valid: np.ndarray     # [B, MAX_BOXES] bool
+
+    def to(self, device) -> "HostBatch":
+        """The same batch as tensors on ``device``."""
+        return HostBatch(*(torch.as_tensor(np.asarray(a)).to(device)
+                           for a in self))
+
+
+def stage_image(img: np.ndarray, canvas_hw: Tuple[int, int]):
+    """Place ``img`` top-left in a zero canvas; an oversized image is first
+    shrunk on the host (PIL bilinear) to fit.  Returns (canvas, (h, w))."""
+    h, w = img.shape[:2]
+    ch, cw = canvas_hw
+    if h > ch or w > cw:
+        from PIL import Image
+
+        s = min(ch / h, cw / w)
+        nh, nw = max(1, int(h * s)), max(1, int(w * s))
+        img = np.asarray(Image.fromarray(img).resize((nw, nh),
+                                                     Image.BILINEAR))
+        h, w = nh, nw
+    canvas = np.zeros((ch, cw, 3), np.uint8)
+    canvas[:h, :w] = img
+    return canvas, np.array([h, w], np.int32)
+
+
+def make_preprocess_fn(spec: YoloSpec, is_training: bool,
+                       dtype: Optional[torch.dtype] = None) -> Callable:
+    """The on-device preprocess:
+
+    (canvases u8 [B, Ch, Cw, 3], img_hws [B, 2], boxes [B, N, 5],
+     valid [B, N], generator=None, params=None)
+      -> (images [B, in_h, in_w, 3] of ``dtype``, per-layer labels)
+
+    letterbox -> augment (training only; draws from ``generator`` or takes
+    ``params``, see ``ops/augment.py``) -> per-image /max -> label encode.
+    ``dtype`` (default float32) is the pixel dtype of letterbox, augment
+    and normalise; pass bfloat16 when the net computes in bf16.  Box and
+    label math stays fp32."""
+    dtype = dtype or torch.float32
+
+    def preprocess(canvases, img_hws, boxes, valid, generator=None,
+                   params=None):
+        imgs = LB.letterbox_image(canvases, img_hws, spec.in_hw, dtype)
+        boxes = LB.letterbox_boxes(boxes.to(torch.float32), img_hws,
+                                   spec.in_hw)
+        if is_training:
+            imgs, boxes, valid = A.augment_batch(imgs, boxes, valid,
+                                                 generator=generator,
+                                                 params=params)
+        return (LB.normalize_images(imgs),
+                tuple(C.encode_labels_batch(boxes, valid, spec)))
+
+    return preprocess
+
+
+class DataPipeline:
+    """Seeded, infinite, threaded loader over an annotation list; iterating
+    yields :class:`HostBatch`es."""
+
+    def __init__(self, ann_list: np.ndarray, batch_size: int, seed: int,
+                 canvas_hw=CANVAS_HW, num_workers: Optional[int] = None,
+                 prefetch: int = 4, use_native: Optional[bool] = None):
+        if len(ann_list) == 0:
+            raise ValueError("empty annotation list")
+        if use_native:
+            raise NotImplementedError(
+                "the native C++ loader is not ported yet; use the thread "
+                "path (use_native=None or False)")
+        if num_workers is None:
+            num_workers = min(8, max(2, os.cpu_count() or 1))
+        self.ann_list = ann_list
+        self.batch_size = batch_size
+        self.seed = seed
+        self.canvas_hw = canvas_hw
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.epoch_step = len(ann_list) // batch_size
+
+    def _load_one(self, row):
+        path, boxes, _hw = row
+        canvas, img_hw = stage_image(read_image(str(path)), self.canvas_hw)
+        padded, valid = C.pad_boxes(np.copy(boxes))
+        return canvas, img_hw, padded, valid
+
+    def _index_stream(self) -> Iterator[int]:
+        rng = np.random.default_rng(self.seed)
+        while True:
+            for i in rng.permutation(len(self.ann_list)):
+                yield int(i)
+
+    def __iter__(self) -> Iterator[HostBatch]:
+        stream = self._index_stream()
+        # no context manager: a dropped infinite generator must not block
+        # in a join at teardown, so shut down without waiting
+        pool = ThreadPoolExecutor(self.num_workers)
+        try:
+            def submit_batch():
+                idxs = [next(stream) for _ in range(self.batch_size)]
+                return [pool.submit(self._load_one, self.ann_list[i])
+                        for i in idxs]
+
+            pending = [submit_batch() for _ in range(self.prefetch)]
+            while True:
+                futs = pending.pop(0)
+                pending.append(submit_batch())
+                items = [f.result() for f in futs]
+                yield HostBatch(*(np.stack(x) for x in zip(*items)))
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+def synthetic_ann_list(tmpdir: str, n: int = 24, class_num: int = 20,
+                       seed: int = 0) -> np.ndarray:
+    """A small self-contained dataset: smooth photo-like JPEGs written to
+    ``tmpdir`` and random boxes, in the annotation row format.  The same
+    seed gives the JAX package's files and rows."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        h = int(rng.integers(200, 500))
+        w = int(rng.integers(200, 500))
+        yy = np.linspace(0, 3 * np.pi, h)[:, None]
+        xx = np.linspace(0, 3 * np.pi, w)[None, :]
+        phase = rng.uniform(0, np.pi, (3,))
+        base = np.stack([np.sin(yy + p) * np.cos(xx - p) for p in phase], -1)
+        img = ((base * 0.5 + 0.5) * 220 + rng.normal(0, 6, (h, w, 3)))
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        path = f"{tmpdir}/img_{i}.jpg"
+        Image.fromarray(img).save(path, quality=90)
+        nb = int(rng.integers(1, 6))
+        cls = rng.integers(0, class_num, (nb, 1)).astype(float)
+        xy = rng.uniform(0.2, 0.8, (nb, 2))
+        wh = rng.uniform(0.1, 0.4, (nb, 2))
+        rows.append(np.array([path, np.hstack([cls, xy, wh]),
+                              np.array([h, w])], dtype=object))
+    return np.array(rows, dtype=object)

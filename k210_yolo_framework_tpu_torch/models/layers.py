@@ -1,4 +1,4 @@
-"""Conv building blocks, eval path, as ``nn.Module``s.
+"""Conv building blocks as ``nn.Module``s, for serving and training.
 
 Counterpart of ``k210_yolo_framework_tpu/models/layers.py`` (``ConvBN``,
 ``DarknetConvBN``, ``darknet_head_conv``, ``leaky_relu``, ``relu6``,
@@ -7,7 +7,11 @@ Counterpart of ``k210_yolo_framework_tpu/models/layers.py`` (``ConvBN``,
 
 Where the rounding happens follows flax: each conv casts its input and its
 weights to the compute ``dtype`` and returns that dtype; BatchNorm runs in
-fp32 (eval mode, running statistics, eps 1e-3) and so do the activations.
+fp32 (eps 1e-3) and so do the activations.  ``module.train()`` puts
+BatchNorm on batch statistics (flax's ``train=True``), ``.eval()`` on the
+running ones.  Under ``torch.no_grad()`` / ``inference_mode`` BatchNorm and
+the activations work in place on the fresh conv output, which serving
+relies on; with gradients on they are out of place, as autograd needs.
 Parameter names follow the flax scopes (``conv.weight`` for ``conv/kernel``,
 ``bn.weight`` for ``bn/scale``), so ``training/checkpoint.py`` maps a native
 checkpoint mechanically.
@@ -27,22 +31,48 @@ __all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN",
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
 _BN_EPS = 1e-3  # keras BatchNormalization's default, as the reference uses
+_BN_MOMENTUM = 0.99  # yolo_mobilev1's, the one builder ported
+
+
+class _LeakyReLU(torch.autograd.Function):
+    """LeakyReLU whose gradient is ``where(x >= 0, g, alpha * g)``: slope 1
+    at x == 0, as the JAX package pins it (its custom_jvp; TF's gradient).
+    ``F.leaky_relu`` gives alpha there and ``torch.maximum(x, alpha * x)``
+    splits the tie.  The backward reads the output, whose sign is the
+    input's for alpha > 0, so no extra tensor is kept."""
+
+    @staticmethod
+    def forward(ctx, x, alpha):
+        y = F.leaky_relu(x, alpha)
+        ctx.alpha = alpha
+        ctx.save_for_backward(y if alpha > 0 else x)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (sign_of,) = ctx.saved_tensors
+        return torch.where(sign_of >= 0, g, g * ctx.alpha), None
 
 
 def leaky_relu(alpha: float) -> Callable[[torch.Tensor], torch.Tensor]:
-    """LeakyReLU, in place on the fp32 BN output.  Equal to the JAX
-    package's ``max(x, alpha * x)`` for ``0 <= alpha <= 1``."""
+    """LeakyReLU on the fp32 BN output, equal to the JAX package's
+    ``max(x, alpha * x)`` for ``0 <= alpha <= 1``: in place without
+    gradients, else through :class:`_LeakyReLU`."""
     if not 0.0 <= alpha <= 1.0:
         raise ValueError(f"leaky_relu needs 0 <= alpha <= 1, got {alpha}")
 
     def act(x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled():
+            return _LeakyReLU.apply(x, alpha)
         return F.leaky_relu(x, alpha, inplace=True)
 
     return act
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return F.relu(x, inplace=True)
+    """ReLU (gradient 0 at x == 0 in both frameworks); in place without
+    gradients."""
+    return F.relu(x, inplace=not torch.is_grad_enabled())
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -91,8 +121,15 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channels, in fp32, in flax's order:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """BatchNorm over channels in fp32, in flax's order:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+
+    In train mode (flax 0.12's ``use_fast_variance``) the statistics are
+    the batch's, ``mean = E[x]`` and the biased ``var = max(0, E[x^2] -
+    E[x]^2)`` over (N, H, W) in fp32, and each call moves the running ones:
+    ``r = m * r + (1 - m) * batch`` with m = 0.99.  ``F.batch_norm`` would
+    store the unbiased variance, so the statistics are written out here.
+    In eval mode the running statistics normalise."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -102,8 +139,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + _BN_EPS) * self.weight
-        y = x.to(torch.float32) - self.running_mean[:, None, None]
+        x = x.to(torch.float32)
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                                  0.0)
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + _BN_EPS) * self.weight
+        y = x - mean[:, None, None]
+        if torch.is_grad_enabled():
+            return y * mul[:, None, None] + self.bias[:, None, None]
         return y.mul_(mul[:, None, None]).add_(self.bias[:, None, None])
 
 

@@ -1,4 +1,4 @@
-"""K210-modified MobileNetV1 backbone, eval path.
+"""K210-modified MobileNetV1 backbone.
 
 Counterpart of ``k210_yolo_framework_tpu/models/mobilenet_v1.py``, with the
 reference fork's deviations from stock MobileNet:

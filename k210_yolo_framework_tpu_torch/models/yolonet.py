@@ -1,9 +1,12 @@
-"""YOLO network builders, eval path.
+"""YOLO network builders.
 
 Counterpart of ``k210_yolo_framework_tpu/models/yolonet.py``.  A built net
 takes NHWC images and returns, per output layer (layer 0 = coarsest grid =
 biggest anchors), the raw head outputs ``[B, h, w, a * (5 + C)]``
-(``forward_raw``) or their ``[B, h, w, a, 5 + C]`` view (``forward``).
+(``forward_raw``) or their ``[B, h, w, a, 5 + C]`` view (``forward``), in
+the compute ``dtype``.  ``net.train()`` is the JAX package's
+``apply(..., train=True)``: BatchNorm on batch statistics, running
+statistics updated in place; ``net.eval()`` serves.
 
 Only ``yolo_mobilev1`` is ported so far; ``build_network`` names the others
 and raises ``NotImplementedError`` for them.
@@ -57,6 +60,8 @@ class _TwoScaleHead(nn.Module):
 
 class YoloNet(nn.Module):
     """A built detector: NHWC images in, per-layer head outputs out."""
+
+    n_out_layers = 2
 
     def __init__(self, anchor_num: int, class_num: int,
                  in_hw: Sequence[int]):

@@ -16,7 +16,8 @@ from typing import Tuple
 import torch
 
 __all__ = ["letterbox_params", "weight_mat", "letterbox_image",
-           "normalize_image"]
+           "letterbox_boxes", "correct_boxes", "normalize_image",
+           "normalize_images"]
 
 
 @functools.lru_cache(maxsize=16)
@@ -85,7 +86,51 @@ def letterbox_image(canvases: torch.Tensor, img_hws: torch.Tensor,
     return out.to(dtype).contiguous()
 
 
+def letterbox_boxes(boxes: torch.Tensor, img_hws: torch.Tensor,
+                    in_hw: Tuple[int, int]) -> torch.Tensor:
+    """Move boxes [B, N, 5] (class, x, y, w, h), normalised to each original
+    image ``img_hws [B, 2]``, through that image's letterbox affine."""
+    img_wh = img_hws.flip(-1).to(torch.float32)[:, None, :]         # [B, 1, 2]
+    in_wh = _const((float(in_hw[1]), float(in_hw[0])), boxes.device)
+    scale, translation = letterbox_params(img_hws, in_hw)
+    scale = scale[:, None, None]
+    xy = (boxes[..., 1:3] * img_wh * scale + translation[:, None, :]) / in_wh
+    wh = boxes[..., 3:5] * img_wh * scale / in_wh
+    return torch.cat([boxes[..., 0:1], xy, wh], dim=-1)
+
+
+def correct_boxes(box_xy: torch.Tensor, box_wh: torch.Tensor,
+                  in_hw: Tuple[int, int],
+                  image_hws: torch.Tensor) -> torch.Tensor:
+    """Undo the letterbox: normalised net-scale xy / wh [B, ..., 2] ->
+    original-image yxyx pixels [B, ..., 4], for images of size
+    ``image_hws [B, 2]``.  Like the reference's ``correct_box`` it
+    recomputes the pad with ``round`` (half to even) rather than the
+    forward's truncation; extents clamp at 1."""
+    box_yx = box_xy.flip(-1)
+    box_hw = box_wh.flip(-1)
+    input_shape = _const((float(in_hw[0]), float(in_hw[1])), box_xy.device)
+    image_shape = image_hws.to(torch.float32)                       # [B, 2]
+    new_shape = torch.clamp_min(torch.round(image_shape * torch.amin(
+        input_shape / image_shape, dim=-1, keepdim=True)), 1.0)
+    lead = (image_shape.shape[0],) + (1,) * (box_xy.ndim - 2) + (2,)
+    offset = ((input_shape - new_shape) / 2.0 / input_shape).reshape(lead)
+    scale = (input_shape / new_shape).reshape(lead)
+    box_yx = (box_yx - offset) * scale
+    box_hw = box_hw * scale
+    boxes = torch.cat([box_yx - box_hw / 2.0, box_yx + box_hw / 2.0], dim=-1)
+    return boxes * torch.cat([image_shape, image_shape], -1).reshape(
+        lead[:-1] + (4,))
+
+
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
     """``img / max(img)`` over the whole tensor (not /255), as the
     reference normalises one image."""
     return img / torch.clamp_min(torch.amax(img), 1e-12)
+
+
+def normalize_images(imgs: torch.Tensor) -> torch.Tensor:
+    """``normalize_image`` of each image of a batch [B, H, W, C], in the
+    batch's dtype."""
+    peak = torch.amax(imgs, dim=tuple(range(1, imgs.ndim)), keepdim=True)
+    return imgs / torch.clamp_min(peak, 1e-12)

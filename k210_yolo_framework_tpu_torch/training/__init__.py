@@ -1,1 +1,2 @@
-"""Checkpoint bridge (training itself is not ported yet)."""
+"""Loss, P/R metrics, the Adam train step and `fit`, and the checkpoint
+bridge."""

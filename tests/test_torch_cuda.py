@@ -1,4 +1,6 @@
-"""The port's CUDA head kernel against its plain PyTorch version, on a GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU:
+the fused decode+NMS head and the augment's 3-shear rotation, and a train
+step on the card against the same step on the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports nothing of JAX, so it also runs where JAX is not
@@ -6,18 +8,28 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances are those of ``tests/test_yolo_head_pallas.py``; ``valid`` may
-differ only where a score lies within 1e-5 of the threshold.
+Head tolerances are those of ``tests/test_yolo_head_pallas.py``; ``valid``
+may differ only where a score lies within 1e-5 of the threshold.  The
+rotation kernel must equal its plain version bit for bit (both take the
+same per-line tables and round alike).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from k210_yolo_framework_tpu_torch.config import YoloSpec, voc_spec
+from k210_yolo_framework_tpu_torch.config import (
+    VOC_ANCHORS,
+    TrainConfig,
+    YoloSpec,
+    voc_spec,
+)
 from k210_yolo_framework_tpu_torch.inference import Predictor
 from k210_yolo_framework_tpu_torch.models import build_network
+from k210_yolo_framework_tpu_torch.ops import augment as TA
+from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
 from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+from k210_yolo_framework_tpu_torch.training import train as TT
 
 pytestmark = pytest.mark.cuda
 
@@ -137,3 +149,95 @@ def test_predictor_on_card_uses_the_kernel(dev):
     preds = pred._forward_batch(c, h)
     _close(pred._head(preds, h),
            TH.fused_decode_nms_reference(preds, spec, h, 0.2, 0.3, 30), 0.2)
+
+
+@pytest.mark.parametrize("n,h,w,dtype", [(42, 224, 320, torch.float32),
+                                         (42, 224, 320, torch.bfloat16),
+                                         (6, 96, 96, torch.float32),
+                                         (3, 24, 32, torch.bfloat16)])
+def test_rotate_kernel_matches_plain_bit_for_bit(dev, n, h, w, dtype):
+    rng = np.random.default_rng(5)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (n, h, w, 3)).astype(
+        np.float32)).to(dev).to(dtype)
+    thetas = np.deg2rad(rng.uniform(-10, 10, n)).astype(np.float32)
+    thetas[:3] = [np.deg2rad(10.0), -np.deg2rad(10.0), 0.0]
+    thetas = torch.from_numpy(thetas).to(dev)
+    before = TR.rotate_3shear.launches
+    got = TR.rotate_3shear(imgs, thetas)
+    torch.cuda.synchronize()
+    assert TR.rotate_3shear.launches == before + 1
+    tables = TR.shear_tables(thetas, h, w, dtype)
+    want = TR._rotate_plain(imgs, tables)
+    assert got.dtype == dtype and got.shape == imgs.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got[2], imgs[2])          # theta 0
+
+
+def test_rotate_wrapper_rejects_bad_inputs(dev):
+    imgs = torch.zeros((2, 24, 32, 3), device=dev)
+    tables = TR.shear_tables(torch.zeros(2, device=dev), 24, 32,
+                             torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        TR._launch(imgs.transpose(1, 2).contiguous().transpose(1, 2), tables)
+    with pytest.raises(ValueError, match="kx"):
+        TR._launch(imgs, tables._replace(kx=tables.kx[:1]))
+    with pytest.raises(ValueError, match="wy0"):
+        TR._launch(imgs, tables._replace(wy0=tables.wy0.cpu()))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TR.rotate_3shear(imgs.half(), torch.zeros(2, device=dev))
+
+
+def test_augment_on_card_runs_the_kernel_once(dev):
+    rng = np.random.default_rng(6)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (9, 64, 96, 3)).astype(
+        np.float32))
+    boxes = torch.from_numpy(np.concatenate(
+        [rng.integers(0, 3, (9, 4, 1)), rng.uniform(0.2, 0.8, (9, 4, 2)),
+         rng.uniform(0.1, 0.4, (9, 4, 2))], -1).astype(np.float32))
+    valid = torch.ones((9, 4), dtype=torch.bool)
+    params = TA.draw_params(9, (64, 96),
+                            generator=torch.Generator().manual_seed(1))
+    before = TR.rotate_3shear.launches
+    got = TA.augment_batch(imgs.to(dev), boxes.to(dev), valid.to(dev),
+                           params=params)
+    torch.cuda.synchronize()
+    assert TR.rotate_3shear.launches == before + 1
+    want = TA.augment_batch(imgs, boxes, valid, params=params)
+    # the rotation's tables come from tan / sin on each device, which may
+    # differ by an ulp: images atol 1e-3, as the CPU tests hold JAX
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=0, atol=1e-3)
+    for g, w_ in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w_)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One fp32 train step, TF32 off, card against CPU from the same
+    weights: losses rtol 1e-4, gradients within 1e-3 of each one's
+    largest entry (as the CPU tests hold the port to JAX)."""
+    spec = YoloSpec.create((64, 96), ((2, 3), (4, 6)), 3,
+                           np.asarray(VOC_ANCHORS))
+    cfg = TrainConfig(batch_size=4)
+    rng = np.random.default_rng(7)
+    images = torch.from_numpy(rng.uniform(0, 1, (4, 64, 96, 3)).astype(
+        np.float32))
+    labels = [torch.zeros((4, h, w, 3, 8)) for h, w in spec.out_hws]
+    labels[1][:, 1, 2, 0, :5] = torch.tensor([0.4, 0.3, 0.2, 0.3, 1.0])
+    labels[1][:, 1, 2, 0, 6] = 1.0
+    states, logs = [], []
+    for device in ("cpu", dev):
+        net = build_network("yolo_mobilev1", spec.in_hw, 3, 3, alpha=0.25,
+                            generator=torch.Generator().manual_seed(0))
+        state = TT.create_train_state(net, cfg, device)
+        state, lg = TT.make_train_step(spec, cfg)(
+            state, images.to(device), [l.to(device) for l in labels])
+        states.append(state)
+        logs.append(lg)
+    for k in ("loss", "l1_loss", "l2_loss"):
+        np.testing.assert_allclose(float(logs[1][k]), float(logs[0][k]),
+                                   rtol=1e-4, err_msg=k)
+    for (name, p_cpu), p_dev in zip(states[0].net.named_parameters(),
+                                    states[1].net.parameters()):
+        g0, g1 = p_cpu.grad, p_dev.grad.cpu()
+        scale = float(g0.abs().max())
+        assert float((g1 - g0).abs().max()) <= 1e-3 * scale + 1e-12, name

@@ -218,7 +218,7 @@ def test_darknet_conv_bn_stride2_matches_flax():
                 a = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
             flat[f"{group}/{key}"] = a
     want = mod.apply(_unflatten(flat), jnp.asarray(x))
-    port = TL.DarknetConvBN(6, 8, (3, 3), (2, 2))
+    port = TL.DarknetConvBN(6, 8, (3, 3), (2, 2)).eval()
     port.load_state_dict(TC.state_dict_from_flat(flat, port))
     with torch.inference_mode():
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
