@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA
-GPU.
+"""Drive the PyTorch port's serving, training and eval paths, and each of
+its four CUDA kernels on the path that runs it, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
   1. device: requires ``torch.cuda.is_available()``; prints the card's name
      and power limit as nvidia-smi reports them;
   2. build: compiles the port's CUDA kernels from the sources in this
-     checkout (``k210_yolo_framework_tpu_torch/csrc/yolo_head.cu`` and
-     ``rotate3shear.cu``), one nvcc each, started together;
+     checkout (``k210_yolo_framework_tpu_torch/csrc/yolo_head.cu``,
+     ``rotate3shear.cu``, ``nms.cu`` and ``dwsep.cu``; the first and third
+     share ``greedy_select.cuh``), one nvcc each, started together;
   3. the kernel against its plain PyTorch version on the card, at the
      serving shapes (VOC, B=128, N=1050, C=20), both score flavours, on
      sparse, dense, empty, NaN, tied and 3-scale (N=4410) inputs;
@@ -31,7 +32,8 @@ Phases (any failure raises and the script exits non-zero):
      224x320x3 in fp32 and in bf16 (the train batch's rotate slice at
      B=128) and 6 of 96x96x3, at thetas U(-10, 10) degrees plus exactly
      +-10 degrees, 0 and +-1e-4 rad;
-  8. the train slice: 256 synthetic JPEGs (20 classes) through
+  8. the train slice: 256 synthetic JPEGs (20 classes, written once for
+     phases 8, 9 and 13) through
      ``DataPipeline`` at batch 128 on 512x512 canvases, and ``fit`` of a
      seeded yolo_mobilev1 (alpha 0.75, VOC spec) in bf16 with augment on,
      for one epoch of 3 train steps and 1 validation step.  The rotation
@@ -46,12 +48,39 @@ Phases (any failure raises and the script exits non-zero):
   9. times: train preprocess and step at batch 128 in bf16 with the
      HostBatch on the card, the host loader's rate, the rotation kernel
      against its plain version at N=42 bf16, and a kernel profile of one
-     train step.
+     train step;
+ 10. NMS alone (``batched_nms_pallas``, ``csrc/nms.cu``) against its plain
+     version bit for bit, on phase 3's cases decoded by ``decode_outputs``,
+     both score flavours, at max_out 30 and at max_out 100 / threshold 0.01;
+ 11. the two-stage head on the slice: ``decode_outputs`` ->
+     ``batched_nms_pallas`` on each phase-4 scene's own bf16 logits at
+     B=128 (the NMS kernel must run once per call), against the fused head
+     kernel on the same logits (phase 3's tolerances, and as sets) and
+     against the export program's ``ops/nms.batched_nms`` at top_k = N;
+ 12. the fused dw-separable block (``fused_dwsep``, ``csrc/dwsep.cu``) on
+     the nine stride-1 blocks of the served net: each block's input from
+     the B=128 bf16 serving forward, its BN folded; the kernel (once per
+     block) against ``fused_dwsep_reference`` and against the block's own
+     output (0.05), then at B=8 in fp32 against the plain version (2e-5);
+ 13. VOC eval: ``eval.collect_detections`` / ``match_detections`` of a bf16
+     Predictor over the JPEGs at obj_thresh 0.01, iou_thresh 0.45,
+     max_out 100, batch 32 on 512x512 canvases (one head launch per batch,
+     a finite mAP, well-formed detections), its imgs/s with host staging,
+     and 8 images in fp32, card against CPU;
+ 14. times: NMS alone on the three scenes and the fused block on each of
+     the nine blocks, each against its plain version (plain, kernel,
+     kernel, plain); beside the fused block, the served net's own block
+     (BN and activations in fp32, fp32 output) and a bf16 cuDNN pair with
+     BN folded, on the same input.
+
+Beside every kernel time the script prints the bound it computes from the
+same inputs: the larger of the bytes the kernel must move over HBM's rate
+and its operations over the card's peak rate for their type (``bound``).
+Greedy NMS counts only the candidates each step has to test.
 
 The next-to-last line is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
-script imports only the port, whose one module from the JAX package is the
-numpy-only ``config``.
+script imports only the port, which imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -59,6 +88,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -455,10 +485,10 @@ def card_vs_cpu_step(device, spec, cfg, init_net, host):
         raise AssertionError("gradients differ between card and CPU")
 
 
-def train_phases(device, tag):
-    """Phases 7-9.  Returns the rotation kernel's JSON fields."""
+def train_phases(device, tag, ann):
+    """Phases 7-9 on the synthetic JPEGs of ``ann``.  Returns the rotation
+    kernel's JSON fields."""
     import copy
-    import tempfile
 
     import torch
 
@@ -478,96 +508,91 @@ def train_phases(device, tag):
     # ---- 8. the train slice ---------------------------------------------
     spec = voc_spec()
     cfg = TrainConfig(batch_size=TRAIN_BATCH, max_epochs=1, augment=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ann = PL.synthetic_ann_list(tmp, n=256, class_num=spec.class_num)
-        print(f"train data: {len(ann)} synthetic JPEGs written in "
-              f"{time.perf_counter() - t0:.1f} s")
-        train_ann, test_ann = split_train_test(ann, 0.5)
-        train_it = iter(PL.DataPipeline(train_ann, TRAIN_BATCH, seed=0))
-        test_it = iter(PL.DataPipeline(test_ann, TRAIN_BATCH, seed=1))
-        net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
-                            spec.class_num, alpha=0.75,
-                            generator=torch.Generator().manual_seed(0))
-        init_net = copy.deepcopy(net)
-        before = {k: v.clone() for k, v in net.state_dict().items()}
-        pp_train = PL.make_preprocess_fn(spec, cfg.augment, torch.bfloat16)
-        pp_test = PL.make_preprocess_fn(spec, False, torch.bfloat16)
-        scalars = []
+    train_ann, test_ann = split_train_test(ann, 0.5)
+    train_it = iter(PL.DataPipeline(train_ann, TRAIN_BATCH, seed=0))
+    test_it = iter(PL.DataPipeline(test_ann, TRAIN_BATCH, seed=1))
+    net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                        spec.class_num, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    init_net = copy.deepcopy(net)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    pp_train = PL.make_preprocess_fn(spec, cfg.augment, torch.bfloat16)
+    pp_test = PL.make_preprocess_fn(spec, False, torch.bfloat16)
+    scalars = []
 
-        TR.rotate_3shear.launches = 0
-        state = TT.fit(net, spec, cfg, train_it, test_it, pp_train, pp_test,
-                       3, 1, device=device,
-                       generator=torch.Generator().manual_seed(cfg.rand_seed),
-                       compute_dtype=torch.bfloat16,
-                       log_fn=lambda line: print(f"  fit: {line}"),
-                       scalar_logger=lambda s, d: scalars.append((s, d)))
-        torch.cuda.synchronize()
-        rot_launches = TR.rotate_3shear.launches
-        print(f"train slice: rotate kernel launches {rot_launches} in 3 "
-              f"train steps")
-        if rot_launches != 3:
-            raise AssertionError("the rotate kernel did not run once per "
-                                 "train step")
-        if [s for s, _ in scalars] != [1, 2, 3] or not all(
-                np.isfinite(v) for _, d in scalars for v in d.values()):
-            raise AssertionError(f"logged scalars: {scalars}")
-        after = net.state_dict()
-        moved = {kind: [not torch.equal(after[k].cpu(), before[k])
-                        for k in before if k.endswith(suffix)]
-                 for kind, suffix in (("params", ("weight", "bias")),
-                                      ("BN running stats",
-                                       ("running_mean", "running_var")))}
-        for kind, flags in moved.items():
-            print(f"train slice: {sum(flags)} of {len(flags)} {kind} moved")
-            if not all(flags):
-                raise AssertionError(f"some {kind} did not move")
+    TR.rotate_3shear.launches = 0
+    state = TT.fit(net, spec, cfg, train_it, test_it, pp_train, pp_test,
+                   3, 1, device=device,
+                   generator=torch.Generator().manual_seed(cfg.rand_seed),
+                   compute_dtype=torch.bfloat16,
+                   log_fn=lambda line: print(f"  fit: {line}"),
+                   scalar_logger=lambda s, d: scalars.append((s, d)))
+    torch.cuda.synchronize()
+    rot_launches = TR.rotate_3shear.launches
+    print(f"train slice: rotate kernel launches {rot_launches} in 3 "
+          f"train steps")
+    if rot_launches != 3:
+        raise AssertionError("the rotate kernel did not run once per "
+                             "train step")
+    if [s for s, _ in scalars] != [1, 2, 3] or not all(
+            np.isfinite(v) for _, d in scalars for v in d.values()):
+        raise AssertionError(f"logged scalars: {scalars}")
+    after = net.state_dict()
+    moved = {kind: [not torch.equal(after[k].cpu(), before[k])
+                    for k in before if k.endswith(suffix)]
+             for kind, suffix in (("params", ("weight", "bias")),
+                                  ("BN running stats",
+                                   ("running_mean", "running_var")))}
+    for kind, flags in moved.items():
+        print(f"train slice: {sum(flags)} of {len(flags)} {kind} moved")
+        if not all(flags):
+            raise AssertionError(f"some {kind} did not move")
 
-        hb = next(train_it).to(device)
-        with torch.no_grad():
-            images, labels = pp_train(
-                *hb, generator=torch.Generator().manual_seed(1))
-        step = TT.make_train_step(spec, cfg, torch.bfloat16)
-        losses = []
-        for _ in range(FIXED_STEPS):
-            state, logs = step(state, images, labels)
-            losses.append(logs["loss"])
-        losses = torch.stack(losses).tolist()
-        print(f"train slice: {FIXED_STEPS} steps on one batch: loss "
-              f"{losses[0]:.4f} -> {losses[-1]:.4f} "
-              f"({losses[-1] / losses[0]:.3f}x); min {min(losses):.4f}")
-        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-            raise AssertionError("the loss did not fall on a fixed batch")
+    hb = next(train_it).to(device)
+    with torch.no_grad():
+        images, labels = pp_train(
+            *hb, generator=torch.Generator().manual_seed(1))
+    step = TT.make_train_step(spec, cfg, torch.bfloat16)
+    losses = []
+    for _ in range(FIXED_STEPS):
+        state, logs = step(state, images, labels)
+        losses.append(logs["loss"])
+    losses = torch.stack(losses).tolist()
+    print(f"train slice: {FIXED_STEPS} steps on one batch: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"({losses[-1] / losses[0]:.3f}x); min {min(losses):.4f}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("the loss did not fall on a fixed batch")
 
-        host = next(train_it)
-        # stop the loader threads (and their prefetch) before anything is
-        # timed: they would share the host's cores with the timed calls
-        train_it.close()
-        test_it.close()
-        card_vs_cpu_step(device, spec, cfg, init_net,
-                         PL.HostBatch(*(a[:8] for a in host)))
+    host = next(train_it)
+    # stop the loader threads (and their prefetch) before anything is
+    # timed: they would share the host's cores with the timed calls
+    train_it.close()
+    test_it.close()
+    card_vs_cpu_step(device, spec, cfg, init_net,
+                     PL.HostBatch(*(a[:8] for a in host)))
 
-        # ---- 9. times ----------------------------------------------------
-        gen = torch.Generator().manual_seed(3)
-        with torch.no_grad():
-            pp_ms = time_ms(lambda: pp_train(*hb, generator=gen), 10)
-            images, labels = pp_train(*hb, generator=gen)
-        step_ms = time_ms(lambda: step(state, images, labels), 10)
-        fused = TT.make_fused_train_step(spec, cfg, pp_train, torch.bfloat16)
-        fused_ms = time_ms(lambda: fused(state, *hb, gen), 10)
-        print(f"train b{TRAIN_BATCH} bf16: preprocess {pp_ms:.3f} ms, step "
-              f"{step_ms:.3f} ms; preprocess+step {fused_ms:.3f} ms = "
-              f"{TRAIN_BATCH * 1e3 / fused_ms:.1f} train imgs/s {tag}")
-        loader = iter(PL.DataPipeline(ann, TRAIN_BATCH, seed=5))
+    # ---- 9. times ----------------------------------------------------
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        pp_ms = time_ms(lambda: pp_train(*hb, generator=gen), 10)
+        images, labels = pp_train(*hb, generator=gen)
+    step_ms = time_ms(lambda: step(state, images, labels), 10)
+    fused = TT.make_fused_train_step(spec, cfg, pp_train, torch.bfloat16)
+    fused_ms = time_ms(lambda: fused(state, *hb, gen), 10)
+    print(f"train b{TRAIN_BATCH} bf16: preprocess {pp_ms:.3f} ms, step "
+          f"{step_ms:.3f} ms; preprocess+step {fused_ms:.3f} ms = "
+          f"{TRAIN_BATCH * 1e3 / fused_ms:.1f} train imgs/s {tag}")
+    loader = iter(PL.DataPipeline(ann, TRAIN_BATCH, seed=5))
+    next(loader)
+    t0 = time.perf_counter()
+    for _ in range(8):
         next(loader)
-        t0 = time.perf_counter()
-        for _ in range(8):
-            next(loader)
-        dt = time.perf_counter() - t0
-        print(f"DataPipeline host loader: {8 * TRAIN_BATCH / dt:.1f} imgs/s "
-              f"(8 batches of {TRAIN_BATCH}, 512x512 canvases, "
-              f"{PL.DataPipeline(ann, 1, 0).num_workers} threads) {tag}")
-        loader.close()      # stop its threads before the files go
+    dt = time.perf_counter() - t0
+    print(f"DataPipeline host loader: {8 * TRAIN_BATCH / dt:.1f} imgs/s "
+          f"(8 batches of {TRAIN_BATCH}, 512x512 canvases, "
+          f"{PL.DataPipeline(ann, 1, 0).num_workers} threads) {tag}")
+    loader.close()
 
     rng = np.random.default_rng(4)
     imgs = torch.from_numpy(rng.integers(0, 256, (ROT_N, *spec.in_hw, 3))
@@ -596,8 +621,463 @@ def train_phases(device, tag):
             print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
+    rot_bound, rot_by = bound(2 * imgs.numel() * imgs.element_size(),
+                              (imgs.numel() * ROT_OPS, FP32_OPS_PER_S))
     return {"launches": rot_launches, "max_abs_err": rot_err,
-            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": rot_bound, "bound_by": rot_by, "library_ms": None}
+
+# ---- bounds: the least time the card could take for a kernel's work -------
+# NVIDIA's H100 SXM data sheet, at its 700 W limit (the card's own limit is
+# printed beside every time): HBM3 bytes/s, fp32 outside the tensor cores,
+# bf16 dense tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+# operations counted per unit of work (each add, multiply, compare, min,
+# max, divide, exp counted once):
+DECODE_OPS = 30        # per candidate: 3 sigmoids, 2 exps, letterbox inverse
+SCORE_OPS = 4          # per (candidate, class): sigmoid and product
+AREA_OPS = 5           # per candidate, once: a box's area
+PASS_OPS = 15          # per live candidate and greedy step: intersection,
+#                        union, divide, test, argmax
+LOAD_OPS = 1           # per (candidate, class) of NMS alone: the first argmax
+ROT_OPS = 9            # per element: three 2-tap interpolations
+DW_OPS = 22            # per (pixel, channel): 9 taps (18), folded BN, ReLU
+PW_EPILOGUE_OPS = 4    # per (pixel, output channel): folded BN, LeakyReLU
+
+
+def bound(nbytes: float, *ops_at_rate) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    HBM's rate and of each (operations, peak rate) pair's time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / rate * 1e3 for ops, rate in ops_at_rate)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def greedy_passes(res) -> int:
+    """Greedy steps the kernels ran for an NmsResult: one IoU pass per
+    winner kept (a row leaves its loop at its first winner below the
+    threshold)."""
+    return int(res.valid.sum())
+
+
+def live_tests(select) -> int:
+    """Candidate tests the greedy steps need on these inputs: ``select``
+    runs a plain version, whose per-step masks count, at each step of each
+    row still in its loop, the candidates not yet suppressed and at or
+    above the threshold.  Suppressed and sub-threshold candidates never
+    need testing again, so a bound counts only these."""
+    live = []
+    select(live)
+    return sum(live)
+
+
+def head_bound(bsz, n, classes, max_out, live):
+    nbytes = 4 * (bsz * n * (5 + classes) + 8 * n + 8 * bsz
+                  + bsz * classes * max_out * 5)
+    ops = bsz * n * (DECODE_OPS + AREA_OPS) + bsz * n * classes * SCORE_OPS \
+        + live * PASS_OPS
+    return bound(nbytes, (ops, FP32_OPS_PER_S))
+
+
+def nms_bound(bsz, n, classes, max_out, live):
+    nbytes = 4 * (bsz * n * 4 + bsz * n * classes + bsz * classes * max_out * 5)
+    ops = bsz * n * (classes * LOAD_OPS + AREA_OPS) + live * PASS_OPS
+    return bound(nbytes, (ops, FP32_OPS_PER_S))
+
+
+def dwsep_bound(x, cout):
+    """x [B, H, W, C] in its dtype: x read, the output written, the weights
+    read once; the depthwise stencil on CUDA cores, the pointwise product at
+    the tensor cores' rate for x's dtype (bf16) or fp32's."""
+    b, h, w, c = x.shape
+    px, elt = b * h * w, x.element_size()
+    nbytes = px * (c + cout) * elt + c * cout * elt + 4 * (9 * c + 2 * c
+                                                           + 2 * cout)
+    mm_rate = BF16_TC_OPS_PER_S if elt == 2 else FP32_OPS_PER_S
+    return bound(nbytes, (px * (c * DW_OPS + cout * PW_EPILOGUE_OPS),
+                          FP32_OPS_PER_S), (px * 2 * c * cout, mm_rate))
+
+
+def alternating(plain, kern, plain_iters, kern_iters):
+    """Times in the order plain, kernel, kernel, plain -> (kernel ms, plain
+    ms, the four times)."""
+    p1, k1, k2, p2 = (time_ms(plain, plain_iters), time_ms(kern, kern_iters),
+                      time_ms(kern, kern_iters), time_ms(plain, plain_iters))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def n_differing(got, want) -> int:
+    """Elements of two NmsResults that differ (NaN equal to NaN)."""
+    import torch
+
+    return sum(int((~((g == w) | (torch.isnan(g) & torch.isnan(w)))).sum())
+               if g.is_floating_point() else int((g != w).sum())
+               for g, w in zip(got, want))
+
+
+NMS_MAX_OUTS = ((30, None), (100, 0.01))   # (max_out, threshold or flavour's)
+
+
+def nms_kernel_phase(spec, spec3, device) -> float:
+    """Phase 10: NMS alone, kernel against its plain version bit for bit, on
+    phase 3's cases decoded by the port's ``decode_outputs``, in both score
+    flavours, at max_out 30 and at the eval settings (max_out 100,
+    threshold 0.01).  Returns the largest absolute difference of scores and
+    boxes (0 when bit-identical)."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import decode as TD
+    from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
+
+    max_err = 0.0
+    for name, s, preds, hws in head_cases(spec, spec3, device):
+        for softmax, flavour_thresh in FLAVOURS:
+            boxes, scores = TD.decode_outputs(preds, s, hws, softmax)
+            for max_out, thresh in NMS_MAX_OUTS:
+                thresh = flavour_thresh if thresh is None else thresh
+                got = TN.batched_nms_pallas(boxes, scores, thresh, IOU,
+                                            max_out)
+                torch.cuda.synchronize()
+                want = TN.batched_nms_pallas_reference(boxes, scores, thresh,
+                                                       IOU, max_out)
+                diff = n_differing(got, want)
+                max_err = max(max_err, *(
+                    float(torch.nan_to_num(g - w).abs().max())
+                    for g, w in zip(got[:2], want[:2])))
+                print(f"nms kernel vs plain: {name:<11} softmax="
+                      f"{softmax!s:<5} N={boxes.shape[1]} max_out={max_out} "
+                      f"thresh={thresh} kept={int(got.valid.sum())} "
+                      f"elements_differing={diff}")
+                if diff:
+                    raise AssertionError("the NMS kernel differs from its "
+                                         "plain version")
+                if name == "empty" and bool(got.valid.any()):
+                    raise AssertionError("detections from an empty scene")
+    return max_err
+
+
+def two_stage_phase(spec, scenes, scene_preds, h_dev):
+    """Phase 11: the two-stage head, ``decode_outputs`` ->
+    ``batched_nms_pallas`` (the kernel), on each serving scene's own bf16
+    logits at B=128, against the fused head kernel on the same logits (the
+    JAX package's own check) and against the export program's
+    ``ops/nms.batched_nms`` at top_k = N.  Returns the NMS kernel's
+    launches in the path."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import decode as TD
+    from k210_yolo_framework_tpu_torch.ops import nms as TNX
+    from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    TN.batched_nms_pallas.launches = 0
+    two = {}
+    for name, p in scenes:
+        boxes, scores = TD.decode_outputs(scene_preds[name], spec, h_dev)
+        two[name] = (boxes, scores, TN.batched_nms_pallas(
+            boxes, scores, p.obj_thresh, IOU, 30))
+    torch.cuda.synchronize()
+    launches = TN.batched_nms_pallas.launches
+    print(f"two-stage: NMS kernel launches {launches} in {len(scenes)} "
+          f"two-stage calls")
+    if launches != len(scenes):
+        raise AssertionError("the NMS kernel did not run once per two-stage "
+                             "call")
+    for name, p in scenes:
+        boxes, scores, res = two[name]
+        fused = TH.fused_decode_nms(scene_preds[name], spec, h_dev,
+                                    p.obj_thresh, IOU, 30)
+        err, flip = compare_heads(res, fused, p.obj_thresh)
+        n_a, n_b = assert_detections_close(to_np(res), to_np(fused))
+        n = boxes.shape[1]
+        parts = [TNX.batched_nms(boxes[i:i + 8], scores[i:i + 8],
+                                 p.obj_thresh, IOU, 30, top_k=n)
+                 for i in range(0, boxes.shape[0], 8)]
+        xla = TNX.NmsResult(*(torch.cat(t) for t in zip(*parts)))
+        n_x, _ = assert_detections_close(to_np(xla), to_np(res))
+        print(f"two-stage {name:<6} (obj_thresh {p.obj_thresh}): kernel "
+              f"{n_a}, fused head {n_b}, max_abs_err={err:.3g} "
+              f"borderline_flips={flip}; export NMS (top_k={n}) {n_x}, "
+              f"elements differing from the kernel {n_differing(xla, res)}")
+    return launches
+
+
+DW_BLOCKS = (1, 3, 5, 7, 8, 9, 10, 11, 13)     # the stride-1 blocks
+DW_TOL = {"bf16": 0.05, "fp32": 2e-5}          # tests/test_dwsep_pallas.py
+
+
+def capture_blocks(net, forward):
+    """Each stride-1 block's input and output during ``forward()``."""
+    seen = {}
+    hooks = [getattr(net.backbone, f"block_{i}").register_forward_hook(
+        lambda mod, args, out, i=i: seen.__setitem__(i, (args[0], out)))
+        for i in DW_BLOCKS]
+    try:
+        forward()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def dwsep_phase(pred, fp32_pred, c_dev, h_dev, part, tag):
+    """Phase 12: the fused block on the nine stride-1 blocks of the served
+    net.  Each block's input comes from the serving forward at B=128 in
+    bf16 (the block casts it to bf16 for its conv; the kernel takes that
+    cast's NHWC view), its BN folded by ``block_params``.  Kernel against
+    ``fused_dwsep_reference`` and against the block's own output (bf16
+    0.05: folding rounds the BN differently); then the same at B=8 in fp32
+    (2e-5 against the plain version).  Returns the kernel's JSON fields and
+    the per-block inputs for the times."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import dwsep_pallas as TF
+
+    seen = capture_blocks(pred.net, lambda: pred._forward_batch(c_dev, h_dev))
+    inputs = {}
+    for i in DW_BLOCKS:
+        # the served net is channels_last: its NCHW activations lie in
+        # memory as NHWC, so the cast keeps that layout and the permute is
+        # a view, not a copy
+        x = seen[i][0].to(torch.bfloat16).permute(0, 2, 3, 1)
+        inputs[i] = (x, TF.block_params(getattr(pred.net.backbone,
+                                                f"block_{i}")))
+    TF.fused_dwsep.launches = 0
+    outs = {i: TF.fused_dwsep(x, *params) for i, (x, params) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = TF.fused_dwsep.launches
+    print(f"dwsep: kernel launches {launches} on the {len(DW_BLOCKS)} "
+          f"stride-1 blocks of the served net (B={BATCH}, bf16)")
+    if launches != len(DW_BLOCKS):
+        raise AssertionError("the dwsep kernel did not run once per block")
+    max_err = 0.0
+    for i, (x, params) in inputs.items():
+        got = outs[i].float()
+        want = TF.fused_dwsep_reference(x, *params).float()
+        block_out = seen[i][1].permute(0, 2, 3, 1).float()
+        err = float((got - want).abs().max())
+        err_block = float((got - block_out).abs().max())
+        bad = int((~torch.isclose(got, want, rtol=DW_TOL["bf16"],
+                                  atol=DW_TOL["bf16"])).sum())
+        bad_block = int((~torch.isclose(got, block_out, rtol=DW_TOL["bf16"],
+                                        atol=DW_TOL["bf16"])).sum())
+        b, h, w, c = x.shape
+        view = "free (channels_last)" if x.is_contiguous() else "a copy"
+        print(f"dwsep block_{i:<2} {h}x{w}x{c}->{got.shape[-1]} bf16: "
+              f"NHWC view {view}; vs plain max_abs_err={err:.3g} outside={bad}; vs the "
+              f"block's own output max_abs_err={err_block:.3g} "
+              f"outside={bad_block}")
+        if bad or bad_block or not torch.isfinite(got).all():
+            raise AssertionError(f"dwsep block_{i} disagrees")
+        max_err = max(max_err, err)
+
+    seen32 = capture_blocks(fp32_pred.net, lambda: fp32_pred._forward_batch(
+        c_dev[part], h_dev[part]))
+    for i in DW_BLOCKS:
+        x = seen32[i][0].permute(0, 2, 3, 1)
+        params = TF.block_params(getattr(fp32_pred.net.backbone,
+                                         f"block_{i}"))
+        got = TF.fused_dwsep(x, *params).float()
+        want = TF.fused_dwsep_reference(x, *params)
+        block_out = seen32[i][1].permute(0, 2, 3, 1)
+        bad = int((~torch.isclose(got, want, rtol=DW_TOL["fp32"],
+                                  atol=DW_TOL["fp32"])).sum())
+        print(f"dwsep block_{i:<2} fp32 B={x.shape[0]}: vs plain "
+              f"max_abs_err={float((got - want).abs().max()):.3g} "
+              f"outside={bad}; vs the block's own output "
+              f"{float((got - block_out).abs().max()):.3g}")
+        if bad:
+            raise AssertionError(f"dwsep block_{i} fp32 disagrees")
+    return {"launches": launches, "max_abs_err": max_err}, inputs
+
+
+def record_as_result(record, n_images: int):
+    """A DetectionRecord's detections per image, stacked into the padded
+    layout ``utils/detmatch`` reads."""
+    from k210_yolo_framework_tpu_torch.inference import (
+        Detections,
+        stack_detections,
+    )
+
+    per = [[] for _ in range(n_images)]
+    for c, dets in enumerate(record.dets):
+        for img, score, box in dets:
+            per[img].append((box, score, c))
+    return stack_detections([Detections(
+        np.reshape([d[0] for d in p], (-1, 4)), np.array([d[1] for d in p]),
+        np.array([d[2] for d in p], int)) for p in per])
+
+
+# keras_eval.py's defaults: a low threshold, more boxes per class
+EVAL = dict(obj_thresh=0.01, iou_thresh=0.45, max_out=100)
+EVAL_BATCH = 32
+
+
+def eval_phase(net, spec, ann, device, tag):
+    """Phase 13: VOC evaluation (``eval.collect_detections`` and
+    ``match_detections``) of a bf16 Predictor over the synthetic JPEGs at
+    the eval settings, batch 32 on 512x512 canvases staged on host threads:
+    one head launch per batch, a finite mAP, well-formed detections; then
+    8 images in fp32, card against CPU.  Returns eval imgs/s, host staging
+    included."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.eval import (
+        collect_detections,
+        match_detections,
+    )
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    pred = Predictor(net, None, spec, compute_dtype=torch.bfloat16,
+                     device=device, **EVAL)
+    n_batches = -(-len(ann) // EVAL_BATCH)
+    TH.fused_decode_nms.launches = 0
+    record = collect_detections(pred, ann, spec.class_num, EVAL_BATCH)
+    torch.cuda.synchronize()
+    launches = TH.fused_decode_nms.launches
+    res = match_detections(record)
+    n_dets = sum(len(d) for d in record.dets)
+    print(f"eval: {len(ann)} images in {n_batches} batches of {EVAL_BATCH}: "
+          f"head kernel launches {launches}; {n_dets} detections; mAP@0.5 "
+          f"{res['map']:.4f} (seeded random weights: plumbing only)")
+    if launches != n_batches:
+        raise AssertionError("the head kernel did not run once per eval "
+                             "batch")
+    if not np.isfinite(res["map"]):
+        raise AssertionError("eval mAP is not finite")
+    per_image = np.zeros(len(ann), int)
+    for c, dets in enumerate(record.dets):
+        for img, score, box in dets:
+            per_image[img] += 1
+            if not (np.isfinite(score) and score >= EVAL["obj_thresh"]
+                    and np.asarray(box).shape == (4,)
+                    and not np.isnan(box).any()):
+                raise AssertionError(f"eval: malformed detection {c} "
+                                     f"{score} {box}")
+    if per_image.max() > spec.class_num * EVAL["max_out"] or n_dets == 0:
+        raise AssertionError("eval: detection counts out of range")
+
+    t0 = time.perf_counter()
+    collect_detections(pred, ann, spec.class_num, EVAL_BATCH)
+    dt = time.perf_counter() - t0
+    print(f"eval b{EVAL_BATCH} bf16 (obj_thresh {EVAL['obj_thresh']}, "
+          f"max_out {EVAL['max_out']}): {len(ann)} images in {dt:.3f} s = "
+          f"{len(ann) / dt:.1f} imgs/s, JPEG decode and staging included "
+          f"{tag}")
+
+    small = ann[:8]
+    recs = [collect_detections(Predictor(net, None, spec, device=d, **EVAL),
+                               small, spec.class_num, 8)
+            for d in (device, "cpu")]
+    n_a, n_b = assert_detections_close(*(record_as_result(r, len(small))
+                                         for r in recs))
+    print(f"eval fp32 card vs CPU ({len(small)} images): {n_a} vs {n_b} "
+          f"detections match")
+    return len(ann) / dt
+
+
+def cudnn_pair(x, dw_k, dw_mul, dw_add, pw_k, pw_mul, pw_add):
+    """The block as an unfused bf16 cuDNN pair, each BN folded into its
+    conv's weights and bias: a function of no arguments taking x [B, H, W,
+    C] bf16 (the NHWC view of a channels_last tensor) to [B, H, W, Cout]
+    bf16.  It reads and writes what the fused kernel does, plus the bf16
+    intermediate and the two activations' in-place passes."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    xc = x.permute(0, 3, 1, 2)                       # channels_last NCHW view
+    w_dw = (dw_k * dw_mul).permute(2, 0, 1)[:, None].to(bf)      # [C, 1, 3, 3]
+    w_pw = (pw_k.float() * pw_mul).t()[:, :, None, None].to(bf)  # [Cout, C]
+    w_dw, w_pw = (w.contiguous(memory_format=torch.channels_last)
+                  for w in (w_dw, w_pw))
+    b_dw, b_pw = dw_add.to(bf), pw_add.to(bf)
+
+    def run():
+        t = torch.relu_(F.conv2d(xc, w_dw, b_dw, padding=1,
+                                 groups=xc.shape[1]))
+        return F.leaky_relu(F.conv2d(t, w_pw, b_pw), 0.3,
+                            inplace=True).permute(0, 2, 3, 1)
+    return run
+
+
+def new_kernel_times(scenes, scene_preds, spec, h_dev, dw_inputs, pred, tag):
+    """Phase 14: NMS alone and the fused block, each against its plain
+    version on the same inputs (plain, kernel, kernel, plain); for the
+    block also the served net's own block on the same input (BN and
+    activations in fp32, fp32 output) and the bytes-equal baseline, an
+    unfused bf16 cuDNN pair with BN folded.  Returns the two kernels' JSON
+    fields (time, plain time, bound)."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import decode as TD
+    from k210_yolo_framework_tpu_torch.ops import dwsep_pallas as TF
+    from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
+
+    nms = {}
+    for name, p in scenes:
+        boxes, scores = TD.decode_outputs(scene_preds[name], spec, h_dev)
+        kw = dict(max_out=30, iou_thresh=IOU)
+        plain = lambda: TN._select(  # noqa: E731
+            boxes, scores, stop_below=p.obj_thresh, **kw)
+        kern = lambda: TN._launch(  # noqa: E731
+            boxes, scores, score_thresh=p.obj_thresh, **kw)
+        k_ms, p_ms, (p1, k1, k2, p2) = alternating(plain, kern, 5, 20)
+        res = TN.batched_nms_pallas(boxes, scores, p.obj_thresh, IOU, 30)
+        live = live_tests(lambda lv: TN._select(
+            boxes, scores, stop_below=p.obj_thresh, live=lv, **kw))
+        b_ms, by = nms_bound(*scores.shape[:2], spec.class_num, 30, live)
+        nms[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        print(f"nms b{BATCH} {name:<6} (N={boxes.shape[1]}, obj_thresh "
+              f"{p.obj_thresh}, {greedy_passes(res)} greedy steps, {live} "
+              f"live candidate tests): kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({by}) {tag}")
+
+    dw = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, block_ms=0.0, pair_ms=0.0)
+    ops_bound = 0
+    with torch.inference_mode():
+        for i, (x, params) in dw_inputs.items():
+            block = getattr(pred.net.backbone, f"block_{i}")
+            x_nchw = x.permute(0, 3, 1, 2)      # the block's own layout
+            pw_k = params[3].to(x.dtype)
+            k_ms, p_ms, (p1, k1, k2, p2) = alternating(
+                lambda: TF.fused_dwsep_reference(x, *params),
+                lambda: TF._launch(x, *params[:3], pw_k, *params[4:], 0.3),
+                3, 10)
+            blk_ms = time_ms(lambda: block(x_nchw, torch.bfloat16), 10)
+            pair = cudnn_pair(x, *params)
+            pair_ms = time_ms(pair, 10)
+            pair_err = float((pair().float() - TF.fused_dwsep_reference(
+                x, *params).float()).abs().max())
+            b_ms, by = dwsep_bound(x, params[3].shape[1])
+            ops_bound += by == "operations"
+            for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                         ("block_ms", blk_ms), ("pair_ms", pair_ms)):
+                dw[k] += v
+            b, h, w, c = x.shape
+            print(f"dwsep b{b} block_{i:<2} {h}x{w}x{c}->{params[3].shape[1]}"
+                  f" bf16: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                  f"{p1:.4f}/{p2:.4f} ms, served block (fp32 BN, fp32 out) "
+                  f"{blk_ms:.4f} ms, bf16 cuDNN pair {pair_ms:.4f} ms "
+                  f"(max_abs_err vs plain {pair_err:.3g}), bound "
+                  f"{b_ms:.4f} ms ({by}) {tag}")
+    dw["bound_by"] = "operations" if 2 * ops_bound > len(dw_inputs) \
+        else "bytes"
+    print(f"dwsep b{BATCH} nine blocks: kernel {dw['ms']:.4f} ms, plain "
+          f"{dw['plain_ms']:.4f} ms, served blocks (fp32 BN, fp32 out) "
+          f"{dw['block_ms']:.4f} ms, bf16 cuDNN pairs {dw['pair_ms']:.4f} ms, "
+          f"bound {dw['bound_ms']:.4f} ms ({ops_bound} of "
+          f"{len(dw_inputs)} blocks bound by operations) {tag}")
+    return nms, dw
 
 
 def main() -> int:
@@ -614,6 +1094,7 @@ def run(device) -> int:
     import torch
 
     from k210_yolo_framework_tpu_torch import YoloSpec, voc_spec
+    from k210_yolo_framework_tpu_torch.data.pipeline import synthetic_ann_list
     from k210_yolo_framework_tpu_torch.inference import (
         Predictor,
         stack_detections,
@@ -640,7 +1121,7 @@ def run(device) -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("yolo_head", "rotate3shear")
+    names = ("yolo_head", "rotate3shear", "nms", "dwsep")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc each, together
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s")
@@ -733,7 +1214,7 @@ def run(device) -> int:
     h_dev = torch.from_numpy(hws).to(device)
     img_t = torch.from_numpy(image).to(device)
     hw1 = torch.tensor([image.shape[:2]], dtype=torch.int32, device=device)
-    slice_err, slice_preds = 0.0, None
+    slice_err, scene_preds = 0.0, {}
     for name, p in scenes:
         dets, one = served[name]
         with torch.inference_mode():
@@ -752,8 +1233,8 @@ def run(device) -> int:
             print(f"slice vs plain head: {name:<6} {what}: served {n_a}, "
                   f"plain {n_b}; same forward max_abs_err={err:.3g} "
                   f"borderline_flips={flip}")
-        if slice_preds is None:
-            slice_preds = inputs[0][0]
+        scene_preds[name] = inputs[0][0]
+    slice_preds = scene_preds["sparse"]
 
     # a small input, fp32 on the card against fp32 on the CPU
     small = dict(obj_thresh=0.2, iou_thresh=0.45,
@@ -806,7 +1287,12 @@ def run(device) -> int:
             p, geom, lbox, score_thresh=0.7, class_softmax=False, **kw)
         p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 20),
                           time_ms(kern, 20), time_ms(plain, 5))
-        head_times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        res = TH.fused_decode_nms(preds, s, hws_, 0.7, IOU, 30)
+        live = live_tests(lambda lv: TH._decode_and_select(
+            p, geom, lbox, class_softmax=False, stop_below=0.7, live=lv,
+            **kw))
+        head_times[name] = ((k1 + k2) / 2, (p1 + p2) / 2) + head_bound(
+            p.shape[0], p.shape[1], s.class_num, 30, live)
         # ... and the whole head call, wrapper ops included
         call_k = time_ms(lambda: TH.fused_decode_nms(
             preds, s, hws_, 0.7, IOU, 30), 20)
@@ -814,7 +1300,9 @@ def run(device) -> int:
             preds, s, hws_, 0.7, IOU, 30), 5)
         print(f"head b{BATCH} {name:<6}: kernel {k1:.4f}/{k2:.4f} ms, plain "
               f"{p1:.4f}/{p2:.4f} ms; whole call {call_k:.4f} ms, plain "
-              f"call {call_p:.4f} ms {tag}")
+              f"call {call_p:.4f} ms; bound {head_times[name][2]:.4f} ms "
+              f"({head_times[name][3]}, {greedy_passes(res)} greedy steps, "
+              f"{live} live candidate tests) {tag}")
 
     # ---- 6. where the device time goes ----------------------------------
     for label, fn, wall_ms in (
@@ -832,9 +1320,27 @@ def run(device) -> int:
         for name, ms, count in top:
             print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
 
-    rot = train_phases(device, tag)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ann = synthetic_ann_list(tmp, n=256, class_num=spec.class_num)
+        print(f"data: {len(ann)} synthetic JPEGs written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        rot = train_phases(device, tag, ann)
+        # ---- 10. NMS alone: kernel against its plain version -----------
+        nms_err = nms_kernel_phase(spec, spec3, device)
+        # ---- 11. the two-stage head on the serving scenes --------------
+        nms_launches = two_stage_phase(spec, scenes, scene_preds, h_dev)
+        # ---- 12. the fused block on the served net's blocks ------------
+        dw, dw_inputs = dwsep_phase(pred, on_gpu, c_dev, h_dev, part, tag)
+        # ---- 13. VOC eval ----------------------------------------------
+        eval_phase(net, spec, ann, device, tag)
+    # ---- 14. times of NMS alone and the fused block ---------------------
+    nms_t, dw_t = new_kernel_times(scenes, scene_preds, spec, h_dev,
+                                   dw_inputs, pred, tag)
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
 
-    k_ms, p_ms = head_times["slice"]
+    k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
         "name": "yolo_head_decode_nms",
         "route": "cuda",
@@ -844,12 +1350,35 @@ def run(device) -> int:
         "max_abs_err": max(max_err, slice_err),
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
     }, {
         "name": "rotate3shear",
         "route": "cuda",
         "source": "k210_yolo_framework_tpu_torch/csrc/rotate3shear.cu",
         "replaces": "k210_yolo_framework_tpu/ops/rotate_pallas.py:113",
         **rot,
+    }, {
+        "name": "nms_select",
+        "route": "cuda",
+        "source": "k210_yolo_framework_tpu_torch/csrc/nms.cu",
+        "replaces": "k210_yolo_framework_tpu/ops/nms_pallas.py:171",
+        "launches": nms_launches,
+        "max_abs_err": nms_err,
+        **nms_t["sparse"],
+        "library_ms": None,
+    }, {
+        "name": "dwsep_fused_block",
+        "route": "cuda",
+        "source": "k210_yolo_framework_tpu_torch/csrc/dwsep.cu",
+        "replaces": "k210_yolo_framework_tpu/ops/dwsep_pallas.py:78",
+        **dw,
+        "ms": dw_t["ms"],
+        "plain_ms": dw_t["plain_ms"],
+        "bound_ms": dw_t["bound_ms"],
+        "bound_by": dw_t["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

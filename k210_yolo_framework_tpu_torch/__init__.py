@@ -3,21 +3,25 @@
 The JAX package ``k210_yolo_framework_tpu`` is the reference this package is
 held against.  Module names mirror it so each counterpart is easy to find:
 
-    config          re-export of the numpy-only ``YoloSpec`` / ``voc_spec``
-                    / ``TrainConfig``
-    ops             letterbox, boxes, label codec, augment, NMS result
-                    type, greedy selection, and two kernels with their
-                    plain torch versions: the fused decode+NMS head and
-                    the augment's 3-shear rotation
+    config          ``YoloSpec`` / ``voc_spec`` / ``TrainConfig`` (the
+                    port's own copy of the numpy-only module)
+    ops             letterbox, boxes, label codec, augment, decode, NMS
+                    (the export program's plain-torch NMS and greedy
+                    selection), and four kernels with their plain torch
+                    versions: the fused decode+NMS head, NMS alone, the
+                    fused depthwise-separable block and the augment's
+                    3-shear rotation
     data            annotation lists, the threaded JPEG loader and the
                     on-device preprocess
     models          yolo_mobilev1 (train and eval) as ``nn.Module``s
     training        loss, P/R metrics, Adam train step and ``fit``, and the
                     weight bridge between the native h5 layout and torch
     inference       ``Predictor``: batched and single-image serving
+    eval            VOC-style mAP over an annotation list
     csrc            hand-written CUDA C++ kernels (built at first use)
 
-Only ``torch`` and numpy are imported here; nothing of JAX or flax.
+Only ``torch`` and numpy are imported here; nothing of JAX or flax, and
+nothing of the JAX package.
 """
 
 from k210_yolo_framework_tpu_torch.config import (  # noqa: F401

@@ -1,5 +1,6 @@
 // Fused YOLO head for Hopper (sm_90a): decode + letterbox inverse + per-class
-// greedy NMS, one thread block per (class, image) row.
+// greedy NMS, one thread block per (class, image) row.  The selection loop
+// is the shared one of greedy_select.cuh.
 //
 // Replaces the TPU kernel k210_yolo_framework_tpu/ops/yolo_head_pallas.py:_kernel
 // together with its selection loop, k210_yolo_framework_tpu/ops/nms_pallas.py:
@@ -28,71 +29,19 @@
 //          slot k holds winner k, unfilled slots hold -1e9 and zero boxes.
 //          The caller masks slots below the threshold.
 
-#include <cuda_runtime.h>
-#include <climits>
-#include <cmath>
+#include "greedy_select.cuh"
+#include "smem.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNeg = -1e9f;
-
-// NaN-propagating max/min, as jnp.maximum / torch.maximum (fmaxf drops NaN).
-__device__ __forceinline__ bool is_nan(float x) { return x != x; }
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (is_nan(a) || is_nan(b)) return a + b;
-  return a > b ? a : b;
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  if (is_nan(a) || is_nan(b)) return a + b;
-  return a < b ? a : b;
-}
+using greedy::better;
+using greedy::block_argmax;
+using greedy::kThreads;
+using greedy::kWarps;
+using greedy::nan_max;
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// Order of the greedy argmax: a NaN beats every number (the row max is then
-// NaN and the row selects nothing), then the larger value, then the lower
-// index (the first index holding the max).
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  if (is_nan(v)) return !is_nan(bv) || i < bi;
-  if (is_nan(bv)) return false;
-  return v > bv || (v == bv && i < bi);
-}
-
-// Block-wide argmax of each thread's (v, i); every thread gets the result.
-__device__ __forceinline__ void block_argmax(float& v, int& i,
-                                             float* red_v, int* red_i) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) { v = ov; i = oi; }
-  }
-  if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? red_v[lane] : -INFINITY;
-    i = lane < kWarps ? red_i[lane] : INT_MAX;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, i, off);
-      if (better(ov, oi, v, i)) { v = ov; i = oi; }
-    }
-    // slot kWarps holds the result; it is rewritten only after the next
-    // call's first barrier, which every thread reaches after reading it
-    if (lane == 0) { red_v[kWarps] = v; red_i[kWarps] = i; }
-  }
-  __syncthreads();
-  v = red_v[kWarps];
-  i = red_i[kWarps];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -157,51 +106,8 @@ yolo_head_kernel(const float* __restrict__ preds,
 
   float* os = out_scores + ((size_t)b * classes + c) * max_out;
   float* ob = out_boxes + ((size_t)b * classes + c) * max_out * 4;
-  int k = 0;
-  for (; k < max_out; ++k) {
-    const float m = best_v;
-    const int sel = best_i;
-    if (!(m >= score_thresh)) break;  // also ends a row whose max is NaN
-    // the TPU kernel picks the winner's box by a max over a mask that is
-    // -1e9 elsewhere; keep that floor
-    const float sy0 = nan_max(s_y0[sel], kNeg);
-    const float sx0 = nan_max(s_x0[sel], kNeg);
-    const float sy1 = nan_max(s_y1[sel], kNeg);
-    const float sx1 = nan_max(s_x1[sel], kNeg);
-    const float s_area = nan_max(sy1 - sy0, 0.0f) * nan_max(sx1 - sx0, 0.0f);
-    if (threadIdx.x == 0) {
-      os[k] = m;
-      ob[4 * k + 0] = sy0;
-      ob[4 * k + 1] = sx0;
-      ob[4 * k + 2] = sy1;
-      ob[4 * k + 3] = sx1;
-    }
-    best_v = -INFINITY;
-    best_i = INT_MAX;
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const float y0 = s_y0[j], x0 = s_x0[j], y1 = s_y1[j], x1 = s_x1[j];
-      const float iy = nan_max(nan_min(sy1, y1) - nan_max(sy0, y0), 0.0f);
-      const float ix = nan_max(nan_min(sx1, x1) - nan_max(sx0, x0), 0.0f);
-      const float inter = iy * ix;
-      const float area = nan_max(y1 - y0, 0.0f) * nan_max(x1 - x0, 0.0f);
-      const float uni = s_area + area - inter;
-      const float iou = uni > 0.0f ? inter / uni : 0.0f;
-      float s = s_score[j];
-      if (iou > iou_thresh || j == sel) {
-        s = kNeg;
-        s_score[j] = s;
-      }
-      if (better(s, j, best_v, best_i)) { best_v = s; best_i = j; }
-    }
-    block_argmax(best_v, best_i, red_v, red_i);
-  }
-  for (int kk = k + threadIdx.x; kk < max_out; kk += kThreads) {
-    os[kk] = kNeg;
-    ob[4 * kk + 0] = 0.0f;
-    ob[4 * kk + 1] = 0.0f;
-    ob[4 * kk + 2] = 0.0f;
-    ob[4 * kk + 3] = 0.0f;
-  }
+  greedy::select_row(s_score, s_y0, s_x0, s_y1, s_x1, n, max_out, iou_thresh,
+                     score_thresh, best_v, best_i, red_v, red_i, os, ob);
 }
 
 }  // namespace
@@ -212,21 +118,9 @@ extern "C" {
 size_t yolo_head_smem_bytes(int n) { return (size_t)5 * n * sizeof(float); }
 
 // The most dynamic shared memory a block of the kernel may ask for on the
-// current device: the opt-in limit less the kernel's static shared memory.
-// Returns the cudaError_t of the queries.
+// current device.  Returns the cudaError_t of the queries.
 int yolo_head_max_dynamic_smem(int* bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, yolo_head_kernel);
-  if (err != cudaSuccess) return (int)err;
-  *bytes = optin - (int)attr.sharedSizeBytes;
-  return 0;
+  return max_dynamic_smem(yolo_head_kernel, bytes);
 }
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch.
@@ -235,13 +129,13 @@ int yolo_head_decode_nms(const float* preds, const float* geom,
                          float* out_boxes, int batch, int n, int classes,
                          int max_out, float iou_thresh, float score_thresh,
                          int class_softmax, void* stream) {
+  // the default limit (48 KB) counts static and dynamic shared memory
+  // together, so opt in to the dynamic size on every launch
   const size_t smem = yolo_head_smem_bytes(n);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        yolo_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      yolo_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(classes, batch);
   yolo_head_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       preds, geom, lbox, out_scores, out_boxes, n, classes, max_out,

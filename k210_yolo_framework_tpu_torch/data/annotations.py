@@ -1,7 +1,7 @@
 """The reference's ``.npy`` annotation format.
 
 Counterpart of ``k210_yolo_framework_tpu/data/annotations.py`` (a copy: the
-port may load nothing of the JAX package but its numpy-only ``config``).
+port loads nothing of the JAX package).
 ``{name}_img_ann.npy`` is an object array of per-image rows
 ``[image_path, boxes[n, 5], (h, w)]``, boxes darknet-style
 ``[class, x, y, w, h]`` normalised to the original image.

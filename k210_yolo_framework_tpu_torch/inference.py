@@ -165,7 +165,7 @@ def draw_detections(img: np.ndarray, det: Detections,
     does not need it)."""
     from PIL import Image, ImageDraw
 
-    from k210_yolo_framework_tpu.utils.colormap import COLORMAP
+    from k210_yolo_framework_tpu_torch.utils.colormap import COLORMAP
 
     colormap = colormap or COLORMAP
     labels = labels or VOC_LABELS

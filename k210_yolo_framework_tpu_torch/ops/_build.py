@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library and loaded with
-``ctypes``.  The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded from
-``_build/`` (listed in ``.gitignore``).  Only sources inside the package are
-compiled.
+``ctypes``.  The library's file name carries a hash of the source, of every
+shared header ``csrc/*.cuh`` and of the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded from ``_build/`` (listed in
+``.gitignore``).  Only sources inside the package are compiled.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load"]
+__all__ = ["NVCC_FLAGS", "build", "load", "source_digest"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,13 +46,22 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, of every ``csrc/*.cuh`` (all of them: a
+    source may include any) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
     Returns the library path and the compiler's output (``-Xptxas -v``
     register and shared-memory report; empty when nothing was built)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(name)
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib, ""

@@ -1,7 +1,15 @@
-"""Per-row greedy NMS selection in plain torch.
+"""Per-class greedy NMS over decoded boxes: the CUDA kernel ``csrc/nms.cu``
+and its plain torch version, and the greedy selection loop they share with
+the fused head.
 
-Counterpart of ``greedy_select_loop`` in
-``k210_yolo_framework_tpu/ops/nms_pallas.py``, with the same semantics:
+Counterpart of ``k210_yolo_framework_tpu/ops/nms_pallas.py``.
+``batched_nms_pallas`` dispatches by the device of its input: CPU tensors go
+through ``batched_nms_pallas_reference`` (plain torch, whole batch at once);
+CUDA tensors through the kernel (one thread block per (class, image) row),
+counted in ``batched_nms_pallas.launches``; any other device raises.  There
+is no fallback from the kernel to the plain version.
+
+``greedy_select_loop`` has the semantics of the JAX package's:
 
   * each leading-dims row of ``scores`` is one independent NMS problem (one
     (image, class) pair);
@@ -15,15 +23,23 @@ Counterpart of ``greedy_select_loop`` in
     so stopping there never changes what a caller keeps.
 
 The lane padding of the TPU version (``so`` slots rounded up to 128) has no
-meaning here: the buffers are exactly ``max_out`` wide.  The CUDA kernel in
-``csrc/yolo_head.cu`` runs the same steps, one thread block per row.
+meaning here: the buffers are exactly ``max_out`` wide.  The CUDA kernels
+``csrc/nms.cu`` and ``csrc/yolo_head.cu`` run the same steps
+(``csrc/greedy_select.cuh``), one thread block per row.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-__all__ = ["greedy_select_loop"]
+from k210_yolo_framework_tpu_torch.ops import _build
+from k210_yolo_framework_tpu_torch.ops.nms import NmsResult, finish_winners
+
+__all__ = ["batched_nms_pallas", "batched_nms_pallas_reference",
+           "greedy_select_loop"]
 
 _NEG = -1e9
 
@@ -31,10 +47,15 @@ _NEG = -1e9
 def greedy_select_loop(scores: torch.Tensor, y0: torch.Tensor,
                        x0: torch.Tensor, y1: torch.Tensor, x1: torch.Tensor,
                        max_out: int, iou_thresh: float,
-                       stop_below: float | None = None):
+                       stop_below: float | None = None,
+                       live: list | None = None):
     """scores [..., N]; box coordinates broadcast against it.  Returns five
     ``[..., max_out]`` winner buffers ``(scores, y0, x0, y1, x1)``: winner k
-    in slot k, unfilled slots hold ``_NEG`` score and zero coordinates."""
+    in slot k, unfilled slots hold ``_NEG`` score and zero coordinates.
+
+    Where ``live`` is given, each step appends the number of candidates it
+    has to test: in the rows still in their loop, those not yet suppressed
+    and at or above ``stop_below``."""
     scores = scores.clone()
     n = scores.shape[-1]
     lane = torch.arange(n, device=scores.device).expand(scores.shape)
@@ -55,6 +76,8 @@ def greedy_select_loop(scores: torch.Tensor, y0: torch.Tensor,
         # any-row: a NaN row counts as done while healthy rows go on
         if not bool(torch.any(m >= stop)):
             break
+        if live is not None:
+            live.append(int(((scores >= stop) & (m >= stop)).sum()))
         sel = torch.amin(torch.where(scores == m, lane, big), dim=-1,
                          keepdim=True)
         is_sel = lane == sel
@@ -78,3 +101,124 @@ def greedy_select_loop(scores: torch.Tensor, y0: torch.Tensor,
             buf[..., k:k + 1] = v
         m = torch.amax(scores, dim=-1, keepdim=True)
     return tuple(bufs)
+
+
+def _select(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
+            iou_thresh: float, stop_below: float, live: list | None = None):
+    """The kernel's math on plain tensors: boxes [B, N, 4], scores [B, N, C]
+    -> winner buffers [B, C, M] and [B, C, M, 4]."""
+    y0, x0, y1, x1 = (boxes[:, None, :, i] for i in range(4))     # [B, 1, N]
+    w_s, *w_box = greedy_select_loop(scores.transpose(1, 2), y0, x0, y1, x1,
+                                     max_out, iou_thresh,
+                                     stop_below=stop_below, live=live)
+    return w_s, torch.stack(w_box, dim=-1)
+
+
+def batched_nms_pallas_reference(boxes: torch.Tensor, scores: torch.Tensor,
+                                 score_thresh: float = 0.7,
+                                 iou_thresh: float = 0.3,
+                                 max_out: int = 30) -> NmsResult:
+    """Plain-torch version of the NMS kernel, on any device: boxes [B, N, 4]
+    yxyx, scores [B, N, C] -> NmsResult [B, C * max_out] (class-major,
+    score-descending within a class, the layout of ``ops/nms.batched_nms``).
+    """
+    w_s, w_b = _select(boxes.to(torch.float32), scores.to(torch.float32),
+                       max_out=max_out, iou_thresh=iou_thresh,
+                       stop_below=score_thresh)
+    return finish_winners(w_s, w_b, score_thresh)
+
+
+@functools.cache
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load("nms")
+    lib.nms_select.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.nms_select.restype = ctypes.c_int
+    lib.nms_error_string.argtypes = [ctypes.c_int]
+    lib.nms_error_string.restype = ctypes.c_char_p
+    lib.nms_max_dynamic_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nms_max_dynamic_smem.restype = ctypes.c_int
+    return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"nms {what} failed: "
+                           + lib.nms_error_string(err).decode())
+
+
+@functools.cache
+def _max_candidates(device: torch.device) -> int:
+    """Most candidates one block's shared memory holds on ``device`` (5
+    floats each): the device's opt-in limit per block, less the kernel's
+    static shared memory."""
+    lib = _kernel_lib()
+    nbytes = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(lib, lib.nms_max_dynamic_smem(ctypes.byref(nbytes)),
+               "shared-memory query")
+    return nbytes.value // 20
+
+
+def _launch(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
+            iou_thresh: float, score_thresh: float):
+    """Run ``csrc/nms.cu`` on the current stream; returns the winner buffers
+    [B, C, M] and [B, C, M, 4]."""
+    bsz, n, classes = scores.shape
+    for name, t in (("boxes", boxes), ("scores", scores)):
+        if t.device != scores.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous float32 tensor on "
+                             f"{scores.device}, got {t.dtype} on {t.device}")
+    if boxes.shape != (bsz, n, 4):
+        raise ValueError(f"shape mismatch: boxes {tuple(boxes.shape)}, "
+                         f"scores {tuple(scores.shape)}")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes: the kernel reads each box as one 16-byte "
+                         "vector and needs a 16-byte aligned tensor")
+    if n > _max_candidates(scores.device):
+        raise ValueError(f"{n} candidates need {5 * n * 4} bytes of shared "
+                         f"memory per block; the kernel takes at most "
+                         f"{_max_candidates(scores.device)} on "
+                         f"{scores.device}")
+    out_scores = torch.empty((bsz, classes, max_out), dtype=torch.float32,
+                             device=scores.device)
+    out_boxes = torch.empty((bsz, classes, max_out, 4), dtype=torch.float32,
+                            device=scores.device)
+    if bsz == 0 or classes == 0 or max_out == 0:
+        return out_scores, out_boxes
+    lib = _kernel_lib()
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream(scores.device).cuda_stream
+        err = lib.nms_select(boxes.data_ptr(), scores.data_ptr(),
+                             out_scores.data_ptr(), out_boxes.data_ptr(),
+                             bsz, n, classes, max_out, iou_thresh,
+                             score_thresh, stream)
+    _check(lib, err, "kernel launch")
+    batched_nms_pallas.launches += 1
+    return out_scores, out_boxes
+
+
+def batched_nms_pallas(boxes: torch.Tensor, scores: torch.Tensor,
+                       score_thresh: float = 0.7, iou_thresh: float = 0.3,
+                       max_out: int = 30) -> NmsResult:
+    """boxes [B, N, 4] yxyx, scores [B, N, C] -> NmsResult [B, C * max_out].
+
+    CPU tensors go through ``batched_nms_pallas_reference``; CUDA tensors
+    through the kernel, counted in ``batched_nms_pallas.launches``."""
+    device = scores.device
+    if device.type == "cpu":
+        return batched_nms_pallas_reference(boxes, scores, score_thresh,
+                                            iou_thresh, max_out)
+    if device.type != "cuda":
+        raise ValueError(f"batched_nms_pallas: no kernel for device {device}")
+    out_scores, out_boxes = _launch(
+        boxes.to(torch.float32).contiguous(),
+        scores.to(torch.float32).contiguous(), max_out=max_out,
+        iou_thresh=iou_thresh, score_thresh=score_thresh)
+    return finish_winners(out_scores, out_boxes, score_thresh)
+
+
+batched_nms_pallas.launches = 0

@@ -26,7 +26,7 @@ import torch
 from k210_yolo_framework_tpu_torch.config import YoloSpec
 from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops.letterbox import _const
-from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
+from k210_yolo_framework_tpu_torch.ops.nms import NmsResult, finish_winners
 from k210_yolo_framework_tpu_torch.ops.nms_pallas import greedy_select_loop
 
 __all__ = ["candidate_geometry", "letterbox_inverse_params",
@@ -89,7 +89,7 @@ def _flatten_preds(preds: Sequence[torch.Tensor], classes: int) -> torch.Tensor:
 def _decode_and_select(p: torch.Tensor, geom: torch.Tensor,
                        lbox: torch.Tensor, *, classes: int, max_out: int,
                        iou_thresh: float, class_softmax: bool,
-                       stop_below: float):
+                       stop_below: float, live: list | None = None):
     """The kernel's math on plain tensors: p [B, N, 5+C] logits, geom
     [8, N], lbox [B, 8] -> five [B, C, max_out] winner buffers."""
     gx, gy = geom[0], geom[1]
@@ -126,25 +126,7 @@ def _decode_and_select(p: torch.Tensor, geom: torch.Tensor,
         scores = torch.sigmoid(cls_logits) * conf
 
     return greedy_select_loop(scores, y0, x0, y1, x1, max_out, iou_thresh,
-                              stop_below=stop_below)
-
-
-def _finish(out_scores: torch.Tensor, out_boxes: torch.Tensor,
-            score_thresh: float) -> NmsResult:
-    """Winner buffers [B, C, M] and [B, C, M, 4] -> class-major NmsResult,
-    slots below ``score_thresh`` zeroed and marked invalid."""
-    bsz, classes, max_out = out_scores.shape
-    valid = out_scores >= score_thresh
-    boxes = torch.where(valid[..., None], out_boxes,
-                        torch.zeros((), device=out_boxes.device))
-    scores = torch.where(valid, out_scores,
-                         torch.zeros((), device=out_scores.device))
-    cls = torch.arange(classes, dtype=torch.int32, device=out_scores.device)
-    cls = cls[None, :, None].expand(bsz, classes, max_out)
-    return NmsResult(boxes=boxes.reshape(bsz, -1, 4),
-                     scores=scores.reshape(bsz, -1),
-                     classes=cls.reshape(bsz, -1),
-                     valid=valid.reshape(bsz, -1))
+                              stop_below=stop_below, live=live)
 
 
 def fused_decode_nms_reference(preds: Sequence[torch.Tensor], spec: YoloSpec,
@@ -152,7 +134,8 @@ def fused_decode_nms_reference(preds: Sequence[torch.Tensor], spec: YoloSpec,
                                score_thresh: float = 0.7,
                                iou_thresh: float = 0.3, max_out: int = 30,
                                class_softmax: bool = False) -> NmsResult:
-    """Plain-torch version of the fused head, on any device.
+    """Plain-torch version of the fused head, on any device: the same
+    decode, then the same greedy loop as ``ops/nms_pallas``.
 
     preds: per layer [B, h, w, a, 5+C] raw logits; img_hws [B, 2] (h, w)."""
     p = _flatten_preds(preds, spec.class_num)
@@ -162,7 +145,7 @@ def fused_decode_nms_reference(preds: Sequence[torch.Tensor], spec: YoloSpec,
         p, geom, lbox, classes=spec.class_num, max_out=max_out,
         iou_thresh=iou_thresh, class_softmax=class_softmax,
         stop_below=score_thresh)
-    return _finish(w_s, torch.stack([w_y0, w_x0, w_y1, w_x1], dim=-1),
+    return finish_winners(w_s, torch.stack([w_y0, w_x0, w_y1, w_x1], dim=-1),
                    score_thresh)
 
 
@@ -259,7 +242,7 @@ def fused_decode_nms(preds: Sequence[torch.Tensor], spec: YoloSpec,
         p, _geometry_on(spec, device), lbox.contiguous(),
         classes=spec.class_num, max_out=max_out, iou_thresh=iou_thresh,
         score_thresh=score_thresh, class_softmax=class_softmax)
-    return _finish(out_scores, out_boxes, score_thresh)
+    return finish_winners(out_scores, out_boxes, score_thresh)
 
 
 fused_decode_nms.launches = 0

@@ -21,13 +21,19 @@ import numpy as np
 __all__ = ["match_stats", "assert_detections_close"]
 
 
-def _iou(x, y) -> float:
-    ymin, xmin = max(x[0], y[0]), max(x[1], y[1])
-    ymax, xmax = min(x[2], y[2]), min(x[3], y[3])
-    inter = max(ymax - ymin, 0.0) * max(xmax - xmin, 0.0)
-    ax = (x[2] - x[0]) * (x[3] - x[1])
-    ay = (y[2] - y[0]) * (y[3] - y[1])
-    return inter / max(ax + ay - inter, 1e-9)
+def _iou_matrix(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """IoU of every box of ``x`` [n, 4] with every box of ``y`` [m, 4], in
+    their dtype, with the JAX package's per-pair arithmetic (areas not
+    clamped, union floored at 1e-9)."""
+    x, y = x[:, None, :], y[None, :, :]
+    ymin, xmin = np.maximum(x[..., 0], y[..., 0]), np.maximum(x[..., 1],
+                                                              y[..., 1])
+    ymax, xmax = np.minimum(x[..., 2], y[..., 2]), np.minimum(x[..., 3],
+                                                              y[..., 3])
+    inter = np.maximum(ymax - ymin, 0.0) * np.maximum(xmax - xmin, 0.0)
+    ax = (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])
+    ay = (y[..., 2] - y[..., 0]) * (y[..., 3] - y[..., 1])
+    return inter / np.maximum(ax + ay - inter, 1e-9)
 
 
 def match_stats(a, b, iou_min: float = 0.5,
@@ -38,7 +44,9 @@ def match_stats(a, b, iou_min: float = 0.5,
     A detection in ``a`` matches when ``b`` holds a detection of the same
     class with IoU >= ``iou_min`` (and, when ``score_tol`` is given,
     |score difference| <= score_tol).  Returns ``(unmatched, total,
-    max_matched_score_diff)``.
+    max_matched_score_diff)``, where a matched detection counts its
+    smallest score difference.  Computed per image and class on whole
+    matrices, with the answers of the JAX package's pair-by-pair loop.
 
     ``a``/``b`` are NmsResult-like: ``.boxes [B, N, 4]``, ``.scores``,
     ``.classes [B, N]``, ``.valid [B, N]`` (numpy arrays, or anything
@@ -51,18 +59,20 @@ def match_stats(a, b, iou_min: float = 0.5,
     total = unmatched = 0
     max_ds = 0.0
     for i in range(va.shape[0]):
-        rows_b = list(zip(bb[i, vb[i]], sb[i, vb[i]], cb[i, vb[i]]))
-        for box, score, cls in zip(ba[i, va[i]], sa[i, va[i]], ca[i, va[i]]):
-            total += 1
-            cands = [abs(float(score) - float(s2))
-                     for b2, s2, c2 in rows_b
-                     if cls == c2 and _iou(box, b2) >= iou_min]
+        cls_a, cls_b = ca[i, va[i]], cb[i, vb[i]]
+        total += len(cls_a)
+        for cls in np.unique(cls_a):
+            ia, ib = cls_a == cls, cls_b == cls
+            ds = np.abs(sa[i, va[i]][ia].astype(np.float64)[:, None]
+                        - sb[i, vb[i]][ib].astype(np.float64)[None, :])
+            ok = _iou_matrix(ba[i, va[i]][ia], bb[i, vb[i]][ib]) >= iou_min
             if score_tol is not None:
-                cands = [d for d in cands if d <= score_tol]
-            if cands:
-                max_ds = max(max_ds, min(cands))
-            else:
-                unmatched += 1
+                ok &= ds <= score_tol
+            found = ok.any(axis=1)
+            unmatched += int((~found).sum())
+            if found.any():
+                best = np.where(ok, ds, np.inf).min(axis=1)
+                max_ds = max(max_ds, float(best[found].max()))
     return unmatched, total, max_ds
 
 

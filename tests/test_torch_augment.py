@@ -26,10 +26,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from k210_yolo_framework_tpu.config import VOC_ANCHORS, YoloSpec
+from k210_yolo_framework_tpu import config as JConfig
 from k210_yolo_framework_tpu.data import pipeline as JPL
 from k210_yolo_framework_tpu.ops import augment as JA
 from k210_yolo_framework_tpu.ops import rotate_pallas as JRP
+from k210_yolo_framework_tpu_torch import config as TConfig
 from k210_yolo_framework_tpu_torch.data import pipeline as TPL
 from k210_yolo_framework_tpu_torch.ops import augment as TA
 from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
@@ -37,7 +38,11 @@ from k210_yolo_framework_tpu_torch.ops.codec import pad_boxes
 
 torch.set_num_threads(1)
 
-SPEC = YoloSpec.create((64, 96), ((2, 3), (4, 6)), 3, np.asarray(VOC_ANCHORS))
+# the same spec for each package: JSPEC goes to JAX functions, TSPEC to the
+# port's
+_SPEC_ARGS = ((64, 96), ((2, 3), (4, 6)), 3, np.asarray(JConfig.VOC_ANCHORS))
+JSPEC = JConfig.YoloSpec.create(*_SPEC_ARGS)
+TSPEC = TConfig.YoloSpec.create(*_SPEC_ARGS)
 
 # jitted JAX entry points, as tests/test_augment.py runs them: op-by-op
 # tracing of the slice-built shears costs seconds per call
@@ -208,10 +213,10 @@ def test_preprocess_matches_jax(is_training):
     FMA, one fp32 ulp off the op-by-op value (measured: 1 of 576)."""
     hb = _host_batch()
     key = jax.random.PRNGKey(5)
-    want_imgs, want_labels = JPL.make_preprocess_fn(SPEC, is_training)(
+    want_imgs, want_labels = JPL.make_preprocess_fn(JSPEC, is_training)(
         *map(jnp.asarray, hb), key)
-    params = jax_draws(key, 4, SPEC.in_hw) if is_training else None
-    got_imgs, got_labels = TPL.make_preprocess_fn(SPEC, is_training)(
+    params = jax_draws(key, 4, JSPEC.in_hw) if is_training else None
+    got_imgs, got_labels = TPL.make_preprocess_fn(TSPEC, is_training)(
         *hb.to("cpu"), params=params)
     got, want = got_imgs.numpy(), np.asarray(want_imgs)
     assert got.shape == want.shape and got.dtype == np.float32
@@ -224,7 +229,7 @@ def test_preprocess_matches_jax(is_training):
 
 def test_preprocess_bf16_pixels_fp32_labels():
     hb = _host_batch()
-    pp = TPL.make_preprocess_fn(SPEC, True, dtype=torch.bfloat16)
+    pp = TPL.make_preprocess_fn(TSPEC, True, dtype=torch.bfloat16)
     imgs, labels = pp(*hb.to("cpu"), generator=torch.Generator().manual_seed(0))
     assert imgs.dtype == torch.bfloat16 and imgs.shape == (4, 64, 96, 3)
     assert float(imgs.float().amax()) == 1.0

@@ -13,17 +13,22 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from k210_yolo_framework_tpu.config import VOC_ANCHORS, YoloSpec
+from k210_yolo_framework_tpu import config as JConfig
 from k210_yolo_framework_tpu.ops import boxes as JB
 from k210_yolo_framework_tpu.ops import codec as JC
 from k210_yolo_framework_tpu.ops import letterbox as JLB
+from k210_yolo_framework_tpu_torch import config as TConfig
 from k210_yolo_framework_tpu_torch.ops import boxes as TB
 from k210_yolo_framework_tpu_torch.ops import codec as TC
 from k210_yolo_framework_tpu_torch.ops import letterbox as TLB
 
 torch.set_num_threads(1)
 
-SPEC = YoloSpec.create((64, 96), ((2, 3), (4, 6)), 3, np.asarray(VOC_ANCHORS))
+# the same spec for each package: JSPEC goes to JAX functions, TSPEC to the
+# port's
+_SPEC_ARGS = ((64, 96), ((2, 3), (4, 6)), 3, np.asarray(JConfig.VOC_ANCHORS))
+JSPEC = JConfig.YoloSpec.create(*_SPEC_ARGS)
+TSPEC = TConfig.YoloSpec.create(*_SPEC_ARGS)
 
 
 def _eq(got, want):
@@ -59,15 +64,15 @@ def test_letterbox_boxes_and_correct_boxes_match_jax():
     boxes = np.concatenate([rng.integers(0, 3, (5, 9, 1)),
                             rng.uniform(0, 1, (5, 9, 4))], -1).astype(
                                 np.float32)
-    want = jax.vmap(lambda b, hw: JLB.letterbox_boxes(b, hw, SPEC.in_hw))(
+    want = jax.vmap(lambda b, hw: JLB.letterbox_boxes(b, hw, JSPEC.in_hw))(
         boxes, hws)
-    _eq(TLB.letterbox_boxes(_t(boxes), _t(hws), SPEC.in_hw), want)
+    _eq(TLB.letterbox_boxes(_t(boxes), _t(hws), JSPEC.in_hw), want)
 
     xy = rng.uniform(0, 1, (5, 2, 3, 3, 2)).astype(np.float32)
     wh = rng.uniform(0.01, 1, (5, 2, 3, 3, 2)).astype(np.float32)
-    want = jax.vmap(lambda a, b, hw: JLB.correct_boxes(a, b, SPEC.in_hw, hw))(
+    want = jax.vmap(lambda a, b, hw: JLB.correct_boxes(a, b, JSPEC.in_hw, hw))(
         xy, wh, hws)
-    _eq(TLB.correct_boxes(_t(xy), _t(wh), SPEC.in_hw, _t(hws)), want)
+    _eq(TLB.correct_boxes(_t(xy), _t(wh), JSPEC.in_hw, _t(hws)), want)
 
 
 def _edge_boxes(seed):
@@ -102,8 +107,8 @@ def _edge_boxes(seed):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_encode_labels_matches_jax_exactly(seed):
     boxes, valid = _edge_boxes(seed)
-    want = JC.encode_labels_batch(jnp.asarray(boxes), jnp.asarray(valid), SPEC)
-    got = TC.encode_labels_batch(_t(boxes), _t(valid), SPEC)
+    want = JC.encode_labels_batch(jnp.asarray(boxes), jnp.asarray(valid), JSPEC)
+    got = TC.encode_labels_batch(_t(boxes), _t(valid), TSPEC)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
@@ -111,7 +116,7 @@ def test_encode_labels_matches_jax_exactly(seed):
     # the collision slot of image 0 holds three class bits
     bits = torch.cat([g[0, ..., 5:].sum(-1).flatten() for g in got])
     assert (bits == 3).any()
-    one = TC.encode_labels(_t(boxes[1]), _t(valid[1]), SPEC)
+    one = TC.encode_labels(_t(boxes[1]), _t(valid[1]), TSPEC)
     for g, o in zip(got, one):
         assert torch.equal(g[1], o)
 
@@ -119,8 +124,8 @@ def test_encode_labels_matches_jax_exactly(seed):
 def test_assign_anchor_and_pad_boxes_match_jax():
     rng = np.random.default_rng(3)
     wh = rng.uniform(0.01, 1, (40, 2)).astype(np.float32)
-    wh[5] = wh[6] = SPEC.anchors_np()[1, 0]     # exact anchor: a tie-free hit
-    anchors = SPEC.anchors_np()
+    wh[5] = wh[6] = JSPEC.anchors_np()[1, 0]     # exact anchor: a tie-free hit
+    anchors = JSPEC.anchors_np()
     got = TC.assign_anchor(_t(wh), _t(anchors))
     want = JC.assign_anchor(jnp.asarray(wh), jnp.asarray(anchors))
     for g, w in zip(got, want):
@@ -133,24 +138,24 @@ def test_assign_anchor_and_pad_boxes_match_jax():
 def test_decode_labels_and_grid_transforms_match_jax():
     boxes, valid = _edge_boxes(4)
     labels = JC.encode_labels_batch(jnp.asarray(boxes), jnp.asarray(valid),
-                                    SPEC)
+                                    JSPEC)
     for b in range(3):
         mine = [lab[b] for lab in labels]
-        want = JC.decode_labels(mine, SPEC, 0.5, max_boxes=12)
-        got = TC.decode_labels([_t(np.asarray(m)) for m in mine], SPEC, 0.5,
+        want = JC.decode_labels(mine, JSPEC, 0.5, max_boxes=12)
+        got = TC.decode_labels([_t(np.asarray(m)) for m in mine], TSPEC, 0.5,
                                max_boxes=12)
         for g, w in zip(got, want):
             _eq(g, w)
     rng = np.random.default_rng(5)
-    for layer, (h, w) in enumerate(SPEC.out_hws):
+    for layer, (h, w) in enumerate(JSPEC.out_hws):
         xy = rng.normal(0, 2, (2, h, w, 3, 2)).astype(np.float32)
         wh = rng.normal(0, 1, (2, h, w, 3, 2)).astype(np.float32)
-        for g, w_ in zip(TC.xywh_grid_to_all(_t(xy), _t(wh), layer, SPEC),
-                         JC.xywh_grid_to_all(xy, wh, layer, SPEC)):
+        for g, w_ in zip(TC.xywh_grid_to_all(_t(xy), _t(wh), layer, TSPEC),
+                         JC.xywh_grid_to_all(xy, wh, layer, JSPEC)):
             np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=1e-6)
         axy = rng.uniform(0, 1, (2, h, w, 3, 2)).astype(np.float32)
         awh = rng.uniform(0, 1, (2, h, w, 3, 2)).astype(np.float32)
         awh[0, 0] = 0.0                              # empty cells: -inf
-        for g, w_ in zip(TC.xywh_all_to_grid(_t(axy), _t(awh), layer, SPEC),
-                         JC.xywh_all_to_grid(axy, awh, layer, SPEC)):
+        for g, w_ in zip(TC.xywh_all_to_grid(_t(axy), _t(awh), layer, TSPEC),
+                         JC.xywh_all_to_grid(axy, awh, layer, JSPEC)):
             np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=1e-6)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU:
-the fused decode+NMS head and the augment's 3-shear rotation, and a train
-step on the card against the same step on the CPU.
+the fused decode+NMS head, NMS alone, the fused depthwise-separable block
+and the augment's 3-shear rotation; a train step on the card against the
+same step on the CPU; and the build naming a new library when only the
+shared header changes.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports nothing of JAX, so it also runs where JAX is not
@@ -11,8 +13,13 @@ installed:
 Head tolerances are those of ``tests/test_yolo_head_pallas.py``; ``valid``
 may differ only where a score lies within 1e-5 of the threshold.  The
 rotation kernel must equal its plain version bit for bit (both take the
-same per-line tables and round alike).
+same per-line tables and round alike), and so must the NMS kernel (the
+same selection loop, no transcendental function).  The dwsep kernel rounds
+at other places than its plain version: fp32 rtol/atol 2e-5, bf16 0.05
+(``tests/test_dwsep_pallas.py``'s tolerances).
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -26,7 +33,11 @@ from k210_yolo_framework_tpu_torch.config import (
 )
 from k210_yolo_framework_tpu_torch.inference import Predictor
 from k210_yolo_framework_tpu_torch.models import build_network
+from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops import augment as TA
+from k210_yolo_framework_tpu_torch.ops import decode as TD
+from k210_yolo_framework_tpu_torch.ops import dwsep_pallas as TF
+from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
 from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
 from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
 from k210_yolo_framework_tpu_torch.training import train as TT
@@ -241,3 +252,122 @@ def test_train_step_on_card_matches_cpu(dev):
         g0, g1 = p_cpu.grad, p_dev.grad.cpu()
         scale = float(g0.abs().max())
         assert float((g1 - g0).abs().max()) <= 1e-3 * scale + 1e-12, name
+
+
+def _decoded(spec, bsz, seed, dev, shift=0.0):
+    preds = [torch.from_numpy(p).to(dev)
+             for p in _preds(spec, bsz, seed, shift)]
+    hws = torch.from_numpy(np.random.default_rng(seed).integers(
+        100, 512, (bsz, 2)).astype(np.int32)).to(dev)
+    return TD.decode_outputs(preds, spec, hws)
+
+
+def _three_scale_spec():
+    rng = np.random.default_rng(2)
+    anchors = np.sort(rng.uniform(0.05, 0.9, (3, 3, 2)))[:, ::-1]
+    return YoloSpec.create((224, 320), ((7, 10), (14, 20), (28, 40)), 20,
+                           anchors)
+
+
+@pytest.mark.parametrize("case,thresh,max_out", [
+    ("sparse", 0.7, 30), ("dense", 0.7, 30), ("nan", 0.7, 30),
+    ("three_scale", 0.7, 30), ("eval", 0.01, 100)])
+def test_nms_kernel_matches_plain_bit_for_bit(dev, case, thresh, max_out):
+    spec = _three_scale_spec() if case == "three_scale" else voc_spec()
+    boxes, scores = _decoded(spec, 8, 3, dev,
+                             shift=3.0 if case == "dense" else 0.0)
+    if case == "nan":
+        scores[0, 5, 2] = float("nan")
+    before = TN.batched_nms_pallas.launches
+    got = TN.batched_nms_pallas(boxes, scores, thresh, 0.45, max_out)
+    torch.cuda.synchronize()
+    assert TN.batched_nms_pallas.launches == before + 1
+    want = TN.batched_nms_pallas_reference(boxes, scores, thresh, 0.45,
+                                           max_out)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got.valid.shape == (8, spec.class_num * max_out)
+    if case == "nan":
+        assert not got.valid[0].reshape(spec.class_num, max_out)[2].any()
+    if case in ("dense", "eval"):
+        assert got.valid.any()
+
+
+def test_nms_wrapper_rejects_bad_inputs(dev):
+    boxes, scores = _decoded(voc_spec(), 2, 0, dev)
+    kw = dict(max_out=30, iou_thresh=0.3, score_thresh=0.7)
+    with pytest.raises(ValueError, match="float32"):
+        TN._launch(boxes.double(), scores, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        TN._launch(boxes[:1].contiguous(), scores, **kw)
+    shifted = torch.empty(boxes.numel() + 1, device=dev)[1:].view(boxes.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        TN._launch(shifted, scores, **kw)
+    limit = TN._max_candidates(dev)
+    big = torch.zeros((1, limit + 1, 20), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        TN._launch(torch.zeros((1, limit + 1, 4), device=dev), big, **kw)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 9, 13, 16, 24), torch.float32), ((1, 9, 13, 16, 24), torch.bfloat16),
+    ((8, 14, 20, 384, 384), torch.bfloat16),
+    ((2, 7, 10, 768, 768), torch.bfloat16),
+    ((2, 7, 10, 576, 576), torch.float32)])
+def test_dwsep_kernel_matches_plain(dev, shape, dtype):
+    """The odd 9x13 shape, two served blocks' shapes at a small batch
+    (block_7, whose bf16 tile takes 48 KB of dynamic shared memory, and
+    block_13) and a wide fp32 one."""
+    b, h, w, c, cout = shape
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(
+        np.float32)).to(dev).to(dtype)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.normal(0, 0.3, (3, 3, c)), rng.uniform(0.5, 1.5, c),
+        rng.normal(0, 0.2, c), rng.normal(0, 0.1, (c, cout)),
+        rng.uniform(0.5, 1.5, cout), rng.normal(0, 0.2, cout))]
+    args = [a.to(torch.float32) for a in args]
+    before = TF.fused_dwsep.launches
+    got = TF.fused_dwsep(x, *args)
+    torch.cuda.synchronize()
+    assert TF.fused_dwsep.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, w, cout)
+    want = TF.fused_dwsep_reference(x, *args)
+    tol = 2e-5 if dtype == torch.float32 else 0.05
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def test_dwsep_wrapper_rejects_bad_inputs(dev):
+    x = torch.zeros((1, 4, 5, 8), device=dev)
+    args = [torch.zeros(s, device=dev) for s in ((3, 3, 8), (8,), (8,),
+                                                 (8, 6), (6,), (6,))]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TF._launch(x.half(), *args, 0.3)
+    with pytest.raises(ValueError, match="pw_k"):
+        TF._launch(x, *args[:3], args[3][:4], *args[4:], 0.3)
+    with pytest.raises(ValueError, match="x:"):
+        TF._launch(x.transpose(1, 2).contiguous().transpose(1, 2), *args,
+                   0.3)
+    limit = TF._max_channels(dev, False)
+    wide = torch.zeros((1, 2, 2, limit + 1), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        TF._launch(wide, torch.zeros((3, 3, limit + 1), device=dev),
+                   *(torch.zeros(limit + 1, device=dev) for _ in range(2)),
+                   torch.zeros((limit + 1, 6), device=dev), *args[4:], 0.3)
+
+
+def test_build_rebuilds_when_only_the_header_changes(dev, tmp_path,
+                                                     monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first, log = _build.build("nms")
+    assert first.exists() and "nms_kernel" in log
+    again, log = _build.build("nms")
+    assert again == first and log == ""          # unchanged: loaded as built
+    header = csrc / "greedy_select.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    rebuilt, log = _build.build("nms")
+    assert rebuilt != first and rebuilt.exists() and "nms_kernel" in log

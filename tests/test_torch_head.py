@@ -14,19 +14,25 @@ import torch
 
 import jax.numpy as jnp
 
-from k210_yolo_framework_tpu.config import YoloSpec, voc_spec
+from k210_yolo_framework_tpu import config as JConfig
 from k210_yolo_framework_tpu.ops import nms_pallas as JN
 from k210_yolo_framework_tpu.ops import yolo_head_pallas as JH
+from k210_yolo_framework_tpu_torch import config as TConfig
 from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
 from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
 
 torch.set_num_threads(1)
 
 
-def _spec(classes=6):
+def _specs(name="c6", classes=6):
+    """(JAX spec, port spec) from the same arguments: the JAX one goes to
+    JAX functions, the port's to the port's."""
+    if name == "voc":
+        return JConfig.voc_spec(), TConfig.voc_spec()
     rng = np.random.default_rng(2)
     anchors = np.sort(rng.uniform(0.05, 0.9, (2, 3, 2)).astype(np.float32))[:, ::-1]
-    return YoloSpec.create((224, 320), ((7, 10), (14, 20)), classes, anchors)
+    args = ((224, 320), ((7, 10), (14, 20)), classes, anchors)
+    return JConfig.YoloSpec.create(*args), TConfig.YoloSpec.create(*args)
 
 
 def _preds(spec, bsz, seed, std=2.0):
@@ -45,10 +51,11 @@ def _assert_results_close(got, want):
                                rtol=1e-3, atol=0.05)
 
 
-@pytest.mark.parametrize("spec", [_spec(), voc_spec()], ids=["c6", "voc"])
-def test_candidate_geometry_exact(spec):
-    np.testing.assert_array_equal(TH.candidate_geometry(spec),
-                                  JH.candidate_geometry(spec))
+@pytest.mark.parametrize("spec_name", ["c6", "voc"])
+def test_candidate_geometry_exact(spec_name):
+    jspec, tspec = _specs(spec_name)
+    np.testing.assert_array_equal(TH.candidate_geometry(tspec),
+                                  JH.candidate_geometry(jspec))
 
 
 def test_letterbox_inverse_params_exact():
@@ -100,15 +107,15 @@ def test_greedy_select_loop_matches_jax(stop_below, case):
 @pytest.mark.parametrize("class_softmax", [False, True])
 @pytest.mark.parametrize("spec_name,bsz", [("c6", 3), ("voc", 2)])
 def test_fused_decode_nms_matches_jax(spec_name, bsz, class_softmax):
-    spec = _spec() if spec_name == "c6" else voc_spec()
-    preds = _preds(spec, bsz, seed=0)
+    jspec, tspec = _specs(spec_name)
+    preds = _preds(tspec, bsz, seed=0)
     rng = np.random.default_rng(1)
     img_hws = rng.integers(100, 512, (bsz, 2)).astype(np.int32)
     thresh = 0.05 if class_softmax else 0.3
-    want = JH.fused_decode_nms([jnp.asarray(p) for p in preds], spec,
+    want = JH.fused_decode_nms([jnp.asarray(p) for p in preds], jspec,
                                jnp.asarray(img_hws), thresh, 0.45, 30,
                                class_softmax=class_softmax)
-    got = TH.fused_decode_nms([torch.from_numpy(p) for p in preds], spec,
+    got = TH.fused_decode_nms([torch.from_numpy(p) for p in preds], tspec,
                               torch.from_numpy(img_hws), thresh, 0.45, 30,
                               class_softmax=class_softmax)
     assert np.asarray(want.valid).any()
@@ -117,8 +124,8 @@ def test_fused_decode_nms_matches_jax(spec_name, bsz, class_softmax):
 
 @pytest.mark.parametrize("case", ["empty", "dense", "nan_row"])
 def test_fused_decode_nms_edge_cases_match_jax(case):
-    spec = _spec(classes=3)
-    preds = _preds(spec, 2, seed=4)
+    jspec, tspec = _specs(classes=3)
+    preds = _preds(tspec, 2, seed=4)
     if case == "empty":
         preds = [np.full_like(p, -10.0) for p in preds]
     elif case == "dense":      # every candidate of every class clears 0.7
@@ -127,9 +134,9 @@ def test_fused_decode_nms_edge_cases_match_jax(case):
     else:                      # one NaN logit poisons class 1 of image 0
         preds[0][0, 1, 2, 0, 5 + 1] = np.nan
     img_hws = np.array([[300, 400], [224, 320]], np.int32)
-    want = JH.fused_decode_nms([jnp.asarray(p) for p in preds], spec,
+    want = JH.fused_decode_nms([jnp.asarray(p) for p in preds], jspec,
                                jnp.asarray(img_hws), 0.7, 0.3, 30)
-    got = TH.fused_decode_nms([torch.from_numpy(p) for p in preds], spec,
+    got = TH.fused_decode_nms([torch.from_numpy(p) for p in preds], tspec,
                               torch.from_numpy(img_hws), 0.7, 0.3, 30)
     _assert_results_close(got, want)
     valid = got.valid.numpy().reshape(2, 3, 30)
@@ -145,12 +152,13 @@ def test_fused_decode_nms_rejects_other_devices():
     preds = [torch.zeros((1, 7, 10, 3, 25), device="meta"),
              torch.zeros((1, 14, 20, 3, 25), device="meta")]
     with pytest.raises(ValueError, match="no kernel"):
-        TH.fused_decode_nms(preds, voc_spec(), torch.tensor([[224, 320]]))
+        TH.fused_decode_nms(preds, TConfig.voc_spec(),
+                            torch.tensor([[224, 320]]))
 
 
 def test_cpu_path_does_not_launch():
     before = TH.fused_decode_nms.launches
-    spec = _spec(classes=3)
+    _, spec = _specs(classes=3)
     TH.fused_decode_nms([torch.from_numpy(p) for p in _preds(spec, 1, 3)],
                         spec, torch.tensor([[224, 320]]))
     assert TH.fused_decode_nms.launches == before

@@ -20,10 +20,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from k210_yolo_framework_tpu.config import VOC_ANCHORS, YoloSpec
+from k210_yolo_framework_tpu import config as JConfig
 from k210_yolo_framework_tpu.inference import Predictor as JaxPredictor
 from k210_yolo_framework_tpu.ops import letterbox as JLB
 from k210_yolo_framework_tpu.utils import detmatch as JM
+from k210_yolo_framework_tpu_torch import config as TConfig
 from k210_yolo_framework_tpu_torch.inference import (
     Detections,
     Predictor,
@@ -40,15 +41,20 @@ from test_torch_model import SMALL, jax_net_and_flat, torch_net
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-SPEC = YoloSpec.create(SMALL["in_hw"], ((2, 3), (4, 6)), SMALL["class_num"],
-                       np.asarray(VOC_ANCHORS))
+# the same spec for each package: JSPEC goes to JAX functions, TSPEC to the
+# port's
+_SPEC_ARGS = (SMALL["in_hw"], ((2, 3), (4, 6)), SMALL["class_num"],
+              np.asarray(JConfig.VOC_ANCHORS))
+JSPEC = JConfig.YoloSpec.create(*_SPEC_ARGS)
+TSPEC = TConfig.YoloSpec.create(*_SPEC_ARGS)
 THRESH = dict(obj_thresh=0.2, iou_thresh=0.45)
 
 
 def _predictors(jax_dtype=jnp.float32, torch_dtype=torch.float32):
     jnet, variables, flat = jax_net_and_flat()
-    jp = JaxPredictor(jnet, variables, SPEC, compute_dtype=jax_dtype, **THRESH)
-    tp = Predictor(torch_net(), TC.state_dict_from_flat(flat), SPEC,
+    jp = JaxPredictor(jnet, variables, JSPEC, compute_dtype=jax_dtype,
+                      **THRESH)
+    tp = Predictor(torch_net(), TC.state_dict_from_flat(flat), TSPEC,
                    compute_dtype=torch_dtype, device="cpu", **THRESH)
     return jp, tp
 
@@ -104,10 +110,10 @@ def test_bf16_serving_matches_jax():
     canvases, hws, img = _scene()
 
     want_lb = np.asarray(jax.vmap(lambda c, hw: JLB.letterbox_image(
-        c, hw, SPEC.in_hw, dtype=jnp.bfloat16).astype(jnp.uint8))(
+        c, hw, JSPEC.in_hw, dtype=jnp.bfloat16).astype(jnp.uint8))(
             jnp.asarray(canvases), jnp.asarray(hws)))
     got_lb = LB.letterbox_image(torch.from_numpy(canvases),
-                                torch.from_numpy(hws), SPEC.in_hw,
+                                torch.from_numpy(hws), TSPEC.in_hw,
                                 torch.bfloat16).to(torch.uint8).numpy()
     diff = np.abs(got_lb.astype(np.int16) - want_lb)
     assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
@@ -163,7 +169,7 @@ def test_predictor_copies_the_net_and_loads_state():
     _, _, flat = jax_net_and_flat()
     net = torch_net()                       # its own seeded init
     before = {k: v.clone() for k, v in net.state_dict().items()}
-    tp = Predictor(net, TC.state_dict_from_flat(flat), SPEC, device="cpu")
+    tp = Predictor(net, TC.state_dict_from_flat(flat), TSPEC, device="cpu")
     for k, v in net.state_dict().items():
         assert torch.equal(v, before[k]), k
     assert torch.equal(tp.net.state_dict()["backbone.stem.bn.running_mean"],
@@ -174,7 +180,7 @@ def test_predictor_cuda_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU refusal cannot be shown")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Predictor(torch_net(), None, SPEC, device="cuda")
+        Predictor(torch_net(), None, TSPEC, device="cuda")
 
 
 def test_draw_detections_draws_inside_the_frame():
@@ -195,8 +201,8 @@ def _chip_smoke_imports():
 def test_port_imports_without_jax():
     """Every module of the port, and every module chip_smoke.py imports,
     imports in a fresh interpreter in which importing jax, flax or optax
-    fails.  None ends up in sys.modules, and of the JAX package only its
-    numpy-only ``config`` is loaded."""
+    fails.  None ends up in sys.modules, and no module of the JAX package
+    ``k210_yolo_framework_tpu`` is loaded, not even a numpy-only one."""
     code = r"""
 import importlib, importlib.abc, pkgutil, sys
 
@@ -217,7 +223,7 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 jax_pkg = sorted(m for m in sys.modules
                  if m.split(".")[0] == "k210_yolo_framework_tpu")
-assert jax_pkg == ["k210_yolo_framework_tpu", "k210_yolo_framework_tpu.config"], jax_pkg
+assert not jax_pkg, jax_pkg
 print(len(names))
 """
     imports = _chip_smoke_imports()

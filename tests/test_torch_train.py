@@ -36,7 +36,7 @@ import jax
 import jax.numpy as jnp
 from flax import linen as fnn
 
-from k210_yolo_framework_tpu.config import TrainConfig
+from k210_yolo_framework_tpu import config as JConfig
 from k210_yolo_framework_tpu.inference import Predictor as JaxPredictor
 from k210_yolo_framework_tpu.models import build_network as jax_build
 from k210_yolo_framework_tpu.models import layers as JL
@@ -46,6 +46,7 @@ from k210_yolo_framework_tpu.training import metrics as JM
 from k210_yolo_framework_tpu.training import pruning as JP
 from k210_yolo_framework_tpu.training import train as JT
 from k210_yolo_framework_tpu.training.checkpoint import _flatten
+from k210_yolo_framework_tpu_torch import config as TConfig
 from k210_yolo_framework_tpu_torch.data import pipeline as TPL
 from k210_yolo_framework_tpu_torch.data.annotations import split_train_test
 from k210_yolo_framework_tpu_torch.inference import (
@@ -62,24 +63,28 @@ from k210_yolo_framework_tpu_torch.utils.detmatch import (
 )
 
 from test_torch_model import SMALL, _unflatten, jax_net_and_flat, torch_net
-from test_torch_predictor import SPEC, THRESH, _scene
+from test_torch_predictor import JSPEC, THRESH, TSPEC, _scene
 
 torch.set_num_threads(1)
 
-CFG = TrainConfig(batch_size=4, init_learning_rate=1e-3)
+# the same hyperparameters for each package: JCFG goes to JAX functions,
+# CFG to the port's
+JCFG = JConfig.TrainConfig(batch_size=4, init_learning_rate=1e-3)
+CFG = TConfig.TrainConfig(batch_size=4, init_learning_rate=1e-3)
 LOSS_ARGS = (CFG.obj_thresh, CFG.iou_thresh, CFG.obj_weight,
              CFG.noobj_weight, CFG.wh_weight)
 
 # jitted JAX entry points: op-by-op they cost seconds per call
-_jax_encode = jax.jit(lambda b, v: JC.encode_labels_batch(b, v, SPEC))
+_jax_encode = jax.jit(lambda b, v: JC.encode_labels_batch(b, v, JSPEC))
 _jax_loss_layers = jax.jit(
-    lambda l, p: JLoss.yolo_loss_layers(l, p, SPEC, 4, *LOSS_ARGS))
+    lambda l, p: JLoss.yolo_loss_layers(l, p, JSPEC, 4, *LOSS_ARGS))
 _jax_update_pr = jax.jit(JM.update_pr_state)
 
 
 @functools.partial(jax.jit, static_argnums=2)
 def _jax_ignore_mask(lab, pred, layer):
-    pxy, pwh = JC.xywh_grid_to_all(pred[..., 0:2], pred[..., 2:4], layer, SPEC)
+    pxy, pwh = JC.xywh_grid_to_all(pred[..., 0:2], pred[..., 2:4], layer,
+                                   JSPEC)
     return pxy, pwh, jax.vmap(lambda yt, a, b: JLoss.calc_ignore_mask(
         yt, a, b, 0.7, 0.3))(lab, pxy, pwh)
 
@@ -217,11 +222,11 @@ def test_layer_loss_ignore_mask_and_metrics_match_jax():
     preds[0][0, 0, 0, 0, :4] = [0.0, 0.0, 0.0, 0.0]   # logits at 0
     want = _jax_loss_layers(labels, preds)
     got = TLoss.yolo_loss_layers([_t(l) for l in labels],
-                                 [_t(p) for p in preds], SPEC, 4, *LOSS_ARGS)
+                                 [_t(p) for p in preds], TSPEC, 4, *LOSS_ARGS)
     for g, w in zip(got, want):
         np.testing.assert_allclose(float(g), float(w), rtol=1e-5)
     total = TLoss.yolo_loss([_t(l) for l in labels], [_t(p) for p in preds],
-                            SPEC, 4, *LOSS_ARGS)
+                            TSPEC, 4, *LOSS_ARGS)
     np.testing.assert_allclose(float(total), float(sum(want)), rtol=1e-5)
 
     for layer, (lab, pred) in enumerate(zip(labels, preds)):
@@ -283,7 +288,7 @@ def _jax_loss_fn(jnet):
     def loss_fn(params, batch_stats, images, labels):
         outs, upd = jnet.apply({"params": params, "batch_stats": batch_stats},
                                images, train=True)
-        layers = JLoss.yolo_loss_layers(labels, outs, SPEC, images.shape[0],
+        layers = JLoss.yolo_loss_layers(labels, outs, JSPEC, images.shape[0],
                                         *LOSS_ARGS)
         main = layers[0] + layers[1]
         return main + JLoss.l2_penalty(params), (main, layers,
@@ -293,7 +298,7 @@ def _jax_loss_fn(jnet):
 
 def _port_losses(net, images, labels, dtype=torch.float32):
     outs = net(_t(images), dtype=dtype)
-    layers = TLoss.yolo_loss_layers([_t(l) for l in labels], outs, SPEC,
+    layers = TLoss.yolo_loss_layers([_t(l) for l in labels], outs, TSPEC,
                                     images.shape[0], *LOSS_ARGS)
     return layers, layers[0] + layers[1]
 
@@ -352,11 +357,12 @@ def test_bf16_training_loss_matches_jax():
 
 
 def test_adam_matches_optax_with_decay():
-    cfg = TrainConfig(init_learning_rate=1e-3, learning_rate_decay_factor=0.3)
+    kw = dict(init_learning_rate=1e-3, learning_rate_decay_factor=0.3)
+    cfg = TConfig.TrainConfig(**kw)
     rng = np.random.default_rng(4)
     params = {"a": rng.normal(0, 1, (3, 4)).astype(np.float32),
               "b": rng.normal(0, 1, (5,)).astype(np.float32)}
-    tx = JT.make_optimizer(cfg)
+    tx = JT.make_optimizer(JConfig.TrainConfig(**kw))
     jparams = jax.tree.map(jnp.asarray, params)
     opt_state = tx.init(jparams)
     tparams = [torch.nn.Parameter(_t(params[k])) for k in ("a", "b")]
@@ -383,16 +389,16 @@ def test_three_step_trajectory_matches_jax():
     """Augment off: three steps of the JAX package's jitted train step and
     the port's on the same three batches from the same weights."""
     jnet, variables, flat = jax_net_and_flat()
-    tx = JT.make_optimizer(CFG)
+    tx = JT.make_optimizer(JCFG)
     params = jax.tree.map(jnp.copy, variables["params"])
     jstate = JT.TrainState(
         step=jnp.zeros((), jnp.int32), params=params,
         batch_stats=jax.tree.map(jnp.copy, variables["batch_stats"]),
         opt_state=tx.init(params), masks=JP.init_masks(params),
         pr=JM.init_pr_state(2))
-    jstep = JT.make_train_step(jnet, SPEC, CFG, train_epoch_step=10)
+    jstep = JT.make_train_step(jnet, JSPEC, JCFG, train_epoch_step=10)
     state = TT.create_train_state(torch_net(flat), CFG, "cpu")
-    step = TT.make_train_step(SPEC, CFG)
+    step = TT.make_train_step(TSPEC, CFG)
     for seed, rtol in ((10, 1e-5), (11, 1e-3), (12, 1e-3)):
         images, labels = _batch(seed)
         jstate, jlogs = jstep(jstate, jnp.asarray(images),
@@ -416,11 +422,11 @@ def test_fit_two_steps_with_augment_on_cpu(synth):
     net = torch_net()
     before = {k: v.clone() for k, v in net.state_dict().items()}
     lines, scalars = [], []
-    state = TT.fit(net, SPEC, dataclasses.replace(CFG, max_epochs=1),
+    state = TT.fit(net, TSPEC, dataclasses.replace(CFG, max_epochs=1),
                    iter(TPL.DataPipeline(train, 4, seed=0, num_workers=2)),
                    iter(TPL.DataPipeline(test, 3, seed=0, num_workers=2)),
-                   TPL.make_preprocess_fn(SPEC, True),
-                   TPL.make_preprocess_fn(SPEC, False), 2, 1, device="cpu",
+                   TPL.make_preprocess_fn(TSPEC, True),
+                   TPL.make_preprocess_fn(TSPEC, False), 2, 1, device="cpu",
                    log_fn=lines.append,
                    scalar_logger=lambda s, d: scalars.append((s, d)))
     assert state.step == 2 and state.net is net and net.training
@@ -440,7 +446,7 @@ def test_fit_and_train_state_refuse_what_is_not_there():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU refusal cannot be shown")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TT.fit(torch_net(), SPEC, CFG, iter(()), None, None, None, 1, 0,
+        TT.fit(torch_net(), TSPEC, CFG, iter(()), None, None, None, 1, 0,
                device="cuda")
     with pytest.raises(NotImplementedError, match="pruning"):
         TT.create_train_state(torch_net(), dataclasses.replace(
@@ -454,7 +460,7 @@ def test_trained_state_round_trip_serves_like_jax():
     (tolerances of tests/test_torch_predictor.py)."""
     _, variables, flat = jax_net_and_flat()
     state = TT.create_train_state(torch_net(flat), CFG, "cpu")
-    step = TT.make_train_step(SPEC, CFG)
+    step = TT.make_train_step(TSPEC, CFG)
     images, labels = _batch(20)
     for _ in range(2):
         state, _ = step(state, _t(images), [_t(l) for l in labels])
@@ -467,8 +473,8 @@ def test_trained_state_round_trip_serves_like_jax():
         assert torch.equal(back[k], v), k
 
     jnet, _, _ = jax_net_and_flat()
-    jp = JaxPredictor(jnet, _unflatten(trained), SPEC, **THRESH)
-    tp = Predictor(torch_net(), back, SPEC, device="cpu", **THRESH)
+    jp = JaxPredictor(jnet, _unflatten(trained), JSPEC, **THRESH)
+    tp = Predictor(torch_net(), back, TSPEC, device="cpu", **THRESH)
     canvases, hws, img = _scene()
     got = tp.predict_batch(canvases, hws)
     assert sum(len(d.scores) for d in got) > 0
