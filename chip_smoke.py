@@ -11,7 +11,10 @@ Phases (any failure raises and the script exits non-zero):
   2. build: compiles the port's CUDA kernels from the sources in this
      checkout (``k210_yolo_framework_tpu_torch/csrc/yolo_head.cu``,
      ``rotate3shear.cu``, ``nms.cu`` and ``dwsep.cu``; the first and third
-     share ``greedy_select.cuh``), one nvcc each, started together;
+     share ``greedy_select.cuh``), one nvcc each, started together, prints
+     ptxas's registers per kernel, and counts the HMMA (tensor-core)
+     instructions in the SASS of the bf16 dwsep kernel (``cuobjdump``
+     beside that nvcc): none fails the run;
   3. the kernel against its plain PyTorch version on the card, at the
      serving shapes (VOC, B=128, N=1050, C=20), both score flavours, on
      sparse, dense, empty, NaN, tied and 3-scale (N=4410) inputs;
@@ -62,6 +65,8 @@ Phases (any failure raises and the script exits non-zero):
      the B=128 bf16 serving forward, its BN folded; the kernel (once per
      block) against ``fused_dwsep_reference`` and against the block's own
      output (0.05), then at B=8 in fp32 against the plain version (2e-5);
+     a NaN put into the first and the last block's input gives NaN at the
+     same outputs in the kernel and the plain version;
  13. VOC eval: ``eval.collect_detections`` / ``match_detections`` of a bf16
      Predictor over the JPEGs at obj_thresh 0.01, iou_thresh 0.45,
      max_out 100, batch 32 on 512x512 canvases (one head launch per batch,
@@ -91,6 +96,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -115,6 +121,24 @@ def gpu_label() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_hmma_count(lib_path, kernel: str) -> int:
+    """HMMA instructions in the SASS of the functions of ``lib_path`` whose
+    mangled name holds ``kernel``, by ``cuobjdump -sass`` from the bin/ of
+    the nvcc that builds the kernels."""
+    from k210_yolo_framework_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.splitlines()[0]]
+    if not funcs:
+        raise AssertionError(f"no function {kernel} in the SASS of "
+                             f"{Path(lib_path).name}")
+    return sum(line.count("HMMA") for f in funcs for line in f.splitlines())
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -893,6 +917,21 @@ def dwsep_phase(pred, fp32_pred, c_dev, h_dev, part, tag):
               f"{float((got - block_out).abs().max()):.3g}")
         if bad:
             raise AssertionError(f"dwsep block_{i} fp32 disagrees")
+
+    # a NaN in the input gives NaN at the same outputs in both versions
+    for i in (DW_BLOCKS[0], DW_BLOCKS[-1]):
+        x, params = inputs[i]
+        x = x.clone()
+        x[0, 1, 2, 0] = float("nan")
+        x[-1, -1, -1, -1] = float("nan")
+        got = torch.isnan(TF.fused_dwsep(x, *params))
+        want = torch.isnan(TF.fused_dwsep_reference(x, *params))
+        same = torch.equal(got, want)
+        print(f"dwsep block_{i:<2} NaN in x: {int(got.sum())} NaN outputs, "
+              f"{int(want.sum())} in the plain version, same positions: "
+              f"{same}")
+        if not same or not got.any():
+            raise AssertionError(f"dwsep block_{i}: NaN positions differ")
     return {"launches": launches, "max_abs_err": max_err}, inputs
 
 
@@ -1128,8 +1167,15 @@ def run(device) -> int:
     for name, (lib_path, log) in built.items():
         print(f"  {name}: {lib_path.name}")
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "smem",
+                                       "spill")):
                 print(f"    ptxas: {line.strip()}")
+    hmma = sass_hmma_count(built["dwsep"][0], "dwsep_mma_kernel")
+    print(f"dwsep bf16 kernel (dwsep_mma_kernel: 64-pixel tile, 4 warps): "
+          f"{hmma} HMMA instructions in its SASS")
+    if hmma == 0:
+        raise AssertionError("the bf16 dwsep kernel has no tensor-core "
+                             "instruction")
 
     # ---- 3. kernel against its plain version ---------------------------
     spec = voc_spec()

@@ -22,7 +22,9 @@ the tolerances of ``tests/test_dwsep_pallas.py``):
     x.dtype inputs times fp32 ``dw_k`` summed in fp32, then the folded BN,
     with one rounding to x.dtype after the ReLU.
 
-Both take the pointwise product from x.dtype inputs with fp32 accumulation.
+Both take the pointwise product from x.dtype inputs with fp32 accumulation:
+the kernel's bf16 instantiation on the tensor cores (``mma.sync``), its
+fp32 one on CUDA cores.
 """
 
 from __future__ import annotations
@@ -96,8 +98,8 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.dwsep_max_dynamic_smem.argtypes = [ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_int)]
     lib.dwsep_max_dynamic_smem.restype = ctypes.c_int
-    lib.dwsep_tile_pixels.argtypes = []
-    lib.dwsep_tile_pixels.restype = ctypes.c_int
+    lib.dwsep_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dwsep_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -107,17 +109,32 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            + lib.dwsep_error_string(err).decode())
 
 
+def _largest_fitting(footprint, limit: int, hi: int = 1 << 16) -> int:
+    """Largest c in [0, hi] with ``footprint(c) <= limit``, where the c that
+    fit are a prefix of [0, hi]; 0 when none fits."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if footprint(mid) <= limit:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 @functools.cache
 def _max_channels(device: torch.device, is_bf16: bool) -> int:
-    """Most input channels one block's shared memory holds on ``device``:
-    a tile of pixels keeps its depthwise output, C values each in x.dtype."""
+    """Most input channels one block's shared memory holds on ``device``,
+    by the kernel's own footprint (``dwsep_smem_bytes``: for bf16 the padded
+    depthwise tile and the ring of pw_k chunks)."""
     lib = _kernel_lib()
     nbytes = ctypes.c_int(0)
     with torch.cuda.device(device):
         _check(lib, lib.dwsep_max_dynamic_smem(int(is_bf16),
                                                ctypes.byref(nbytes)),
                "shared-memory query")
-    return nbytes.value // (lib.dwsep_tile_pixels() * (2 if is_bf16 else 4))
+    return _largest_fitting(
+        lambda c: lib.dwsep_smem_bytes(int(is_bf16), c), nbytes.value)
 
 
 _DTYPES = (torch.float32, torch.bfloat16)

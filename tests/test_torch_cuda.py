@@ -309,24 +309,33 @@ def test_nms_wrapper_rejects_bad_inputs(dev):
         TN._launch(torch.zeros((1, limit + 1, 4), device=dev), big, **kw)
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((1, 9, 13, 16, 24), torch.float32), ((1, 9, 13, 16, 24), torch.bfloat16),
-    ((8, 14, 20, 384, 384), torch.bfloat16),
-    ((2, 7, 10, 768, 768), torch.bfloat16),
-    ((2, 7, 10, 576, 576), torch.float32)])
-def test_dwsep_kernel_matches_plain(dev, shape, dtype):
-    """The odd 9x13 shape, two served blocks' shapes at a small batch
-    (block_7, whose bf16 tile takes 48 KB of dynamic shared memory, and
-    block_13) and a wide fp32 one."""
+def _dwsep_args(shape, dtype, dev, seed=8):
     b, h, w, c, cout = shape
-    rng = np.random.default_rng(8)
+    rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(
         np.float32)).to(dev).to(dtype)
     args = [torch.from_numpy(a).to(dev) for a in (
         rng.normal(0, 0.3, (3, 3, c)), rng.uniform(0.5, 1.5, c),
         rng.normal(0, 0.2, c), rng.normal(0, 0.1, (c, cout)),
         rng.uniform(0.5, 1.5, cout), rng.normal(0, 0.2, cout))]
-    args = [a.to(torch.float32) for a in args]
+    return x, [a.to(torch.float32) for a in args]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 9, 13, 16, 24), torch.float32), ((1, 9, 13, 16, 24), torch.bfloat16),
+    ((8, 14, 20, 384, 384), torch.bfloat16),
+    ((2, 7, 10, 768, 768), torch.bfloat16),
+    ((2, 7, 10, 576, 576), torch.float32),
+    ((2, 112, 160, 24, 48), torch.bfloat16),
+    ((1, 9, 13, 20, 36), torch.bfloat16), ((1, 9, 13, 20, 36), torch.float32),
+    ((3, 5, 7, 96, 96), torch.bfloat16), ((3, 5, 7, 768, 768), torch.bfloat16)])
+def test_dwsep_kernel_matches_plain(dev, shape, dtype):
+    """The odd 9x13 shape; served blocks' shapes at a small batch (block_7,
+    block_13, and block_1 at its full 112x160); a wide fp32 one; ragged C
+    and Cout (20 -> 36: K padded to 32, a part-filled n8 tile, no 16-byte
+    access); 105 pixels, not a multiple of the 64-pixel tile."""
+    b, h, w, c, cout = shape
+    x, args = _dwsep_args(shape, dtype, dev)
     before = TF.fused_dwsep.launches
     got = TF.fused_dwsep(x, *args)
     torch.cuda.synchronize()
@@ -336,6 +345,33 @@ def test_dwsep_kernel_matches_plain(dev, shape, dtype):
     tol = 2e-5 if dtype == torch.float32 else 0.05
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,cout", [(24, 48), (20, 36)])
+def test_dwsep_kernel_nan_positions_match_plain(dev, c, cout, dtype):
+    """A NaN in x makes NaN of the 3x3 neighbourhood's pixels, every output
+    channel, in both versions; the rest within tolerance."""
+    x, args = _dwsep_args((2, 9, 13, c, cout), dtype, dev)
+    x[0, 4, 6, 3] = float("nan")
+    x[1, 0, 0, c - 1] = float("nan")      # a corner, the last channel
+    got = TF.fused_dwsep(x, *args).float().cpu()
+    want = TF.fused_dwsep_reference(x, *args).float().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) == (9 + 4) * cout
+    tol = 2e-5 if dtype == torch.float32 else 0.05
+    ok = ~torch.isnan(want)
+    np.testing.assert_allclose(got[ok].numpy(), want[ok].numpy(), rtol=tol,
+                               atol=tol)
+
+
+def _dwsep_footprint(is_bf16, c):
+    """The kernel's dynamic shared memory by its definition: bf16, a
+    64-pixel A tile of K = C rounded up to 16 plus 8 pad columns and a ring
+    of three 32 x (64 + 8) chunks of pw_k; fp32, the 64 x C tile."""
+    if is_bf16:
+        return 2 * (64 * ((c + 15) // 16 * 16 + 8) + 3 * 32 * 72)
+    return 4 * 64 * c
 
 
 def test_dwsep_wrapper_rejects_bad_inputs(dev):
@@ -349,12 +385,31 @@ def test_dwsep_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="x:"):
         TF._launch(x.transpose(1, 2).contiguous().transpose(1, 2), *args,
                    0.3)
-    limit = TF._max_channels(dev, False)
-    wide = torch.zeros((1, 2, 2, limit + 1), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        TF._launch(wide, torch.zeros((3, 3, limit + 1), device=dev),
-                   *(torch.zeros(limit + 1, device=dev) for _ in range(2)),
-                   torch.zeros((limit + 1, 6), device=dev), *args[4:], 0.3)
+    lib = TF._kernel_lib()
+    for dtype in (torch.float32, torch.bfloat16):
+        is_bf16 = dtype == torch.bfloat16
+        for c in (1, 20, 24, 384, 768, 1000):
+            assert lib.dwsep_smem_bytes(int(is_bf16), c) == \
+                _dwsep_footprint(is_bf16, c)
+        limit = TF._max_channels(dev, is_bf16)
+        optin = getattr(torch.cuda.get_device_properties(dev),
+                        "shared_memory_per_block_optin", None)
+        if optin is not None:
+            assert _dwsep_footprint(is_bf16, limit) <= optin
+        if is_bf16:
+            assert limit >= 768           # the widest served block
+        f32 = [torch.zeros(s, device=dev) for s in ((3, 3, limit + 1),
+                                                     (limit + 1,),
+                                                     (limit + 1,))]
+        wide = torch.zeros((1, 2, 2, limit + 1), device=dev, dtype=dtype)
+        pw = torch.zeros((limit + 1, 6), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="shared memory"):
+            TF._launch(wide, *f32, pw, *args[4:], 0.3)
+        # the widest accepted tile launches
+        TF._launch(wide[..., :limit].contiguous(),
+                   *(t[..., :limit].contiguous() for t in f32),
+                   pw[:limit].contiguous(), *args[4:], 0.3)
+        torch.cuda.synchronize()
 
 
 def test_build_rebuilds_when_only_the_header_changes(dev, tmp_path,

@@ -4,9 +4,11 @@
 the CPU) against JAX's ``fused_dwsep_reference`` and against JAX's
 ``fused_dwsep(interpret=True)`` (the Pallas kernel itself, interpreted), on
 the shapes of ``tests/test_dwsep_pallas.py`` with its tolerances: fp32
-rtol/atol 2e-5, bf16 0.05.  Then a stride-1 block of the port's eval-mode
-``MobileNetV1``, folded by ``block_params``, against the block itself.  The
-CUDA kernel is held to the plain version by ``tests/test_torch_cuda.py`` and
+rtol/atol 2e-5, bf16 0.05; in bf16 also at the served net's stride-1
+widths and a ragged one, and with NaN in x.  Then a stride-1 block of the
+port's eval-mode ``MobileNetV1``, folded by ``block_params``, against the
+block itself, and the wrapper's shared-memory search.  The CUDA kernel is
+held to the plain version by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
 
@@ -51,6 +53,21 @@ SHAPES = {"d14x20": (2, 14, 20, 48, 96), "d7x10": (1, 7, 10, 96, 96),
           "d14x20c64": (2, 14, 20, 64, 96)}
 
 
+def _port_and_jax(args, dtype):
+    """The port's ``fused_dwsep`` (its plain version, on the CPU) and JAX's
+    oracle and interpreted Pallas kernel on the same fp32 numpy inputs, x
+    cast to ``dtype`` in both; all three as fp32 numpy arrays."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j_args = (jnp.asarray(args[0]).astype(jdt),
+              *(jnp.asarray(a) for a in args[1:]))
+    got = TF.fused_dwsep(torch.from_numpy(args[0]).to(tdt),
+                         *(torch.from_numpy(a) for a in args[1:]))
+    assert got.dtype == tdt
+    wants = [np.asarray(_jax_fns(interpret)(*j_args), np.float32)
+             for interpret in (False, True)]
+    return got.to(torch.float32).numpy(), wants
+
+
 @pytest.mark.parametrize("dtype,name,seed", [
     *(pytest.param("float32", s, 0, id=f"f32-{s}")
       for s in ("d14x20", "d7x10", "d28x40", "odd9x13")),
@@ -58,17 +75,47 @@ SHAPES = {"d14x20": (2, 14, 20, 48, 96), "d7x10": (1, 7, 10, 96, 96),
     pytest.param("bfloat16", "odd9x13", 1, id="bf16-odd9x13")])
 def test_reference_matches_jax(dtype, name, seed):
     shape = SHAPES[name]
-    args = _case(*shape, seed)
-    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    j_args = (jnp.asarray(args[0]).astype(jdt),
-              *(jnp.asarray(a) for a in args[1:]))
-    got = TF.fused_dwsep(torch.from_numpy(args[0]).to(tdt),
-                         *(torch.from_numpy(a) for a in args[1:]))
-    assert got.dtype == tdt and got.shape == shape[:3] + (shape[4],)
-    got = got.to(torch.float32).numpy()
-    for interpret in (False, True):
-        want = np.asarray(_jax_fns(interpret)(*j_args), np.float32)
+    got, wants = _port_and_jax(_case(*shape, seed), dtype)
+    assert got.shape == shape[:3] + (shape[4],)
+    for interpret, want in zip((False, True), wants):
         np.testing.assert_allclose(got, want, **TOL[dtype],
+                                   err_msg=f"interpret={interpret}")
+
+
+# C -> Cout of the served net's stride-1 blocks (yolo_mobilev1, alpha 0.75:
+# block_1, block_3, block_5, blocks 7-11, block_13) and a ragged pair: the
+# widths the card's kernel is held to this plain version at
+SERVED_WIDTHS = ((24, 48), (96, 96), (192, 192), (384, 384), (768, 768),
+                 (20, 36))
+
+
+@pytest.mark.parametrize("c,cout", SERVED_WIDTHS,
+                         ids=[f"{c}to{o}" for c, o in SERVED_WIDTHS])
+def test_reference_matches_jax_at_served_widths(c, cout):
+    """bf16 at 1x9x13 (117 pixels, not a multiple of the kernel's tile)."""
+    got, wants = _port_and_jax(_case(1, 9, 13, c, cout, 5), "bfloat16")
+    assert got.shape == (1, 9, 13, cout) and np.isfinite(got).all()
+    for interpret, want in zip((False, True), wants):
+        np.testing.assert_allclose(got, want, **TOL["bfloat16"],
+                                   err_msg=f"interpret={interpret}")
+
+
+def test_nan_in_x_gives_nan_at_the_same_outputs():
+    """A NaN inside the image and one in a corner: NaN at every output
+    channel of their 3x3 neighbourhoods (9 + 4 pixels) in the port and in
+    both JAX versions; the rest within tolerance."""
+    args = _case(1, 9, 13, 24, 48, 6)
+    args[0] = args[0].copy()
+    args[0][0, 4, 6, 3] = np.nan
+    args[0][0, 0, 0, 23] = np.nan
+    got, wants = _port_and_jax(args, "bfloat16")
+    nan = np.isnan(got)
+    assert nan.sum() == (9 + 4) * 48
+    assert nan[0, 3:6, 5:8].all() and nan[0, :2, :2].all()
+    for interpret, want in zip((False, True), wants):
+        np.testing.assert_array_equal(nan, np.isnan(want),
+                                      err_msg=f"interpret={interpret}")
+        np.testing.assert_allclose(got[~nan], want[~nan], **TOL["bfloat16"],
                                    err_msg=f"interpret={interpret}")
 
 
@@ -142,3 +189,24 @@ def test_fused_dwsep_cpu_path_does_not_launch_and_others_raise():
     assert TF.fused_dwsep.launches == before
     with pytest.raises(ValueError, match="no kernel"):
         TF.fused_dwsep(*(a.to("meta") for a in args))
+
+
+def _bf16_footprint(c):
+    """The bf16 kernel's shared memory by its definition
+    (``csrc/dwsep.cu:smem_bytes``): a 64-pixel tile of K = C rounded up to
+    16 plus 8 pad columns and three 32 x (64 + 8) chunks of pw_k, bf16."""
+    return 2 * (64 * ((c + 15) // 16 * 16 + 8) + 3 * 32 * 72)
+
+
+@pytest.mark.parametrize("limit", [0, 48 * 1024, 115_712, 232_448, 10**9])
+def test_largest_fitting_matches_a_scan(limit):
+    """The wrapper's search for the widest C one block's shared memory
+    holds, against a scan of every C: 0 bytes (none fits), the default
+    48 KB, two blocks per SM, the H100's opt-in limit, and a limit past
+    the search range."""
+    hi = 4096
+    want = max((c for c in range(hi + 1) if _bf16_footprint(c) <= limit),
+               default=0)
+    assert TF._largest_fitting(_bf16_footprint, limit, hi) == want
+    if 0 < want < hi:
+        assert _bf16_footprint(want + 1) > limit
