@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build: compiles the port's CUDA kernels from the sources in this
      checkout (``k210_yolo_framework_tpu_torch/csrc/yolo_head.cu``,
      ``rotate3shear.cu``, ``nms.cu`` and ``dwsep.cu``; the first and third
-     share ``greedy_select.cuh``), one nvcc each, started together, prints
+     share ``greedy_select.cuh``, the selection loop that runs a class row
+     in one warp over a list of its live candidates), one nvcc each,
+     started together, prints
      ptxas's registers per kernel, and counts the HMMA (tensor-core)
      instructions in the SASS of the bf16 dwsep kernel (``cuobjdump``
      beside that nvcc): none fails the run;
@@ -26,7 +28,12 @@ Phases (any failure raises and the script exits non-zero):
      per call, and the detections of the scenes that have any must match
      the same Predictor's forward through the plain head;
   5. times, from CUDA events: serving images/s at batch 128, batch-1
-     latency, and the head kernel against its plain version;
+     latency, and the head kernel against its plain version at batch 128
+     (threshold 0.7, max_out 30) and at the eval settings on the served
+     net's logits (batch 32, threshold 0.01, max_out 100), with G (the
+     class rows a block) and the live candidate tests of each; the head
+     kernel also on the card alone, its launches queued ahead
+     (``device_ms``);
   6. where the device time goes: torch.profiler kernel events (each kernel
      once) of one serving call at batch 128 and at batch 1;
   7. the rotation against its plain PyTorch version on the card, both
@@ -74,16 +81,17 @@ Phases (any failure raises and the script exits non-zero):
      and 8 images in fp32, card against CPU;
  14. times: NMS alone on the three scenes and the fused block on each of
      the nine blocks, each against its plain version (plain, kernel,
-     kernel, plain); beside the fused block, the served net's own block
-     (BN and activations in fp32, fp32 output) and a bf16 cuDNN pair with
-     BN folded, on the same input.
+     kernel, plain; NMS also by ``device_ms``); beside the fused block,
+     the served net's own block (BN and activations in fp32, fp32 output)
+     and a bf16 cuDNN pair with BN folded, on the same input.
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
 and its operations over the card's peak rate for their type (``bound``).
 Greedy NMS counts only the candidates each step has to test.
 
-The next-to-last line is one JSON object describing each kernel; the last
+The next-to-last line is one JSON object describing each kernel (``ms``
+by CUDA events; the head and NMS also carry ``device_ms``); the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
 script imports only the port, which imports nothing of the JAX package.
 """
@@ -157,6 +165,35 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, cycles: int = 1 << 24) -> float:
+    """Mean time of one call of ``fn`` on the card alone: a spin kernel
+    holds the stream while the host queues ``iters`` calls, and CUDA events
+    around the calls then time their launches back to back, without the
+    host's launch path that events around a short kernel's calls also
+    measure.  Counts only where the host had queued every call before the
+    spin ended (else the spin is doubled, up to 4 tries) and raises if it
+    never had."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()      # the spin still running
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise AssertionError(f"the host did not queue {iters} calls within a "
+                         f"spin of {cycles // 2} cycles")
 
 
 KERNEL_CATEGORIES = (
@@ -732,6 +769,11 @@ def alternating(plain, kern, plain_iters, kern_iters):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
+def per_test(ms: float, live: int) -> str:
+    """Kernel time over the live candidate tests, in picoseconds."""
+    return f"{1e9 * ms / live:.3f} ps a test" if live else "no test"
+
+
 def n_differing(got, want) -> int:
     """Elements of two NmsResults that differ (NaN equal to NaN)."""
     import torch
@@ -1071,15 +1113,20 @@ def new_kernel_times(scenes, scene_preds, spec, h_dev, dw_inputs, pred, tag):
         kern = lambda: TN._launch(  # noqa: E731
             boxes, scores, score_thresh=p.obj_thresh, **kw)
         k_ms, p_ms, (p1, k1, k2, p2) = alternating(plain, kern, 5, 20)
+        dev_k = device_ms(kern, 20)
         res = TN.batched_nms_pallas(boxes, scores, p.obj_thresh, IOU, 30)
         live = live_tests(lambda lv: TN._select(
             boxes, scores, stop_below=p.obj_thresh, live=lv, **kw))
         b_ms, by = nms_bound(*scores.shape[:2], spec.class_num, 30, live)
-        nms[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        nms[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                         device_ms=dev_k)
+        rows = TN._rows(boxes.device, *scores.shape)
         print(f"nms b{BATCH} {name:<6} (N={boxes.shape[1]}, obj_thresh "
-              f"{p.obj_thresh}, {greedy_passes(res)} greedy steps, {live} "
-              f"live candidate tests): kernel {k1:.4f}/{k2:.4f} ms, plain "
-              f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({by}) {tag}")
+              f"{p.obj_thresh}, G={rows}, {greedy_passes(res)} greedy steps, "
+              f"{live} live candidate tests, {per_test(dev_k, live)}): kernel "
+              f"{k1:.4f}/{k2:.4f} ms a launch by events, {dev_k:.4f} ms with "
+              f"launches queued; plain {p1:.4f}/{p2:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by}) {tag}")
 
     dw = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, block_ms=0.0, pair_ms=0.0)
     ops_bound = 0
@@ -1129,16 +1176,62 @@ def main() -> int:
     return run(torch.device("cuda"))
 
 
+def three_scale_spec():
+    """The 20-class spec with a third scale (4,410 candidates)."""
+    from k210_yolo_framework_tpu_torch import YoloSpec
+
+    rng = np.random.default_rng(1)
+    anchors3 = np.sort(rng.uniform(0.05, 0.9, (3, 3, 2)))[:, ::-1]
+    return YoloSpec.create((224, 320), ((7, 10), (14, 20), (28, 40)), 20,
+                           anchors3)
+
+
+def serving_scenes(spec, device):
+    """The served net (yolo_mobilev1 alpha 0.75, seeded weights), its three
+    bf16 Predictors as ((name, Predictor), ...): sparse (obj_thresh 0.7),
+    mid (MID_THRESH) and dense (head biases +3, 0.7); and the inputs: BATCH
+    canvases (half of them cut), their sizes and one 375x500 image."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.models import build_network
+
+    net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                        spec.class_num, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    serve = dict(iou_thresh=IOU, compute_dtype=torch.bfloat16, device=device)
+    pred = Predictor(net, None, spec, obj_thresh=0.7, **serve)
+    mid_pred = Predictor(net, None, spec, obj_thresh=MID_THRESH, **serve)
+    dense_state = {k: v.clone() for k, v in net.state_dict().items()}
+    e = 5 + spec.class_num
+    for layer in ("y1_out", "y2_out"):
+        bias = dense_state[f"head.{layer}.dark_conv_out.bias"]
+        for a in range(spec.nanchors):
+            bias[a * e + 4:(a + 1) * e] += 3.0   # conf and every class
+    dense_pred = Predictor(net, dense_state, spec, obj_thresh=0.7, **serve)
+    scenes = (("sparse", pred), ("mid", mid_pred), ("dense", dense_pred))
+
+    rng = np.random.default_rng(2)
+    hws = np.tile(np.asarray(CANVAS_HW, np.int32), (BATCH, 1))
+    hws[BATCH // 2:] = np.stack([rng.integers(60, CANVAS_HW[0] + 1, BATCH // 2),
+                                 rng.integers(60, CANVAS_HW[1] + 1, BATCH // 2)],
+                                -1)
+    canvases = np.zeros((BATCH, *CANVAS_HW, 3), np.uint8)
+    for b, (h, w) in enumerate(hws):
+        canvases[b, :h, :w] = rng.integers(0, 256, (h, w, 3))
+    image = rng.integers(0, 256, (375, 500, 3)).astype(np.uint8)
+    return net, scenes, canvases, hws, image
+
+
 def run(device) -> int:
     import torch
 
-    from k210_yolo_framework_tpu_torch import YoloSpec, voc_spec
+    from k210_yolo_framework_tpu_torch import voc_spec
     from k210_yolo_framework_tpu_torch.data.pipeline import synthetic_ann_list
     from k210_yolo_framework_tpu_torch.inference import (
         Predictor,
         stack_detections,
     )
-    from k210_yolo_framework_tpu_torch.models import build_network
     from k210_yolo_framework_tpu_torch.ops import _build
     from k210_yolo_framework_tpu_torch.ops import letterbox as LB
     from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
@@ -1178,11 +1271,7 @@ def run(device) -> int:
                              "instruction")
 
     # ---- 3. kernel against its plain version ---------------------------
-    spec = voc_spec()
-    rng = np.random.default_rng(1)
-    anchors3 = np.sort(rng.uniform(0.05, 0.9, (3, 3, 2)))[:, ::-1]
-    spec3 = YoloSpec.create((224, 320), ((7, 10), (14, 20), (28, 40)), 20,
-                            anchors3)
+    spec, spec3 = voc_spec(), three_scale_spec()
     max_err, flips = 0.0, 0
     for name, s, preds, hws in head_cases(spec, spec3, device):
         for softmax, thresh in FLAVOURS:
@@ -1205,30 +1294,8 @@ def run(device) -> int:
                 raise AssertionError("dense scene: not every row ran 30 steps")
 
     # ---- 4. the slice ---------------------------------------------------
-    net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
-                        spec.class_num, alpha=0.75,
-                        generator=torch.Generator().manual_seed(0))
-    serve = dict(iou_thresh=IOU, compute_dtype=torch.bfloat16, device=device)
-    pred = Predictor(net, None, spec, obj_thresh=0.7, **serve)
-    mid_pred = Predictor(net, None, spec, obj_thresh=MID_THRESH, **serve)
-    dense_state = {k: v.clone() for k, v in net.state_dict().items()}
-    e = 5 + spec.class_num
-    for layer in ("y1_out", "y2_out"):
-        bias = dense_state[f"head.{layer}.dark_conv_out.bias"]
-        for a in range(spec.nanchors):
-            bias[a * e + 4:(a + 1) * e] += 3.0   # conf and every class
-    dense_pred = Predictor(net, dense_state, spec, obj_thresh=0.7, **serve)
-    scenes = (("sparse", pred), ("mid", mid_pred), ("dense", dense_pred))
-
-    rng = np.random.default_rng(2)
-    hws = np.tile(np.asarray(CANVAS_HW, np.int32), (BATCH, 1))
-    hws[BATCH // 2:] = np.stack([rng.integers(60, CANVAS_HW[0] + 1, BATCH // 2),
-                                 rng.integers(60, CANVAS_HW[1] + 1, BATCH // 2)],
-                                -1)
-    canvases = np.zeros((BATCH, *CANVAS_HW, 3), np.uint8)
-    for b, (h, w) in enumerate(hws):
-        canvases[b, :h, :w] = rng.integers(0, 256, (h, w, 3))
-    image = rng.integers(0, 256, (375, 500, 3)).astype(np.uint8)
+    net, scenes, canvases, hws, image = serving_scenes(spec, device)
+    pred, mid_pred, dense_pred = (p for _, p in scenes)
 
     TH.fused_decode_nms.launches = 0
     served = {name: (p.predict_batch(canvases, hws), p.predict_image(image))
@@ -1315,40 +1382,52 @@ def run(device) -> int:
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
 
-    cases = {name: (s, preds, hws_)
+    cases = {name: (s, preds, hws_, 0.7, 30, IOU)
              for name, s, preds, hws_ in head_cases(spec, spec3, device)}
-    cases["slice"] = (spec, slice_preds, h_dev)
-    head_times = {}
-    for name in ("slice", "sparse", "dense"):
-        s, preds, hws_ = cases[name]
+    cases["slice"] = (spec, slice_preds, h_dev, 0.7, 30, IOU)
+    # the eval settings on the served net's logits: every row runs up to
+    # 100 steps
+    cases["eval"] = (spec, [t[:EVAL_BATCH] for t in slice_preds],
+                     h_dev[:EVAL_BATCH], EVAL["obj_thresh"], EVAL["max_out"],
+                     EVAL["iou_thresh"])
+    head_times, head_dev = {}, {}
+    for name in ("slice", "sparse", "dense", "eval"):
+        s, preds, hws_, thresh, max_out, iou = cases[name]
         # the kernel alone against the plain version of the same function,
         # on the same prepared inputs ...
         p = TH._flatten_preds(preds, s.class_num)
         geom = TH._geometry_on(s, device)
         lbox = TH.letterbox_inverse_params(hws_, s.in_hw).contiguous()
-        kw = dict(classes=s.class_num, max_out=30, iou_thresh=IOU)
+        kw = dict(classes=s.class_num, max_out=max_out, iou_thresh=iou)
         plain = lambda: TH._decode_and_select(  # noqa: E731
-            p, geom, lbox, class_softmax=False, stop_below=0.7, **kw)
+            p, geom, lbox, class_softmax=False, stop_below=thresh, **kw)
         kern = lambda: TH._launch(  # noqa: E731
-            p, geom, lbox, score_thresh=0.7, class_softmax=False, **kw)
+            p, geom, lbox, score_thresh=thresh, class_softmax=False, **kw)
         p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 20),
                           time_ms(kern, 20), time_ms(plain, 5))
-        res = TH.fused_decode_nms(preds, s, hws_, 0.7, IOU, 30)
+        dev_k = head_dev[name] = device_ms(kern, 20)
+        res = TH.fused_decode_nms(preds, s, hws_, thresh, iou, max_out)
         live = live_tests(lambda lv: TH._decode_and_select(
-            p, geom, lbox, class_softmax=False, stop_below=0.7, live=lv,
+            p, geom, lbox, class_softmax=False, stop_below=thresh, live=lv,
             **kw))
+        bsz, n = p.shape[:2]
         head_times[name] = ((k1 + k2) / 2, (p1 + p2) / 2) + head_bound(
-            p.shape[0], p.shape[1], s.class_num, 30, live)
+            bsz, n, s.class_num, max_out, live)
         # ... and the whole head call, wrapper ops included
         call_k = time_ms(lambda: TH.fused_decode_nms(
-            preds, s, hws_, 0.7, IOU, 30), 20)
+            preds, s, hws_, thresh, iou, max_out), 20)
         call_p = time_ms(lambda: TH.fused_decode_nms_reference(
-            preds, s, hws_, 0.7, IOU, 30), 5)
-        print(f"head b{BATCH} {name:<6}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            preds, s, hws_, thresh, iou, max_out), 5)
+        rows = TH._rows(device, bsz, n, s.class_num)
+        blocks = TH._blocks_per_sm(device, n, rows)
+        print(f"head b{bsz} {name:<6} (thresh {thresh}, iou {iou}, max_out "
+              f"{max_out}, G={rows}, {blocks} blocks an SM): kernel "
+              f"{k1:.4f}/{k2:.4f} ms a launch by events, {dev_k:.4f} ms with "
+              f"launches queued; plain "
               f"{p1:.4f}/{p2:.4f} ms; whole call {call_k:.4f} ms, plain "
               f"call {call_p:.4f} ms; bound {head_times[name][2]:.4f} ms "
               f"({head_times[name][3]}, {greedy_passes(res)} greedy steps, "
-              f"{live} live candidate tests) {tag}")
+              f"{live} live candidate tests, {per_test(dev_k, live)}) {tag}")
 
     # ---- 6. where the device time goes ----------------------------------
     for label, fn, wall_ms in (
@@ -1399,6 +1478,7 @@ def run(device) -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
+        "device_ms": head_dev["slice"],
     }, {
         "name": "rotate3shear",
         "route": "cuda",

@@ -1,6 +1,6 @@
 // Fused YOLO head for Hopper (sm_90a): decode + letterbox inverse + per-class
-// greedy NMS, one thread block per (class, image) row.  The selection loop
-// is the shared one of greedy_select.cuh.
+// greedy NMS, one thread block per (image, group of G classes), one warp per
+// class row.  The selection loop is the shared one of greedy_select.cuh.
 //
 // Replaces the TPU kernel k210_yolo_framework_tpu/ops/yolo_head_pallas.py:_kernel
 // together with its selection loop, k210_yolo_framework_tpu/ops/nms_pallas.py:
@@ -11,16 +11,26 @@
 // bit for bit wherever the transcendental functions do.
 //
 // What bounds it: not bytes.  The input is [B, N, 5+C] fp32 logits (about
-// 13 MB at B=128, N=1050, C=20); each image's slice is re-read by its C blocks,
-// from L2.  The bound is the sequential chain of up to max_out block-wide
-// argmax reductions of each row.  The design keeps that chain short and local:
-//   * the row's N scores and N boxes (5*N floats: 21 KB at N=1050, 88 KB at
-//     N=4410) live in shared memory for the whole loop, sized from N;
-//   * each step is one block argmax (NaN-propagating, lowest index on ties),
-//     a read of the winner's box straight from shared memory, and one pass of
-//     IoU + suppression that also computes the next step's per-thread argmax;
-//   * each block leaves its loop on its own once its best score is below the
-//     threshold, so sparse rows cost a step or two.
+// 13 MB at B=128, N=1050, C=20).  The bound is each row's chain of up to
+// max_out steps, each a pass over the candidates still live
+// (greedy_select.cuh).  The block:
+//   * decodes each candidate of its image once for its G rows: one thread a
+//     candidate computes the box, the letterbox inverse, its area and conf
+//     (and, for class_softmax, the max and the class-order sum), writes the
+//     box to shared memory and the G class scores into the G rows;
+//   * notes, in the same pass and the one barrier after it, whether every
+//     box is finite and within +-kTame (the loop's IoU then needs no NaN
+//     handling);
+//   * after that barrier runs each row in its own warp, with no block
+//     barrier in the loop;
+//   * a warp past the G rows, or whose class lies past C (when C % G != 0),
+//     helps decode and writes nothing.
+// With G == C each image's logits are read from HBM once.  At G == 1 the
+// row's scores and boxes are compacted together in place (5 floats a
+// candidate), which fits the most candidates.  The wrapper picks G
+// (ops/nms_pallas.rows_per_block) against the footprint yolo_head_smem_bytes
+// and the blocks the batch gives: 20 at B=128 (serving), 5 at B=32 (eval),
+// 1 at B=1 on an H100.
 //
 // Inputs : preds [B, N, E] fp32 (E = 5 + C: tx ty tw th conf cls...),
 //          geom  [8, N] fp32 (gx, gy, 1/gw, 1/gh, anchor_w, anchor_h, 1, 0),
@@ -34,35 +44,30 @@
 
 namespace {
 
-using greedy::better;
-using greedy::block_argmax;
-using greedy::kThreads;
-using greedy::kWarps;
+using greedy::box_area;
+using greedy::kMaxRows;
+using greedy::kMinWarps;
+using greedy::tame_box;
 using greedy::nan_max;
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kShared>
+__global__ void __launch_bounds__(32 * kMaxRows)
 yolo_head_kernel(const float* __restrict__ preds,
                  const float* __restrict__ geom,
                  const float* __restrict__ lbox,
                  float* __restrict__ out_scores,
                  float* __restrict__ out_boxes,
-                 int n, int classes, int max_out,
+                 int n, int classes, int rows, int max_out,
                  float iou_thresh, float score_thresh, int class_softmax) {
-  extern __shared__ float smem[];
-  float* s_score = smem;
-  float* s_y0 = smem + n;
-  float* s_x0 = smem + 2 * n;
-  float* s_y1 = smem + 3 * n;
-  float* s_x1 = smem + 4 * n;
-  __shared__ float red_v[kWarps + 1];
-  __shared__ int red_i[kWarps + 1];
-
-  const int c = blockIdx.x;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
+  const int c0 = blockIdx.x * rows;
+  const int n_rows = min(rows, classes - c0);
   const int e = 5 + classes;
   const float* p_img = preds + (size_t)b * n * e;
   const float* lb = lbox + (size_t)b * 8;
@@ -70,10 +75,13 @@ yolo_head_kernel(const float* __restrict__ preds,
   const float sy = lb[2], sx = lb[3];
   const float ih = lb[4], iw = lb[5];
 
-  // decode every candidate of image b, score it for class c
-  float best_v = -INFINITY;
-  int best_i = INT_MAX;
-  for (int j = threadIdx.x; j < n; j += kThreads) {
+  float4* s_box = smem4;
+  float* s_more = smem + 4 * n;   // areas (shared) or the row's scores (own)
+  float* s_score = kShared ? smem + 5 * n : s_more;
+
+  // decode every candidate of image b once, score it for the G classes
+  bool is_tame = true;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const float* p = p_img + (size_t)j * e;
     const float cx = (sigmoid(p[0]) + geom[j]) * geom[2 * n + j];
     const float cy = (sigmoid(p[1]) + geom[n + j]) * geom[3 * n + j];
@@ -83,62 +91,105 @@ yolo_head_kernel(const float* __restrict__ preds,
     const float ox = (cx - off_x) * sx;
     const float oh = bh * sy;
     const float ow = bw * sx;
-    s_y0[j] = (oy - oh * 0.5f) * ih;
-    s_x0[j] = (ox - ow * 0.5f) * iw;
-    s_y1[j] = (oy + oh * 0.5f) * ih;
-    s_x1[j] = (ox + ow * 0.5f) * iw;
+    const float y0 = (oy - oh * 0.5f) * ih;
+    const float x0 = (ox - ow * 0.5f) * iw;
+    const float y1 = (oy + oh * 0.5f) * ih;
+    const float x1 = (ox + ow * 0.5f) * iw;
+    s_box[j] = make_float4(y0, x0, y1, x1);
+    if (kShared) s_more[j] = box_area(y0, x0, y1, x1);
+    is_tame &= tame_box(y0, x0, y1, x1);
     const float conf = sigmoid(p[4]);
-    float s;
     if (class_softmax) {
       // softmax over the real classes, summed in class order
       float mx = p[5];
       for (int k = 1; k < classes; ++k) mx = nan_max(mx, p[5 + k]);
       float sum = expf(p[5] - mx);
       for (int k = 1; k < classes; ++k) sum = sum + expf(p[5 + k] - mx);
-      s = expf(p[5 + c] - mx) / sum * conf;
+      for (int g = 0; g < n_rows; ++g)
+        s_score[g * n + j] = expf(p[5 + c0 + g] - mx) / sum * conf;
     } else {
-      s = sigmoid(p[5 + c]) * conf;
+      for (int g = 0; g < n_rows; ++g)
+        s_score[g * n + j] = sigmoid(p[5 + c0 + g]) * conf;
     }
-    s_score[j] = s;
-    if (better(s, j, best_v, best_i)) { best_v = s; best_i = j; }
   }
-  block_argmax(best_v, best_i, red_v, red_i);
+  const bool tame = __syncthreads_and(is_tame);
 
+  const int g = threadIdx.x >> 5;
+  if (g >= n_rows) return;
+  const int c = c0 + g;
   float* os = out_scores + ((size_t)b * classes + c) * max_out;
   float* ob = out_boxes + ((size_t)b * classes + c) * max_out * 4;
-  greedy::select_row(s_score, s_y0, s_x0, s_y1, s_x1, n, max_out, iou_thresh,
-                     score_thresh, best_v, best_i, red_v, red_i, os, ob);
+  if (kShared) {
+    unsigned short* s_idx =
+        reinterpret_cast<unsigned short*>(smem + 5 * n + rows * n);
+    const greedy::SharedBoxes row{s_box, s_more, s_score + g * n,
+                                  s_idx + g * n};
+    greedy::select_row(row, n, tame, max_out, iou_thresh, score_thresh, os,
+                       ob);
+  } else {
+    const greedy::OwnBoxes row{s_box, s_score};
+    greedy::select_row(row, n, tame, max_out, iou_thresh, score_thresh, os,
+                       ob);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs for n candidates.
-size_t yolo_head_smem_bytes(int n) { return (size_t)5 * n * sizeof(float); }
+// Dynamic shared memory of a block of g class rows of n candidates.
+size_t yolo_head_smem_bytes(int n, int g) { return greedy::smem_bytes(n, g); }
 
-// The most dynamic shared memory a block of the kernel may ask for on the
-// current device.  Returns the cudaError_t of the queries.
+// The most class rows a block runs (the `rows` of a launch).
+int yolo_head_max_rows() { return kMaxRows; }
+
+// The most dynamic shared memory a block may ask for on the current device,
+// the smaller of the two layouts' limits.  Returns the cudaError_t of the
+// queries.
 int yolo_head_max_dynamic_smem(int* bytes) {
-  return max_dynamic_smem(yolo_head_kernel, bytes);
+  int own = 0, shared = 0;
+  int err = max_dynamic_smem(yolo_head_kernel<false>, &own);
+  if (err == 0) err = max_dynamic_smem(yolo_head_kernel<true>, &shared);
+  *bytes = own < shared ? own : shared;
+  return err;
 }
 
-// Launches the kernel on `stream`; returns the cudaError_t of the launch.
+// Blocks of `rows` class rows of n candidates that one SM holds at once on
+// the current device (the occupancy calculator's answer).  Returns the
+// cudaError_t of the query.
+int yolo_head_blocks_per_sm(int n, int rows, int* blocks) {
+  const auto kernel =
+      rows > 1 ? yolo_head_kernel<true> : yolo_head_kernel<false>;
+  const int threads = 32 * (rows > kMinWarps ? rows : kMinWarps);
+  const size_t smem = greedy::smem_bytes(n, rows);
+  // the calculator holds the size to the kernel's opted-in limit
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, threads, smem);
+}
+
+// Launches the kernel on `stream` with `rows` class rows a block (1 to
+// kMaxRows); returns the cudaError_t of the launch.
 int yolo_head_decode_nms(const float* preds, const float* geom,
                          const float* lbox, float* out_scores,
                          float* out_boxes, int batch, int n, int classes,
-                         int max_out, float iou_thresh, float score_thresh,
-                         int class_softmax, void* stream) {
+                         int rows, int max_out, float iou_thresh,
+                         float score_thresh, int class_softmax, void* stream) {
+  if (rows < 1 || rows > kMaxRows) return (int)cudaErrorInvalidValue;
   // the default limit (48 KB) counts static and dynamic shared memory
   // together, so opt in to the dynamic size on every launch
-  const size_t smem = yolo_head_smem_bytes(n);
+  const size_t smem = greedy::smem_bytes(n, rows);
+  const auto kernel =
+      rows > 1 ? yolo_head_kernel<true> : yolo_head_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      yolo_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(classes, batch);
-  yolo_head_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      preds, geom, lbox, out_scores, out_boxes, n, classes, max_out,
+  const dim3 grid((classes + rows - 1) / rows, batch);
+  const int threads = 32 * (rows > kMinWarps ? rows : kMinWarps);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      preds, geom, lbox, out_scores, out_boxes, n, classes, rows, max_out,
       iou_thresh, score_thresh, class_softmax);
   return (int)cudaGetLastError();
 }

@@ -75,8 +75,31 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x, inplace=not torch.is_grad_enabled())
 
 
+class _ReLU6(torch.autograd.Function):
+    """ReLU6 whose gradient is JAX's for ``minimum(relu(x), 6)``: ``g`` for
+    0 < x < 6, ``0.5 * g`` at x == 6 (``minimum`` splits a tie), 0 elsewhere
+    (0 included: relu's gradient there).  ``torch.clamp`` gives ``g`` at
+    both ends."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inside = (x > 0) & (x < 6)
+        return torch.where(inside, g, torch.where(x == 6, g * 0.5,
+                                                  torch.zeros_like(g)))
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0.0, 6.0)
+    """ReLU6 (NaN stays NaN), with JAX's gradient; in place without
+    gradients."""
+    if torch.is_grad_enabled():
+        return _ReLU6.apply(x)
+    return torch.clamp_(x, 0.0, 6.0)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

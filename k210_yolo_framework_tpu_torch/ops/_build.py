@@ -6,6 +6,8 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 shared header ``csrc/*.cuh`` and of the flags, so an edited source or header
 is rebuilt and an unchanged one is loaded from ``_build/`` (listed in
 ``.gitignore``).  Only sources inside the package are compiled.
+``largest_fitting`` searches a kernel's shared-memory footprint, as its
+library reports it, against a device's limit.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "source_digest"]
+__all__ = ["NVCC_FLAGS", "build", "largest_fitting", "load", "source_digest"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -87,3 +89,16 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``, once per process."""
     lib, _ = build(name)
     return ctypes.CDLL(str(lib))
+
+
+def largest_fitting(footprint, limit: int, hi: int = 1 << 16) -> int:
+    """Largest x in [0, hi] with ``footprint(x) <= limit``, where the x that
+    fit are a prefix of [0, hi]; 0 when none fits."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if footprint(mid) <= limit:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo

@@ -109,19 +109,6 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            + lib.dwsep_error_string(err).decode())
 
 
-def _largest_fitting(footprint, limit: int, hi: int = 1 << 16) -> int:
-    """Largest c in [0, hi] with ``footprint(c) <= limit``, where the c that
-    fit are a prefix of [0, hi]; 0 when none fits."""
-    lo = 0
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        if footprint(mid) <= limit:
-            lo = mid
-        else:
-            hi = mid - 1
-    return lo
-
-
 @functools.cache
 def _max_channels(device: torch.device, is_bf16: bool) -> int:
     """Most input channels one block's shared memory holds on ``device``,
@@ -133,7 +120,7 @@ def _max_channels(device: torch.device, is_bf16: bool) -> int:
         _check(lib, lib.dwsep_max_dynamic_smem(int(is_bf16),
                                                ctypes.byref(nbytes)),
                "shared-memory query")
-    return _largest_fitting(
+    return _build.largest_fitting(
         lambda c: lib.dwsep_smem_bytes(int(is_bf16), c), nbytes.value)
 
 

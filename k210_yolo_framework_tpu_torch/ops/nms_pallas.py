@@ -5,8 +5,9 @@ the fused head.
 Counterpart of ``k210_yolo_framework_tpu/ops/nms_pallas.py``.
 ``batched_nms_pallas`` dispatches by the device of its input: CPU tensors go
 through ``batched_nms_pallas_reference`` (plain torch, whole batch at once);
-CUDA tensors through the kernel (one thread block per (class, image) row),
-counted in ``batched_nms_pallas.launches``; any other device raises.  There
+CUDA tensors through the kernel (one thread block per image and group of
+class rows, one warp per row), counted in ``batched_nms_pallas.launches``;
+any other device raises.  There
 is no fallback from the kernel to the plain version.
 
 ``greedy_select_loop`` has the semantics of the JAX package's:
@@ -25,7 +26,8 @@ is no fallback from the kernel to the plain version.
 The lane padding of the TPU version (``so`` slots rounded up to 128) has no
 meaning here: the buffers are exactly ``max_out`` wide.  The CUDA kernels
 ``csrc/nms.cu`` and ``csrc/yolo_head.cu`` run the same steps
-(``csrc/greedy_select.cuh``), one thread block per row.
+(``csrc/greedy_select.cuh``), one warp per row and G rows of one image a
+block; ``rows_per_block`` picks G for both.
 """
 
 from __future__ import annotations
@@ -39,9 +41,29 @@ from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult, finish_winners
 
 __all__ = ["batched_nms_pallas", "batched_nms_pallas_reference",
-           "greedy_select_loop"]
+           "greedy_select_loop", "rows_per_block"]
 
 _NEG = -1e9
+
+
+def rows_per_block(batch: int, classes: int, sms: int, footprint,
+                   limit: int, max_rows: int) -> int:
+    """G, the class rows one block of the greedy kernels runs.  Among the G
+    in [1, min(classes, max_rows)] (``max_rows``: the library's limit)
+    whose ``footprint(G)`` (the library's, in bytes; it grows with G) fits
+    ``limit``, the one that leaves the fewest rows on the busiest of
+    ``sms`` SMs when the batch's ``batch * ceil(classes / G)`` blocks
+    spread evenly, the largest G on a tie: the fewer blocks, the fewer
+    times an image is loaded.  0 when no G fits."""
+    best, best_cost = 0, None
+    for g in range(1, min(classes, max_rows) + 1):
+        if footprint(g) > limit:
+            break
+        blocks = batch * -(-classes // g)
+        cost = -(-blocks // sms) * g
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = g, cost
+    return best
 
 
 def greedy_select_loop(scores: torch.Tensor, y0: torch.Tensor,
@@ -133,13 +155,17 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("nms")
     lib.nms_select.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.nms_select.restype = ctypes.c_int
     lib.nms_error_string.argtypes = [ctypes.c_int]
     lib.nms_error_string.restype = ctypes.c_char_p
     lib.nms_max_dynamic_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nms_max_dynamic_smem.restype = ctypes.c_int
+    lib.nms_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nms_smem_bytes.restype = ctypes.c_size_t
+    lib.nms_max_rows.argtypes = []
+    lib.nms_max_rows.restype = ctypes.c_int
     return lib
 
 
@@ -150,22 +176,41 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 @functools.cache
-def _max_candidates(device: torch.device) -> int:
-    """Most candidates one block's shared memory holds on ``device`` (5
-    floats each): the device's opt-in limit per block, less the kernel's
-    static shared memory."""
+def _smem_limit(device: torch.device) -> int:
+    """The most dynamic shared memory one block may ask for on ``device``:
+    the opt-in limit less the kernel's static shared memory."""
     lib = _kernel_lib()
     nbytes = ctypes.c_int(0)
     with torch.cuda.device(device):
         _check(lib, lib.nms_max_dynamic_smem(ctypes.byref(nbytes)),
                "shared-memory query")
-    return nbytes.value // 20
+    return nbytes.value
+
+
+@functools.cache
+def _max_candidates(device: torch.device) -> int:
+    """Most candidates a block holds on ``device``: the layout of one row a
+    block (its scores and boxes compacted together) fits the most."""
+    lib = _kernel_lib()
+    return _build.largest_fitting(lambda n: lib.nms_smem_bytes(n, 1),
+                                  _smem_limit(device))
+
+
+@functools.cache
+def _rows(device: torch.device, bsz: int, n: int, classes: int) -> int:
+    """G for a launch of this shape (``rows_per_block``)."""
+    lib = _kernel_lib()
+    return rows_per_block(
+        bsz, classes, torch.cuda.get_device_properties(device)
+        .multi_processor_count, lambda g: lib.nms_smem_bytes(n, g),
+        _smem_limit(device), lib.nms_max_rows())
 
 
 def _launch(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
-            iou_thresh: float, score_thresh: float):
-    """Run ``csrc/nms.cu`` on the current stream; returns the winner buffers
-    [B, C, M] and [B, C, M, 4]."""
+            iou_thresh: float, score_thresh: float, rows: int | None = None):
+    """Run ``csrc/nms.cu`` on the current stream, ``rows`` class rows a
+    block (default: ``_rows``); returns the winner buffers [B, C, M] and
+    [B, C, M, 4]."""
     bsz, n, classes = scores.shape
     for name, t in (("boxes", boxes), ("scores", scores)):
         if t.device != scores.device or t.dtype != torch.float32 \
@@ -179,8 +224,8 @@ def _launch(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
         raise ValueError("boxes: the kernel reads each box as one 16-byte "
                          "vector and needs a 16-byte aligned tensor")
     if n > _max_candidates(scores.device):
-        raise ValueError(f"{n} candidates need {5 * n * 4} bytes of shared "
-                         f"memory per block; the kernel takes at most "
+        raise ValueError(f"{n} candidates do not fit one block's shared "
+                         f"memory; the kernel takes at most "
                          f"{_max_candidates(scores.device)} on "
                          f"{scores.device}")
     out_scores = torch.empty((bsz, classes, max_out), dtype=torch.float32,
@@ -190,11 +235,18 @@ def _launch(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
     if bsz == 0 or classes == 0 or max_out == 0:
         return out_scores, out_boxes
     lib = _kernel_lib()
+    if rows is None:
+        rows = _rows(scores.device, bsz, n, classes)
+    elif not 1 <= rows <= lib.nms_max_rows() or \
+            lib.nms_smem_bytes(n, rows) > _smem_limit(scores.device):
+        raise ValueError(f"{rows} class rows a block of {n} candidates do "
+                         f"not fit one block's shared memory (1 to "
+                         f"{lib.nms_max_rows()} rows)")
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         err = lib.nms_select(boxes.data_ptr(), scores.data_ptr(),
                              out_scores.data_ptr(), out_boxes.data_ptr(),
-                             bsz, n, classes, max_out, iou_thresh,
+                             bsz, n, classes, rows, max_out, iou_thresh,
                              score_thresh, stream)
     _check(lib, err, "kernel launch")
     batched_nms_pallas.launches += 1

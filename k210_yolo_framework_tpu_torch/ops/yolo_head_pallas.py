@@ -5,7 +5,8 @@ Counterpart of ``k210_yolo_framework_tpu/ops/yolo_head_pallas.py``.
 ``fused_decode_nms`` dispatches by the device of its input: on the CPU it
 runs ``fused_decode_nms_reference`` (plain torch, whole batch at once); on a
 CUDA device it launches the hand-written kernel ``csrc/yolo_head.cu`` (one
-thread block per (class, image) row) or raises.  There is no fallback from
+thread block per image and group of class rows, one warp per row; G from
+``ops/nms_pallas.rows_per_block``) or raises.  There is no fallback from
 the kernel to the plain version.
 
 Reference math: decode as ``ops/decode.py`` of the JAX package (sigmoid xy +
@@ -27,7 +28,10 @@ from k210_yolo_framework_tpu_torch.config import YoloSpec
 from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops.letterbox import _const
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult, finish_winners
-from k210_yolo_framework_tpu_torch.ops.nms_pallas import greedy_select_loop
+from k210_yolo_framework_tpu_torch.ops.nms_pallas import (
+    greedy_select_loop,
+    rows_per_block,
+)
 
 __all__ = ["candidate_geometry", "letterbox_inverse_params",
            "fused_decode_nms", "fused_decode_nms_reference"]
@@ -86,12 +90,11 @@ def _flatten_preds(preds: Sequence[torch.Tensor], classes: int) -> torch.Tensor:
     return torch.cat(flat, dim=1).to(torch.float32).contiguous()
 
 
-def _decode_and_select(p: torch.Tensor, geom: torch.Tensor,
-                       lbox: torch.Tensor, *, classes: int, max_out: int,
-                       iou_thresh: float, class_softmax: bool,
-                       stop_below: float, live: list | None = None):
-    """The kernel's math on plain tensors: p [B, N, 5+C] logits, geom
-    [8, N], lbox [B, 8] -> five [B, C, max_out] winner buffers."""
+def _decode(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
+            classes: int, class_softmax: bool):
+    """The kernel's decode on plain tensors: p [B, N, 5+C] logits, geom
+    [8, N], lbox [B, 8] -> box corners y0, x0, y1, x1 [B, 1, N] and scores
+    [B, C, N]."""
     gx, gy = geom[0], geom[1]
     inv_gw, inv_gh = geom[2], geom[3]
     aw, ah = geom[4], geom[5]
@@ -124,7 +127,17 @@ def _decode_and_select(p: torch.Tensor, geom: torch.Tensor,
         scores = ex / total * conf
     else:
         scores = torch.sigmoid(cls_logits) * conf
+    return y0, x0, y1, x1, scores
 
+
+def _decode_and_select(p: torch.Tensor, geom: torch.Tensor,
+                       lbox: torch.Tensor, *, classes: int, max_out: int,
+                       iou_thresh: float, class_softmax: bool,
+                       stop_below: float, live: list | None = None):
+    """The kernel's math on plain tensors: p [B, N, 5+C] logits, geom
+    [8, N], lbox [B, 8] -> five [B, C, max_out] winner buffers."""
+    y0, x0, y1, x1, scores = _decode(p, geom, lbox, classes=classes,
+                                     class_softmax=class_softmax)
     return greedy_select_loop(scores, y0, x0, y1, x1, max_out, iou_thresh,
                               stop_below=stop_below, live=live)
 
@@ -155,13 +168,20 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.yolo_head_decode_nms.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.yolo_head_decode_nms.restype = ctypes.c_int
     lib.yolo_head_error_string.argtypes = [ctypes.c_int]
     lib.yolo_head_error_string.restype = ctypes.c_char_p
     lib.yolo_head_max_dynamic_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.yolo_head_max_dynamic_smem.restype = ctypes.c_int
+    lib.yolo_head_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.yolo_head_smem_bytes.restype = ctypes.c_size_t
+    lib.yolo_head_max_rows.argtypes = []
+    lib.yolo_head_max_rows.restype = ctypes.c_int
+    lib.yolo_head_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.yolo_head_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -172,23 +192,56 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 @functools.cache
-def _max_candidates(device: torch.device) -> int:
-    """Most candidates one block's shared memory holds on ``device`` (5
-    floats each): the device's opt-in limit per block, less the kernel's
-    static shared memory (227 KB - 80 bytes on an H100)."""
+def _smem_limit(device: torch.device) -> int:
+    """The most dynamic shared memory one block may ask for on ``device``:
+    the opt-in limit less the kernel's static shared memory (227 KB on an
+    H100)."""
     lib = _kernel_lib()
     nbytes = ctypes.c_int(0)
     with torch.cuda.device(device):
         _check(lib, lib.yolo_head_max_dynamic_smem(ctypes.byref(nbytes)),
                "shared-memory query")
-    return nbytes.value // 20
+    return nbytes.value
+
+
+@functools.cache
+def _max_candidates(device: torch.device) -> int:
+    """Most candidates a block holds on ``device``: the layout of one row a
+    block (its scores and boxes compacted together, 5 floats each) fits the
+    most."""
+    lib = _kernel_lib()
+    return _build.largest_fitting(lambda n: lib.yolo_head_smem_bytes(n, 1),
+                                  _smem_limit(device))
+
+
+@functools.cache
+def _rows(device: torch.device, bsz: int, n: int, classes: int) -> int:
+    """G for a launch of this shape (``rows_per_block``)."""
+    lib = _kernel_lib()
+    return rows_per_block(
+        bsz, classes, torch.cuda.get_device_properties(device)
+        .multi_processor_count, lambda g: lib.yolo_head_smem_bytes(n, g),
+        _smem_limit(device), lib.yolo_head_max_rows())
+
+
+def _blocks_per_sm(device: torch.device, n: int, rows: int) -> int:
+    """Blocks of ``rows`` class rows of n candidates one SM of ``device``
+    holds at once (CUDA's occupancy calculator)."""
+    lib = _kernel_lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(lib, lib.yolo_head_blocks_per_sm(n, rows, ctypes.byref(blocks)),
+               "occupancy query")
+    return blocks.value
 
 
 def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
             classes: int, max_out: int, iou_thresh: float,
-            score_thresh: float, class_softmax: bool):
-    """Run ``csrc/yolo_head.cu`` on the current stream; returns the winner
-    buffers [B, C, M] and [B, C, M, 4]."""
+            score_thresh: float, class_softmax: bool,
+            rows: int | None = None):
+    """Run ``csrc/yolo_head.cu`` on the current stream, ``rows`` class rows
+    a block (default: ``_rows``); returns the winner buffers [B, C, M] and
+    [B, C, M, 4]."""
     bsz, n, e = p.shape
     for name, t in (("logits", p), ("geometry", geom), ("lbox", lbox)):
         if t.device != p.device or t.dtype != torch.float32 \
@@ -200,8 +253,8 @@ def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
                          f"{tuple(geom.shape)}, lbox {tuple(lbox.shape)}, "
                          f"classes {classes}")
     if n > _max_candidates(p.device):
-        raise ValueError(f"{n} candidates need {5 * n * 4} bytes of shared "
-                         f"memory per block; the kernel takes at most "
+        raise ValueError(f"{n} candidates do not fit one block's shared "
+                         f"memory; the kernel takes at most "
                          f"{_max_candidates(p.device)} on {p.device}")
     out_scores = torch.empty((bsz, classes, max_out), dtype=torch.float32,
                              device=p.device)
@@ -210,12 +263,19 @@ def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
     if bsz == 0 or classes == 0 or max_out == 0:
         return out_scores, out_boxes
     lib = _kernel_lib()
+    if rows is None:
+        rows = _rows(p.device, bsz, n, classes)
+    elif not 1 <= rows <= lib.yolo_head_max_rows() or \
+            lib.yolo_head_smem_bytes(n, rows) > _smem_limit(p.device):
+        raise ValueError(f"{rows} class rows a block of {n} candidates do "
+                         f"not fit one block's shared memory (1 to "
+                         f"{lib.yolo_head_max_rows()} rows)")
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.yolo_head_decode_nms(
             p.data_ptr(), geom.data_ptr(), lbox.data_ptr(),
             out_scores.data_ptr(), out_boxes.data_ptr(),
-            bsz, n, classes, max_out, iou_thresh, score_thresh,
+            bsz, n, classes, rows, max_out, iou_thresh, score_thresh,
             int(class_softmax), stream)
     _check(lib, err, "kernel launch")
     fused_decode_nms.launches += 1

@@ -40,6 +40,7 @@ from k210_yolo_framework_tpu_torch.ops import dwsep_pallas as TF
 from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
 from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
 from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+from k210_yolo_framework_tpu_torch.ops.nms import finish_winners
 from k210_yolo_framework_tpu_torch.training import train as TT
 
 pytestmark = pytest.mark.cuda
@@ -126,12 +127,21 @@ def test_wrapper_rejects_bad_inputs(dev):
                    lbox, **kw)
     with pytest.raises(ValueError, match="shape"):
         TH._launch(p, geom, lbox[:1], **kw)
+    lib = TH._kernel_lib()
+    for n, g in ((1, 1), (1050, 1), (1050, 2), (1050, 20), (4410, 5),
+                 (11618, 1), (8937, 1), (3, 32)):
+        assert lib.yolo_head_smem_bytes(n, g) == _greedy_footprint(n, g)
     limit = TH._max_candidates(dev)
+    assert _greedy_footprint(limit, 1) <= TH._smem_limit(dev) \
+        < _greedy_footprint(limit + 1, 1)
     optin = getattr(torch.cuda.get_device_properties(dev),
                     "shared_memory_per_block_optin", None)
     if optin is not None:
-        # the kernel's static shared memory (80 bytes) comes off the limit
-        assert 0 < limit * 20 <= optin - 80
+        assert TH._smem_limit(dev) <= optin
+        if optin >= 232_448:          # an H100's: every N taken before
+            assert limit >= 11_618
+    with pytest.raises(ValueError, match="shared memory"):
+        TH._launch(p, geom, lbox, rows=33, **kw)
     big = torch.zeros((1, limit + 1, 25), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         TH._launch(big, torch.zeros((8, limit + 1), device=dev),
@@ -303,10 +313,173 @@ def test_nms_wrapper_rejects_bad_inputs(dev):
     shifted = torch.empty(boxes.numel() + 1, device=dev)[1:].view(boxes.shape)
     with pytest.raises(ValueError, match="aligned"):
         TN._launch(shifted, scores, **kw)
+    lib = TN._kernel_lib()
+    for n, g in ((1, 1), (1050, 1), (1050, 2), (1050, 20), (4410, 5),
+                 (11618, 1), (8937, 1), (3, 32)):
+        assert lib.nms_smem_bytes(n, g) == _greedy_footprint(n, g)
     limit = TN._max_candidates(dev)
+    assert _greedy_footprint(limit, 1) <= TN._smem_limit(dev) \
+        < _greedy_footprint(limit + 1, 1)
+    optin = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", None)
+    if optin is not None and optin >= 232_448:
+        assert limit >= 11_618
+    with pytest.raises(ValueError, match="shared memory"):
+        TN._launch(boxes, scores, rows=0, **kw)
     big = torch.zeros((1, limit + 1, 20), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         TN._launch(torch.zeros((1, limit + 1, 4), device=dev), big, **kw)
+    # the largest accepted candidate count launches
+    TN._launch(torch.zeros((1, limit, 4), device=dev), big[:, :limit]
+               .contiguous(), **kw)
+    torch.cuda.synchronize()
+
+
+def _greedy_footprint(n, g):
+    """The greedy kernels' dynamic shared memory by its definition
+    (``csrc/greedy_select.cuh:smem_bytes``): one row a block keeps its
+    scores and boxes, 5 floats a candidate; G rows share the boxes and
+    their areas (5 floats a candidate) and each keeps a float score and a
+    16-bit candidate index."""
+    return 20 * n if g == 1 else n * (20 + 6 * g)
+
+
+def _spec_c1():
+    rng = np.random.default_rng(2)
+    anchors = np.sort(rng.uniform(0.05, 0.9, (2, 3, 2)))[:, ::-1]
+    return YoloSpec.create((224, 320), ((7, 10), (14, 20)), 1, anchors)
+
+
+# (B, threshold, max_out, class rows a block or None for the wrapper's G);
+# the inputs per case are made in _greedy_inputs
+GREEDY_CASES = {
+    "exit": (8, 0.7, 30, None),          # every row leaves at once
+    "steps30": (8, 0.7, 30, None),       # every row runs all 30 steps
+    "steps100": (4, 0.01, 100, None),    # every row runs all 100 steps
+    "ties": (8, 0.7, 30, None),          # exact score ties
+    "nan_row": (4, 0.7, 30, 5),          # one NaN row in a block of 5
+    "thresh_-1e9": (2, -1e9, 30, None),  # suppressed candidates stay live
+    "thresh_-2e9": (2, -2e9, 30, None),
+    "c20_rows3": (4, 0.3, 30, 3),        # 7 blocks, one idle warp
+    "c1_rows4": (4, 0.3, 30, 4),         # C=1: three idle warps
+    "b1_n4410": (1, 0.3, 30, None),
+    "largest_n": (1, 0.7, 30, None),
+    # NaN, inf and ~1e20 box coordinates on candidates whose scores are
+    # finite and above the threshold, in both layouts
+    "wild_boxes_rows1": (4, 0.7, 30, 1),
+    "wild_boxes_rows5": (4, 0.7, 30, 5),
+}
+
+
+def _greedy_inputs(case, dev, seed=6):
+    """(flat logits [B, N, 5+C], geometry [8, N], lbox [B, 8], classes) for
+    the head; NMS takes the same candidates decoded."""
+    bsz, *_ = GREEDY_CASES[case]
+    spec = {"c1_rows4": _spec_c1(), "b1_n4410": _three_scale_spec()}.get(
+        case, voc_spec())
+    rng = np.random.default_rng(seed)
+    classes = spec.class_num
+    if case == "largest_n":
+        n = min(TH._max_candidates(dev), TN._max_candidates(dev))
+        p = rng.normal(0, 2, (bsz, n, 5 + classes)).astype(np.float32)
+        geom = np.concatenate([rng.uniform(0, 20, (2, n)),
+                               rng.uniform(0.02, 0.2, (2, n)),
+                               rng.uniform(0.05, 0.9, (2, n)),
+                               np.ones((1, n)), np.zeros((1, n))])
+        geom = torch.from_numpy(geom.astype(np.float32)).to(dev)
+        hws = torch.tensor([[375, 500]], dtype=torch.int32, device=dev)
+    else:
+        preds = _preds(spec, bsz, seed, shift=3.0 if case == "steps30"
+                       or case.startswith("wild_boxes") else 0.0)
+        if case == "exit":
+            preds = [np.full_like(q, -10.0) for q in preds]
+        if case == "ties":
+            for q in preds:
+                q[..., 4:] = 2.0
+        if case == "nan_row":
+            preds[1][0, 3, 4, 0, 5 + 2] = np.nan   # image 0, class 2
+        if case.startswith("wild_boxes"):
+            for q in preds:
+                q[:, 1::3, 2::3, 0, 0] = np.nan    # tx: a NaN box
+                q[:, ::4, 1::4, 1, 2] = 100.0      # tw: exp overflows to inf
+                q[:, 2::5, ::3, 2, 3] = 44.0       # th: ~1e20 tall, finite
+                q[:, 2::5, ::6, 2, 2] = 44.0       # and wide: the area is inf
+        p = np.concatenate([q.reshape(bsz, -1, 5 + classes) for q in preds],
+                           1)
+        geom = TH._geometry_on(spec, dev)
+        hws = torch.from_numpy(rng.integers(100, 512, (bsz, 2)).astype(
+            np.int32)).to(dev)
+    lbox = TH.letterbox_inverse_params(hws, spec.in_hw).contiguous()
+    return torch.from_numpy(p).to(dev), geom, lbox, classes
+
+
+def _check_rows(case, res, classes, max_out):
+    v = res.valid.reshape(-1, classes, max_out).cpu()
+    if case.startswith("wild_boxes"):
+        # such boxes won: the loop ran its IoU on them
+        won = res.boxes[res.valid]
+        assert won.isnan().any() and won.isinf().any()
+        assert ((won.abs() > 1e19) & won.isfinite()).any()
+    if case == "exit":
+        assert not v.any()
+    elif case in ("steps30", "steps100", "thresh_-1e9", "thresh_-2e9"):
+        assert v.all()
+    elif case == "nan_row":
+        assert not v[0, 2].any() and v[0, [0, 1, 3, 4]].any(-1).all()
+    else:
+        assert v.any()
+
+
+@pytest.mark.parametrize("case", sorted(GREEDY_CASES))
+def test_head_kernel_greedy_cases(dev, case):
+    """The head kernel against its plain version (``_close``) on the cases
+    the warp-per-row loop must get right."""
+    bsz, thresh, max_out, rows = GREEDY_CASES[case]
+    p, geom, lbox, classes = _greedy_inputs(case, dev)
+    kw = dict(classes=classes, max_out=max_out, iou_thresh=0.3)
+    before = TH.fused_decode_nms.launches
+    got = finish_winners(*TH._launch(p, geom, lbox, score_thresh=thresh,
+                                     class_softmax=False, rows=rows, **kw),
+                         thresh)
+    torch.cuda.synchronize()
+    assert TH.fused_decode_nms.launches == before + 1
+    w_s, *w_box = TH._decode_and_select(p, geom, lbox, class_softmax=False,
+                                        stop_below=thresh, **kw)
+    want = finish_winners(w_s, torch.stack(w_box, dim=-1), thresh)
+    _close(got, want, thresh)
+    _check_rows(case, got, classes, max_out)
+
+
+@pytest.mark.parametrize("case", sorted(GREEDY_CASES))
+def test_nms_kernel_greedy_cases_bit_for_bit(dev, case):
+    """NMS alone against its plain version, bit for bit, on the same cases,
+    the head's candidates decoded; at the negative thresholds most scores
+    are -inf or -3e9 (suppression can raise them to -1e9)."""
+    bsz, thresh, max_out, rows = GREEDY_CASES[case]
+    p, geom, lbox, classes = _greedy_inputs(case, dev)
+    *corners, scores = TH._decode(p, geom, lbox, classes=classes,
+                                  class_softmax=False)
+    boxes = torch.cat(corners, dim=1).transpose(1, 2).contiguous()
+    scores = scores.transpose(1, 2).contiguous()
+    if case.startswith("thresh_"):
+        # 24 real candidates a row (24-47) and, before them, their boxes
+        # moved by a pixel, scored -inf or -3e9; the rest -inf or -3e9.
+        # Suppression raises a moved box to -1e9, and once the real ones
+        # are spent the rows select those, lowest index first
+        boxes[:, :24] = boxes[:, 24:48] + 1.0
+        scores[:, 48:] = scores[:, :24] = -3e9
+        scores[:, 48::2] = scores[:, :24:2] = -float("inf")
+    before = TN.batched_nms_pallas.launches
+    got = finish_winners(*TN._launch(boxes, scores, max_out=max_out,
+                                     iou_thresh=0.45, score_thresh=thresh,
+                                     rows=rows), thresh)
+    torch.cuda.synchronize()
+    assert TN.batched_nms_pallas.launches == before + 1
+    want = TN.batched_nms_pallas_reference(boxes, scores, thresh, 0.45,
+                                           max_out)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    _check_rows(case, got, classes, max_out)
 
 
 def _dwsep_args(shape, dtype, dev, seed=8):

@@ -11,6 +11,7 @@ the tolerances of ``tests/test_yolo_head_pallas.py``.
 """
 
 import functools
+import math
 import shutil
 
 import numpy as np
@@ -32,6 +33,7 @@ from k210_yolo_framework_tpu_torch.ops import nms_pallas as TNP
 from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
 
 from test_nms_pallas import _make_case
+from test_torch_cuda import _greedy_footprint
 from test_torch_head import _select_case
 
 torch.set_num_threads(1)
@@ -171,6 +173,27 @@ def test_batched_nms_pallas_matches_jax_interpret(case):
         assert not valid[:, 2].any() and valid[:, :2].any()
 
 
+@pytest.mark.parametrize("thresh", [0.7, 0.25, 0.01])
+@pytest.mark.parametrize("case", ["dense", "ties"])
+def test_dropping_scores_below_the_threshold_keeps_the_result(case, thresh):
+    """The rule the kernel's live list rests on: a candidate below the
+    threshold can never be selected, so setting its score to -inf before
+    the loop gives, through the plain version, exactly what JAX's
+    interpreted kernel gives on the unchanged scores."""
+    boxes, scores = _select_case(case)
+    boxes = np.stack([boxes, boxes[::-1] + 3.0])
+    scores = np.stack([scores.T, scores.T[::-1]])
+    want = JNP.batched_nms_pallas(jnp.asarray(boxes), jnp.asarray(scores),
+                                  thresh, 0.3, 30, interpret=True)
+    dropped = np.where(scores < thresh, -np.inf, scores).astype(np.float32)
+    assert (dropped == -np.inf).any()
+    got = TNP.batched_nms_pallas_reference(torch.from_numpy(boxes),
+                                           torch.from_numpy(dropped), thresh,
+                                           0.3, 30)
+    assert got.valid.any()
+    _assert_results_equal(got, want)
+
+
 def test_batched_nms_pallas_max_out_100_matches_jax():
     boxes, scores = _nms_case(3, sparse=False)
     want = JNP.batched_nms_pallas(jnp.asarray(boxes)[None],
@@ -221,6 +244,34 @@ def test_batched_nms_pallas_cpu_path_does_not_launch_and_others_raise():
     with pytest.raises(ValueError, match="no kernel"):
         TNP.batched_nms_pallas(torch.zeros((1, 5, 4), device="meta"),
                                torch.zeros((1, 5, 2), device="meta"))
+
+
+@pytest.mark.parametrize("limit", [0, 48 * 1024, 100_000, 232_448, 10**9])
+def test_rows_per_block_matches_a_scan(limit):
+    """The wrappers' choice of G against a scan of every G: the fewest rows
+    on the busiest SM, then the largest G, among the G that fit (at most
+    32, the kernels' limit)."""
+    for batch, classes, n, sms in ((128, 20, 1050, 132), (32, 20, 1050, 132),
+                                   (1, 20, 1050, 132), (8, 20, 4410, 132),
+                                   (3, 1, 64, 132), (5, 80, 200, 16)):
+        fits = [g for g in range(1, min(classes, 32) + 1)
+                if _greedy_footprint(n, g) <= limit]
+
+        def busiest(g):
+            return math.ceil(batch * math.ceil(classes / g) / sms) * g
+
+        want = max(fits, key=lambda g: (-busiest(g), g), default=0)
+        got = TNP.rows_per_block(batch, classes, sms,
+                                 lambda g: _greedy_footprint(n, g), limit, 32)
+        assert got == want, (batch, classes, n, sms)
+    if limit == 232_448:      # the H100's opt-in limit: the served shapes
+        pick = functools.partial(TNP.rows_per_block, classes=20, sms=132,
+                                 limit=limit, max_rows=32)
+        assert pick(128, footprint=lambda g: _greedy_footprint(1050, g)) == 20
+        assert pick(32, footprint=lambda g: _greedy_footprint(1050, g)) == 5
+        assert pick(1, footprint=lambda g: _greedy_footprint(1050, g)) == 1
+        assert _build.largest_fitting(lambda n: _greedy_footprint(n, 1),
+                                      limit) >= 11618
 
 
 def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):

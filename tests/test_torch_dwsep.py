@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from k210_yolo_framework_tpu.ops import dwsep_pallas as JF
 from k210_yolo_framework_tpu_torch.models.mobilenet_v1 import MobileNetV1
 from k210_yolo_framework_tpu_torch.models.yolonet import init_weights
+from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops import dwsep_pallas as TF
 
 import test_dwsep_pallas
@@ -207,6 +208,6 @@ def test_largest_fitting_matches_a_scan(limit):
     hi = 4096
     want = max((c for c in range(hi + 1) if _bf16_footprint(c) <= limit),
                default=0)
-    assert TF._largest_fitting(_bf16_footprint, limit, hi) == want
+    assert _build.largest_fitting(_bf16_footprint, limit, hi) == want
     if 0 < want < hi:
         assert _bf16_footprint(want + 1) > limit

@@ -148,6 +148,40 @@ def test_fused_decode_nms_edge_cases_match_jax(case):
         assert not valid[0, 1].any() and valid[1, 1].any()
 
 
+@pytest.mark.parametrize("thresh", [0.7, 0.25, 0.01])
+@pytest.mark.parametrize("case", ["dense", "ties"])
+def test_dropping_scores_below_the_threshold_keeps_the_head(case, thresh,
+                                                           monkeypatch):
+    """The rule the kernel's live list rests on, for the fused head: the
+    plain version with every score below the threshold set to -inf before
+    its loop against JAX's head on the same logits, unchanged."""
+    jspec, tspec = _specs(classes=3)
+    preds = _preds(tspec, 2, seed=5)
+    for p in preds:
+        if case == "dense":
+            p[..., 4:] += 3.0
+        else:
+            p[..., 4:] = 2.0       # every score equal: the first index wins
+    img_hws = np.array([[300, 400], [224, 320]], np.int32)
+    select = TH.greedy_select_loop
+    dropped = []
+
+    def drop_then_select(scores, *args, stop_below, **kw):
+        dropped.append(int((scores < stop_below).sum()))
+        scores = torch.where(scores < stop_below, -torch.inf, scores)
+        return select(scores, *args, stop_below=stop_below, **kw)
+
+    monkeypatch.setattr(TH, "greedy_select_loop", drop_then_select)
+    got = TH.fused_decode_nms_reference(
+        [torch.from_numpy(p) for p in preds], tspec,
+        torch.from_numpy(img_hws), thresh, 0.3, 30)
+    want = JH.fused_decode_nms([jnp.asarray(p) for p in preds], jspec,
+                               jnp.asarray(img_hws), thresh, 0.3, 30)
+    assert (dropped[0] > 0) == (case == "dense")
+    assert got.valid.numpy().any()
+    _assert_results_close(got, want)
+
+
 def test_fused_decode_nms_rejects_other_devices():
     preds = [torch.zeros((1, 7, 10, 3, 25), device="meta"),
              torch.zeros((1, 14, 20, 3, 25), device="meta")]

@@ -129,6 +129,26 @@ def test_leaky_relu_gradient_at_zero_is_one():
         np.asarray(jax.grad(lambda v: jnp.sum(fnn.relu(v)))(jnp.asarray(x[:4]))))
 
 
+@pytest.mark.parametrize("x", [-1.0, 0.0, 3.0, 6.0, 7.0, np.nan])
+def test_relu6_forward_and_gradient_match_jax(x):
+    """JAX's ``minimum(relu(x), 6)``: gradient 0 at 0 (relu's) and 0.5 at 6
+    (``minimum`` splits the tie); NaN stays NaN in the forward."""
+    xs = np.array([x], np.float32)
+    want_y = np.asarray(JL.relu6(jnp.asarray(xs)))
+    xt = _t(xs).requires_grad_()
+    y = TL.relu6(xt)
+    np.testing.assert_array_equal(y.detach().numpy(), want_y)
+    if np.isnan(x):
+        assert np.isnan(want_y).all()
+        return
+    want_g = np.asarray(jax.grad(lambda v: jnp.sum(JL.relu6(v)))(
+        jnp.asarray(xs)))
+    y.sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), want_g)
+    expect = {-1.0: 0.0, 0.0: 0.0, 3.0: 1.0, 6.0: 0.5, 7.0: 0.0}[x]
+    np.testing.assert_array_equal(want_g, [expect])
+
+
 def test_inference_ops_stay_in_place_and_train_ops_do_not():
     """Without gradients the activations write into their input (serving);
     with gradients they leave it as it was."""
