@@ -43,8 +43,11 @@ Phases (any failure raises and the script exits non-zero):
      B=128) and 6 of 96x96x3, at thetas U(-10, 10) degrees plus exactly
      +-10 degrees, 0 and +-1e-4 rad;
   8. the train slice: 256 synthetic JPEGs (20 classes, written once for
-     phases 8, 9 and 13) through
-     ``DataPipeline`` at batch 128 on 512x512 canvases, and ``fit`` of a
+     phases 8, 9 and 13) through the default ``DataPipeline`` at batch 128
+     on 512x512 canvases (it prints which loader that picked: the native
+     C++ loader where ``csrc/loader.cpp`` builds, else the PIL threads, and
+     then the compiler's first error line and ``use_native=True``'s
+     refusal), and ``fit`` of a
      seeded yolo_mobilev1 (alpha 0.75, VOC spec) in bf16 with augment on,
      for one epoch of 3 train steps and 1 validation step.  The rotation
      kernel must run once per train step, every logged scalar be finite,
@@ -56,9 +59,11 @@ Phases (any failure raises and the script exits non-zero):
      gradient within GRAD_TOL), the activations alone (bit for bit), and
      the net as trained (see GRAD_TOL);
   9. times: train preprocess and step at batch 128 in bf16 with the
-     HostBatch on the card, the host loader's rate, the rotation kernel
-     against its plain version at N=42 bf16, and a kernel profile of one
-     train step;
+     HostBatch on the card, both host loaders' rates (native and PIL
+     threads), the rotation kernel against its plain version at N=42 in
+     bf16 and fp32 (by events and on the card alone, with ptxas's
+     registers, the tile and its shared memory), and a kernel profile of
+     one train step;
  10. NMS alone (``batched_nms_pallas``, ``csrc/nms.cu``) against its plain
      version bit for bit, on phase 3's cases decoded by ``decode_outputs``,
      both score flavours, at max_out 30 and at max_out 100 / threshold 0.01;
@@ -91,7 +96,8 @@ and its operations over the card's peak rate for their type (``bound``).
 Greedy NMS counts only the candidates each step has to test.
 
 The next-to-last line is one JSON object describing each kernel (``ms``
-by CUDA events; the head and NMS also carry ``device_ms``); the last
+by CUDA events; the head, the rotation and NMS also carry ``device_ms``);
+the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
 script imports only the port, which imports nothing of the JAX package.
 """
@@ -198,7 +204,7 @@ def device_ms(fn, iters: int, cycles: int = 1 << 24) -> float:
 
 KERNEL_CATEGORIES = (
     ("head kernel", ("yolo_head",)),
-    ("rotate kernel", ("shear_kernel",)),
+    ("rotate kernel", ("rotate_kernel",)),
     ("conv/matmul", ("conv2d", "convolve", "depthwise", "gemm",
                      "cudnn", "xmma", "cutlass", "fprop")),
 )
@@ -546,14 +552,42 @@ def card_vs_cpu_step(device, spec, cfg, init_net, host):
         raise AssertionError("gradients differ between card and CPU")
 
 
-def train_phases(device, tag, ann):
-    """Phases 7-9 on the synthetic JPEGs of ``ann``.  Returns the rotation
-    kernel's JSON fields."""
+def loader_rate(pl, ann, use_native: bool) -> float:
+    """imgs/s of ``DataPipeline(use_native=...)`` over 8 batches of
+    TRAIN_BATCH on 512x512 canvases, after one batch of warm-up."""
+    it = iter(pl.DataPipeline(ann, TRAIN_BATCH, seed=5,
+                              use_native=use_native))
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            next(it)
+        return 8 * TRAIN_BATCH / (time.perf_counter() - t0)
+    finally:
+        it.close()
+
+
+def ptxas_lines(log: str, kernel: str) -> list:
+    """ptxas's register / shared-memory / spill lines of the functions of
+    ``log`` whose mangled name holds ``kernel``."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            keep = kernel in line
+        if keep and any(k in line for k in ("registers", "smem", "spill")):
+            out.append(line.strip())
+    return out
+
+
+def train_phases(device, tag, ann, rot_log):
+    """Phases 7-9 on the synthetic JPEGs of ``ann``; ``rot_log`` is the
+    rotation kernel's build log.  Returns the rotation kernel's JSON
+    fields."""
     import copy
 
     import torch
 
-    from k210_yolo_framework_tpu_torch import voc_spec
+    from k210_yolo_framework_tpu_torch import native, voc_spec
     from k210_yolo_framework_tpu_torch.config import TrainConfig
     from k210_yolo_framework_tpu_torch.data import pipeline as PL
     from k210_yolo_framework_tpu_torch.data.annotations import (
@@ -570,7 +604,24 @@ def train_phases(device, tag, ann):
     spec = voc_spec()
     cfg = TrainConfig(batch_size=TRAIN_BATCH, max_epochs=1, augment=True)
     train_ann, test_ann = split_train_test(ann, 0.5)
-    train_it = iter(PL.DataPipeline(train_ann, TRAIN_BATCH, seed=0))
+    # the loader fit runs on is the default one: the C++ loader where it
+    # builds, as in the JAX package; else the PIL threads, and then
+    # use_native=True must refuse rather than fall back
+    train_pl = PL.DataPipeline(train_ann, TRAIN_BATCH, seed=0)
+    if train_pl.use_native:
+        print("loader: the default DataPipeline picked the native C++ "
+              "loader")
+    else:
+        print(f"loader: the default DataPipeline picked the PIL threads; "
+              f"the native build failed: {native.build_error()}")
+        try:
+            next(iter(PL.DataPipeline(train_ann, 2, 0, use_native=True)))
+        except RuntimeError as e:
+            print(f"loader: use_native=True raises: {e}")
+        else:
+            raise AssertionError("use_native=True ran without the native "
+                                 "library")
+    train_it = iter(train_pl)
     test_it = iter(PL.DataPipeline(test_ann, TRAIN_BATCH, seed=1))
     net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
                         spec.class_num, alpha=0.75,
@@ -644,29 +695,51 @@ def train_phases(device, tag, ann):
     print(f"train b{TRAIN_BATCH} bf16: preprocess {pp_ms:.3f} ms, step "
           f"{step_ms:.3f} ms; preprocess+step {fused_ms:.3f} ms = "
           f"{TRAIN_BATCH * 1e3 / fused_ms:.1f} train imgs/s {tag}")
-    loader = iter(PL.DataPipeline(ann, TRAIN_BATCH, seed=5))
-    next(loader)
-    t0 = time.perf_counter()
-    for _ in range(8):
-        next(loader)
-    dt = time.perf_counter() - t0
-    print(f"DataPipeline host loader: {8 * TRAIN_BATCH / dt:.1f} imgs/s "
-          f"(8 batches of {TRAIN_BATCH}, 512x512 canvases, "
-          f"{PL.DataPipeline(ann, 1, 0).num_workers} threads) {tag}")
-    loader.close()
+    workers = PL.DataPipeline(ann, 1, 0, use_native=False).num_workers
+    for use_native in (True, False):
+        what = "native C++ loader" if use_native else "PIL thread loader"
+        if use_native and not native.available():
+            print(f"DataPipeline {what}: not built ({native.build_error()})")
+            continue
+        print(f"DataPipeline {what}: "
+              f"{loader_rate(PL, ann, use_native):.1f} imgs/s (8 batches of "
+              f"{TRAIN_BATCH}, 512x512 canvases, {workers} threads) {tag}")
 
+    # the rotation at the train batch's shape: events around 20 launches
+    # (host launch path included), and the card alone (device_ms: at
+    # ~0.03 ms a launch the host's ctypes call is as long as the kernel)
     rng = np.random.default_rng(4)
-    imgs = torch.from_numpy(rng.integers(0, 256, (ROT_N, *spec.in_hw, 3))
-                            .astype(np.float32)).to(device).to(torch.bfloat16)
-    tables = TR.shear_tables(torch.from_numpy(np.deg2rad(
-        rng.uniform(-10, 10, ROT_N)).astype(np.float32)).to(device),
-        *spec.in_hw, torch.bfloat16)
-    plain = lambda: TR._rotate_plain(imgs, tables)  # noqa: E731
-    kern = lambda: TR._launch(imgs, tables)  # noqa: E731
-    p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 20),
-                      time_ms(kern, 20), time_ms(plain, 5))
-    print(f"rotate N={ROT_N} 224x320x3 bf16: kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {p1:.4f}/{p2:.4f} ms {tag}")
+    for line in ptxas_lines(rot_log, "rotate_kernel") or [
+            "not printed: the library was built before this run"]:
+        print(f"rotate kernel ptxas: {line}")
+    rot = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        imgs = torch.from_numpy(rng.integers(0, 256, (ROT_N, *spec.in_hw, 3))
+                                .astype(np.float32)).to(device).to(dtype)
+        tables = TR.shear_tables(torch.from_numpy(np.deg2rad(
+            rng.uniform(-10, 10, ROT_N)).astype(np.float32)).to(device),
+            *spec.in_hw, dtype)
+        plain = lambda: TR._rotate_plain(imgs, tables)  # noqa: E731
+        kern = lambda: TR._launch(imgs, tables)  # noqa: E731
+        p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 20),
+                          time_ms(kern, 20), time_ms(plain, 5))
+        dev_k = device_ms(kern, 20)
+        tile = TR.plan_tile(*spec.in_hw, 3, TR.smem_limit(device))
+        smem = TR.smem_bytes(tile.rows, tile.staged, 3,
+                             TR.frame_geometry(*spec.in_hw)[2])
+        r_bound, r_by = bound(2 * imgs.numel() * imgs.element_size(),
+                              (imgs.numel() * ROT_OPS, FP32_OPS_PER_S))
+        name = str(dtype).split(".")[-1]
+        print(f"rotate N={ROT_N} 224x320x3 {name}: kernel {k1:.4f}/{k2:.4f} "
+              f"ms a launch by events, {dev_k:.4f} ms with launches queued; "
+              f"plain {p1:.4f}/{p2:.4f} ms; bound {r_bound:.4f} ms ({r_by}); "
+              f"tile {tile.rows}x{tile.cols} outputs, {tile.staged} staged "
+              f"columns, {smem} B of "
+              f"shared memory a block, {TR.BLOCKS_PER_SM} blocks an SM "
+              f"planned {tag}")
+        rot[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "bound_ms": r_bound, "bound_by": r_by,
+                     "device_ms": dev_k}
 
     n_kernels, dev_ms, by_cat, top = kernel_profile(
         lambda: fused(state, *hb, gen), iters=3)
@@ -682,11 +755,8 @@ def train_phases(device, tag, ann):
             print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
-    rot_bound, rot_by = bound(2 * imgs.numel() * imgs.element_size(),
-                              (imgs.numel() * ROT_OPS, FP32_OPS_PER_S))
     return {"launches": rot_launches, "max_abs_err": rot_err,
-            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "bound_ms": rot_bound, "bound_by": rot_by, "library_ms": None}
+            **rot["bfloat16"], "library_ms": None}
 
 # ---- bounds: the least time the card could take for a kernel's work -------
 # NVIDIA's H100 SXM data sheet, at its 700 W limit (the card's own limit is
@@ -1450,7 +1520,7 @@ def run(device) -> int:
         ann = synthetic_ann_list(tmp, n=256, class_num=spec.class_num)
         print(f"data: {len(ann)} synthetic JPEGs written in "
               f"{time.perf_counter() - t0:.1f} s")
-        rot = train_phases(device, tag, ann)
+        rot = train_phases(device, tag, ann, built["rotate3shear"][1])
         # ---- 10. NMS alone: kernel against its plain version -----------
         nms_err = nms_kernel_phase(spec, spec3, device)
         # ---- 11. the two-stage head on the serving scenes --------------

@@ -11,8 +11,10 @@ held against.  Module names mirror it so each counterpart is easy to find:
                     versions: the fused decode+NMS head, NMS alone, the
                     fused depthwise-separable block and the augment's
                     3-shear rotation
-    data            annotation lists, the threaded JPEG loader and the
-                    on-device preprocess
+    data            annotation lists, the JPEG loader (C++ worker threads
+                    or PIL threads) and the on-device preprocess
+    native          ctypes bindings of the repository's C++ loader and
+                    region layer (``csrc/*.cpp``, built with g++)
     models          yolo_mobilev1 (train and eval) as ``nn.Module``s
     training        loss, P/R metrics, Adam train step and ``fit``, and the
                     weight bridge between the native h5 layout and torch

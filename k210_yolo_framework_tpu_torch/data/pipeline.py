@@ -1,16 +1,17 @@
 """Input pipeline: threaded host JPEG decode, then one on-device preprocess.
 
 Counterpart of ``k210_yolo_framework_tpu/data/pipeline.py`` (``HostBatch``,
-``stage_image``, ``make_preprocess_fn``, the thread path of
-``DataPipeline``, ``synthetic_ann_list``).  Host threads only decode each
-JPEG into a fixed zero canvas with its true (h, w) and the padded gt boxes.
-The device then letterboxes, augments (training), normalises each image by
-its max and encodes the grid labels, batched.
+``stage_image``, ``make_preprocess_fn``, ``DataPipeline``,
+``synthetic_ann_list``).  The host only decodes each JPEG into a fixed zero
+canvas with its true (h, w) and the padded gt boxes.  The device then
+letterboxes, augments (training), normalises each image by its max and
+encodes the grid labels, batched.
 
-The shuffle is the JAX package's: an infinite pass over the list with a
-numpy-seeded permutation per epoch, so the two loaders yield the same
-batches for the same seed.  The native C++ loader is not ported:
-``DataPipeline(use_native=True)`` raises.
+``DataPipeline`` decodes either in the C++ loader's worker threads
+(``native.NativeLoader``, its own mt19937_64 shuffle) or in Python threads
+with PIL (a numpy-seeded permutation per epoch).  Each path yields the JAX
+package's batches for the same seed and path, and the default is the JAX
+package's: the C++ loader whenever it builds.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from k210_yolo_framework_tpu_torch import native
 from k210_yolo_framework_tpu_torch.config import YoloSpec
 from k210_yolo_framework_tpu_torch.data.annotations import read_image
 from k210_yolo_framework_tpu_torch.ops import augment as A
@@ -100,17 +102,15 @@ def make_preprocess_fn(spec: YoloSpec, is_training: bool,
 
 class DataPipeline:
     """Seeded, infinite, threaded loader over an annotation list; iterating
-    yields :class:`HostBatch`es."""
+    yields :class:`HostBatch`es.  ``use_native``: True takes the C++ loader
+    (raises if it does not build), False the PIL threads, None (default)
+    the C++ loader when ``native.available()``."""
 
     def __init__(self, ann_list: np.ndarray, batch_size: int, seed: int,
                  canvas_hw=CANVAS_HW, num_workers: Optional[int] = None,
                  prefetch: int = 4, use_native: Optional[bool] = None):
         if len(ann_list) == 0:
             raise ValueError("empty annotation list")
-        if use_native:
-            raise NotImplementedError(
-                "the native C++ loader is not ported yet; use the thread "
-                "path (use_native=None or False)")
         if num_workers is None:
             num_workers = min(8, max(2, os.cpu_count() or 1))
         self.ann_list = ann_list
@@ -120,6 +120,9 @@ class DataPipeline:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.epoch_step = len(ann_list) // batch_size
+        if use_native is None:
+            use_native = native.available()
+        self.use_native = use_native
 
     def _load_one(self, row):
         path, boxes, _hw = row
@@ -133,7 +136,28 @@ class DataPipeline:
             for i in rng.permutation(len(self.ann_list)):
                 yield int(i)
 
+    def _iter_native(self) -> Iterator[HostBatch]:
+        """Decode and stage in the C++ worker threads; only the gt-box
+        padding stays in Python.  A file that fails to decode raises
+        IOError."""
+        loader = native.NativeLoader([str(r[0]) for r in self.ann_list],
+                                     self.canvas_hw, self.batch_size,
+                                     self.seed, self.num_workers,
+                                     self.prefetch)
+        try:
+            while True:
+                canvases, hws, idxs = loader.next()
+                padded, valid = zip(*(C.pad_boxes(np.copy(self.ann_list[i][1]))
+                                      for i in idxs))
+                yield HostBatch(canvases, hws, np.stack(padded),
+                                np.stack(valid))
+        finally:
+            loader.close()
+
     def __iter__(self) -> Iterator[HostBatch]:
+        if self.use_native:
+            yield from self._iter_native()
+            return
         stream = self._index_stream()
         # no context manager: a dropped infinite generator must not block
         # in a join at teardown, so shut down without waiting

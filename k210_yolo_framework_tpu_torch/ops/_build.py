@@ -5,7 +5,9 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``ctypes``.  The library's file name carries a hash of the source, of every
 shared header ``csrc/*.cuh`` and of the flags, so an edited source or header
 is rebuilt and an unchanged one is loaded from ``_build/`` (listed in
-``.gitignore``).  Only sources inside the package are compiled.
+``.gitignore``).  Only the CUDA sources inside the package are compiled
+here; the repository's C++ host sources (``csrc/loader.cpp``,
+``csrc/region_layer.cpp``) are built by ``native.py`` with ``g++``.
 ``largest_fitting`` searches a kernel's shared-memory footprint, as its
 library reports it, against a device's limit.
 """

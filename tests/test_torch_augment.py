@@ -142,6 +142,71 @@ def test_rotate_rejects_bad_inputs():
                          torch.zeros(1, device="meta"))
 
 
+# H100 SXM: the per-block opt-in limit, and a third of the SM's less the
+# per-block reservation (the plan for three blocks an SM), both less the
+# kernel's 16 bytes of static shared memory; and the 48 KB default
+SMEM_LIMITS = (232_432, 76_784, 48 * 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(8, 8), (96, 96), (224, 320), (416, 416)])
+def test_rotate_tile_plan_fits_and_covers_ten_degrees(h, w, dtype):
+    """The tile fits each limit, and its staged columns cover what its
+    outputs read at +-10 degrees (tables of ``dtype``) in every band of
+    rows, so the kernel never takes its unstaged path there."""
+    _, _, hp, wp, _, _ = TR.frame_geometry(h, w)
+    px, py = TR.frame_geometry(h, w)[:2]
+    tables = TR.shear_tables(torch.tensor(np.deg2rad([10.0, -10.0, 3.0]),
+                                          dtype=torch.float32), h, w, dtype)
+    kx = tables.kx[:, py:py + h]
+    for limit in SMEM_LIMITS:
+        tile = TR.plan_tile(h, w, 3, limit)
+        assert 1 <= tile.rows <= h and 1 <= tile.cols <= w
+        assert tile.staged == TR.staged_columns(tile.rows, tile.cols, wp)
+        assert TR.smem_bytes(tile.rows, tile.staged, 3, hp) <= limit
+        for y0 in range(0, h, tile.rows):
+            band = kx[:, y0:y0 + tile.rows]
+            spread = band.amax(1) - band.amin(1)
+            assert int(spread.max()) + min(tile.cols, w) + 1 <= tile.staged \
+                or tile.staged == wp
+    with pytest.raises(ValueError, match="fits"):
+        TR.plan_tile(h, w, 3, TR.smem_bytes(1, 3, 3, hp) - 1)
+
+
+def _rot_args(n=2, h=24, w=32):
+    imgs = torch.zeros((n, h, w, 3))
+    return imgs, TR.shear_tables(torch.zeros(n), h, w, torch.float32)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("strided", "contiguous"), ("half", "float32 or bfloat16"),
+    ("kx_rows", "kx"), ("wy0_device", "wy0"), ("ky_dtype", "ky"),
+    ("tile", "tile"), ("frame", "32 bits")])
+def test_rotate_kernel_wrapper_rejects_bad_inputs_before_launch(case, match):
+    """The kernel's wrapper checks what it is given before it builds or
+    launches anything, so each refusal shows here on the CPU."""
+    imgs, tables = _rot_args()
+    tile = None
+    if case == "strided":
+        imgs = imgs.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "half":
+        imgs = imgs.half()
+    elif case == "kx_rows":
+        tables = tables._replace(kx=tables.kx[:, 1:].contiguous())
+    elif case == "wy0_device":
+        tables = tables._replace(wy0=tables.wy0.to("meta"))
+    elif case == "ky_dtype":
+        tables = tables._replace(ky=tables.ky.long())
+    elif case == "tile":
+        tile = (25, 8)
+    else:                     # a frame past 32-bit indexing
+        imgs = torch.empty((1, 26000, 26000, 3), device="meta")
+        tables = TR.shear_tables(torch.zeros(1, device="meta"), 26000, 26000,
+                                 torch.float32)
+    with pytest.raises(ValueError, match=match):
+        TR._launch(imgs, tables, tile)
+
+
 def _aug_inputs(b, seed=0, hw=(24, 32)):
     rng = np.random.default_rng(seed)
     imgs = rng.uniform(0, 255, (b, *hw, 3)).astype(np.float32)
@@ -245,17 +310,25 @@ def ann(tmp_path_factory):
 
 
 def test_loader_yields_the_jax_loaders_batches(ann):
-    """Same rows and files from synthetic_ann_list; the thread loader
-    yields the JAX thread loader's batches for the same seed."""
+    """Same rows and files from synthetic_ann_list; each loader, the
+    thread path (``use_native=False``) and the C++ one (``use_native=True``),
+    yields the JAX package's batches for the same seed and path."""
+    from k210_yolo_framework_tpu import native as jnative
+
     jann, tann = ann
     for jr, tr in zip(jann, tann):
         np.testing.assert_array_equal(jr[1], tr[1])
         np.testing.assert_array_equal(jr[2], tr[2])
-    jit = iter(JPL.DataPipeline(jann, 3, seed=4, canvas_hw=(512, 512),
-                                num_workers=2, use_native=False))
-    tit = iter(TPL.DataPipeline(tann, 3, seed=4, num_workers=2))
-    for _ in range(3):                    # crosses an epoch boundary
-        for a, b in zip(next(jit), next(tit)):
-            np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="native"):
-        TPL.DataPipeline(tann, 3, seed=0, use_native=True)
+    if not jnative.available():   # one retry past another process's make
+        jnative._libs.clear()
+    for use_native in (False, True):
+        jit = iter(JPL.DataPipeline(jann, 3, seed=4, canvas_hw=(512, 512),
+                                    num_workers=2, use_native=use_native))
+        tit = iter(TPL.DataPipeline(tann, 3, seed=4, num_workers=2,
+                                    use_native=use_native))
+        for _ in range(3):                # crosses an epoch boundary
+            for a, b in zip(next(jit), next(tit)):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+        jit.close()
+        tit.close()

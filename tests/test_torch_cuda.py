@@ -172,13 +172,18 @@ def test_predictor_on_card_uses_the_kernel(dev):
            TH.fused_decode_nms_reference(preds, spec, h, 0.2, 0.3, 30), 0.2)
 
 
-@pytest.mark.parametrize("n,h,w,dtype", [(42, 224, 320, torch.float32),
-                                         (42, 224, 320, torch.bfloat16),
-                                         (6, 96, 96, torch.float32),
-                                         (3, 24, 32, torch.bfloat16)])
-def test_rotate_kernel_matches_plain_bit_for_bit(dev, n, h, w, dtype):
+@pytest.mark.parametrize("n,h,w,c,dtype", [
+    (42, 224, 320, 3, torch.float32), (42, 224, 320, 3, torch.bfloat16),
+    (6, 96, 96, 3, torch.float32), (3, 24, 32, 3, torch.bfloat16),
+    (3, 8, 8, 3, torch.float32), (3, 61, 97, 3, torch.float32),   # odd
+    (4, 416, 416, 3, torch.bfloat16), (3, 40, 50, 1, torch.float32),
+    (3, 33, 45, 4, torch.bfloat16), (3, 7000, 16, 3, torch.float32)])
+def test_rotate_kernel_matches_plain_bit_for_bit(dev, n, h, w, c, dtype):
+    """+-10 degrees, 0 and random angles; 416x416 runs tiles of fewer rows
+    than the image at every row band; 7000x16 has x tables too tall for
+    three blocks an SM."""
     rng = np.random.default_rng(5)
-    imgs = torch.from_numpy(rng.uniform(0, 255, (n, h, w, 3)).astype(
+    imgs = torch.from_numpy(rng.uniform(0, 255, (n, h, w, c)).astype(
         np.float32)).to(dev).to(dtype)
     thetas = np.deg2rad(rng.uniform(-10, 10, n)).astype(np.float32)
     thetas[:3] = [np.deg2rad(10.0), -np.deg2rad(10.0), 0.0]
@@ -192,6 +197,57 @@ def test_rotate_kernel_matches_plain_bit_for_bit(dev, n, h, w, dtype):
     assert got.dtype == dtype and got.shape == imgs.shape
     assert torch.equal(got, want)
     assert torch.equal(got[2], imgs[2])          # theta 0
+    if h == 416:
+        assert TR.plan_tile(h, w, c, TR.smem_limit(dev)).rows < h
+
+
+@pytest.mark.parametrize("tile", [(1, 1), (5, 7), (16, 320), (224, 40),
+                                  (37, 129)])
+def test_rotate_kernel_forced_tiles_bit_for_bit(dev, tile):
+    """Tiles cut unevenly at the image's right and bottom edges."""
+    rng = np.random.default_rng(9)
+    imgs = torch.from_numpy(rng.uniform(-255, 255, (5, 224, 320, 3)).astype(
+        np.float32)).to(dev)
+    thetas = torch.tensor(np.deg2rad([10.0, -10.0, 0.0, 4.2, -7.7]),
+                          dtype=torch.float32, device=dev)
+    tables = TR.shear_tables(thetas, 224, 320, torch.float32)
+    got = TR._launch(imgs, tables, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TR._rotate_plain(imgs, tables))
+
+
+def test_rotate_kernel_any_table_bit_for_bit(dev):
+    """Angles past 10 degrees, and offsets far outside the frame (down to
+    the int32 limits), spread the x offsets past the staged columns: those
+    taps take the unstaged path, with the same result."""
+    rng = np.random.default_rng(10)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (4, 48, 64, 3)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    thetas = torch.tensor(np.deg2rad([30.0, -45.0, 89.0, -170.0]),
+                          dtype=torch.float32, device=dev)
+    tables = TR.shear_tables(thetas, 48, 64, torch.bfloat16)
+    kx, ky = tables.kx.clone(), tables.ky.clone()
+    kx[3, ::3], kx[3, 1::5], kx[3, 2::7] = -2 ** 31, 2 ** 31 - 1, 37
+    ky[3, ::4], ky[3, 1::6], ky[3, 3::5] = 2 ** 31 - 1, -2 ** 31, -25
+    tables = tables._replace(kx=kx, ky=ky)
+    for tile in (None, (8, 10)):
+        got = TR._launch(imgs, tables, tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, TR._rotate_plain(imgs, tables))
+
+
+def test_rotate_footprint_and_plan_match_the_library(dev):
+    lib = TR._kernel_lib()
+    for rows, staged, c, hp in ((32, 165, 3, 288), (1, 3, 1, 5),
+                                (224, 60, 4, 498)):
+        assert lib.rotate3shear_smem_bytes(rows, staged, c, hp) == \
+            TR.smem_bytes(rows, staged, c, hp)
+    two, one = TR.smem_limit(dev), TR.smem_limit(dev, 1)
+    assert 0 < two < one
+    for h, w in ((224, 320), (416, 416), (96, 96), (8, 8)):
+        tile = TR.plan_tile(h, w, 3, two)
+        hp = TR.frame_geometry(h, w)[2]
+        assert TR.smem_bytes(tile.rows, tile.staged, 3, hp) <= two
 
 
 def test_rotate_wrapper_rejects_bad_inputs(dev):

@@ -199,9 +199,10 @@ def _chip_smoke_imports():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and every module chip_smoke.py imports,
-    imports in a fresh interpreter in which importing jax, flax or optax
-    fails.  None ends up in sys.modules, and no module of the JAX package
+    """Every module of the port (the native loader's bindings among them),
+    and every module chip_smoke.py imports, imports in a fresh interpreter
+    in which importing jax, flax or optax fails.  None ends up in
+    sys.modules, and no module of the JAX package
     ``k210_yolo_framework_tpu`` is loaded, not even a numpy-only one."""
     code = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -215,6 +216,7 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import k210_yolo_framework_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+assert "k210_yolo_framework_tpu_torch.native" in names, names
 for name in names:
     importlib.import_module(name)
 exec(sys.argv[1])   # chip_smoke.py's import statements
@@ -232,4 +234,4 @@ print(len(names))
                           cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 23
+    assert int(proc.stdout.strip()) >= 24
