@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and eval paths, and each of
-its four CUDA kernels on the path that runs it, once on one NVIDIA GPU.
+its four CUDA kernels on the path that runs it, once on one NVIDIA GPU;
+then the three other builders served and trained (phase 15).
 
     python3 chip_smoke.py
 
@@ -88,7 +89,22 @@ Phases (any failure raises and the script exits non-zero):
      the nine blocks, each against its plain version (plain, kernel,
      kernel, plain; NMS also by ``device_ms``); beside the fused block,
      the served net's own block (BN and activations in fp32, fp32 output)
-     and a bf16 cuDNN pair with BN folded, on the same input.
+     and a bf16 cuDNN pair with BN folded, on the same input;
+ 15. the builders: yolo_mobilev2 (alpha 0.75), tiny_yolo and the darknet53
+     yolo (three scales, 4,410 candidates), seeded, at 224x320.  Each is
+     served in bf16 at B=128 through ``predict_batch`` (0.7 and dense-bias
+     scenes) and ``predict_image``: one head launch per call, detections
+     against the plain head on the same logits, serve imgs/s, batch-1
+     latency and a kernel profile.  Each is trained by ``fit`` for 3 steps
+     in bf16 with augment on at B=128 (or the largest of 64 and 32 that
+     fits): one rotation launch a step, finite scalars, parameters and BN
+     statistics moved (yolo_mobilev2: one step moves a running mean by
+     exactly 0.999 r + 0.001 batch), train imgs/s and peak memory; then one
+     fp32 step at B=2, 96x128, card against CPU as in phase 8.  Last, the
+     head kernel on the served yolo's own logits at B=128 (0.7 and dense)
+     and at the eval settings (B=32, 0.01, max_out 100) against its plain
+     version and bound, and the in_hw at which each builder's N no longer
+     fits the kernel.  Each part prints its wall seconds.
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -333,8 +349,14 @@ FIXED_STEPS = 30
 #   moves by 3e-5 under the same noise.  So each parameter is held to
 #   GRAD_TOL + ENVELOPE x the CPU's own spread under NOISE_DRAWS one-ulp
 #   input perturbations, and never to more than GRAD_CAP.
+#   A parameter whose exact gradient is 0 (yolo_mobilev2's project BN
+#   biases: a 1x1 conv and a train-mode BN follow them and remove any
+#   per-channel shift) is instead held below VANISH of the net's largest
+#   gradient entry on both sides: its rounding noise has no scale of its
+#   own to be compared against.
 PIXEL_TOL, PIXEL_SHARE = 1.0 / 64, 0.01
 STEP_RTOL, GRAD_TOL, ENVELOPE, NOISE_DRAWS, GRAD_CAP = 1e-4, 1e-3, 2.0, 3, 0.1
+VANISH = 1e-4
 
 
 def rotate_mismatch(got, want, dtype):
@@ -398,39 +420,22 @@ def rotate_phase(device) -> float:
     return max_err
 
 
-def smooth_activations(net):
-    """A copy of ``net`` with a * x + (1 - a) * softplus(x) in place of
-    each ConvBN's ReLU (a = 0) or LeakyReLU(a)."""
-    import copy
-
-    import torch
-    import torch.nn.functional as F
-
-    from k210_yolo_framework_tpu_torch.models.layers import ConvBN
-
-    net = copy.deepcopy(net)
-    for m in net.modules():
-        if isinstance(m, ConvBN) and m.act is not None:
-            with torch.no_grad():
-                a = -float(m.act(torch.tensor([-1.0])))   # slope below 0
-            m.act = lambda x, a=a: a * x + (1 - a) * F.softplus(x)
-    return net
-
-
 def activations_card_vs_cpu(device) -> None:
-    """ReLU and LeakyReLU(0.1, 0.3) with gradients on, forward and
+    """ReLU, LeakyReLU(0.1, 0.3) and ReLU6 with gradients on, forward and
     backward, on the card against the CPU bit for bit."""
     import torch
 
     from k210_yolo_framework_tpu_torch.models import layers as TL
 
     gen = torch.Generator().manual_seed(4)
-    x = torch.randn(8, 64, 28, 40, generator=gen)
+    x = torch.randn(8, 64, 28, 40, generator=gen) * 4
     x[:, :, ::7] = 0.0
     x[:, :, 1::7] = -0.0
+    x[:, :, 2::7] = 6.0
     g = torch.randn(x.shape, generator=gen)
     for name, act in (("relu", TL.relu), ("leaky_relu(0.1)", TL.leaky_relu(0.1)),
-                      ("leaky_relu(0.3)", TL.leaky_relu(0.3))):
+                      ("leaky_relu(0.3)", TL.leaky_relu(0.3)),
+                      ("relu6", TL.relu6)):
         res = []
         for dev in (device, torch.device("cpu")):
             xx = x.to(dev).clone().requires_grad_()
@@ -446,7 +451,8 @@ def activations_card_vs_cpu(device) -> None:
             raise AssertionError(f"{name}: card and CPU differ")
 
 
-def card_vs_cpu_step(device, spec, cfg, init_net, host):
+def card_vs_cpu_step(device, spec, cfg, init_net, host, grad_cap=GRAD_CAP,
+                     vanishing=(), noise=2.0 ** -23):
     """Phase 8c: the fp32 preprocess of one HostBatch with the same augment
     draws on the card and on the CPU; then fp32 train steps on each from
     the same weights and the same (the card's) preprocessed batch: the
@@ -459,6 +465,7 @@ def card_vs_cpu_step(device, spec, cfg, init_net, host):
     import torch
 
     from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.models.layers import smooth_witness
     from k210_yolo_framework_tpu_torch.ops import augment as TA
     from k210_yolo_framework_tpu_torch.training import train as TT
 
@@ -491,10 +498,26 @@ def card_vs_cpu_step(device, spec, cfg, init_net, host):
 
     def grad_err(got, want):
         return {n: float((got[n] - g).abs().max())
-                / max(float(g.abs().max()), 1e-30) for n, g in want.items()}
+                / max(float(g.abs().max()), 1e-30) for n, g in want.items()
+                if not n.endswith(vanishing)}
+
+    def zero_grads(what, card, ref):
+        # parameters whose exact gradient is 0: both sides below VANISH of
+        # the net's largest gradient entry
+        names = [n for n in ref if n.endswith(vanishing)]
+        if not names:
+            return
+        top = max(float(g.abs().max()) for g in ref.values())
+        worst = max(max(float(card[n].abs().max()), float(ref[n].abs().max()))
+                    for n in names) / top
+        print(f"train step card vs CPU ({what}): the {len(names)} gradients "
+              f"that vanish ({', '.join(vanishing)}) reach {worst:.2e} of "
+              f"the largest gradient entry, against {VANISH}")
+        if worst > VANISH:
+            raise AssertionError(f"{what}: a vanishing gradient does not")
 
     def same_losses(what, card_logs, cpu_logs):
-        for k in ["loss"] + [f"l{l + 1}_loss" for l in range(2)]:
+        for k in ["loss"] + [f"l{l + 1}_loss" for l in range(len(labels))]:
             a, b_ = float(card_logs[k]), float(cpu_logs[k])
             print(f"train step card vs CPU (B={b}, fp32, {what}): {k} "
                   f"{a:.6f} vs {b_:.6f} (rel {abs(a - b_) / abs(b_):.2e})")
@@ -502,10 +525,11 @@ def card_vs_cpu_step(device, spec, cfg, init_net, host):
                 raise AssertionError(f"{what} {k}: card and CPU differ")
 
     # the witness: smooth activations, every gradient at GRAD_TOL
-    smooth = smooth_activations(init_net)
+    smooth = smooth_witness(init_net)
     card_logs, card = one_step(smooth, device, images)
     cpu_logs, ref = one_step(smooth, cpu, images)
     same_losses("smooth witness", card_logs, cpu_logs)
+    zero_grads("smooth witness", card, ref)
     errs = grad_err(card, ref)
     worst = sorted(errs, key=errs.get, reverse=True)
     print(f"train step card vs CPU (smooth witness): gradient error (max "
@@ -524,22 +548,24 @@ def card_vs_cpu_step(device, spec, cfg, init_net, host):
     same_losses("as trained", card_logs, cpu_logs)
     noise_gen = torch.Generator().manual_seed(9)
     cpu_images = images.cpu()
-    spread = dict.fromkeys(ref, 0.0)
+    zero_grads("as trained", card, ref)
+    spread = dict.fromkeys(grad_err(ref, ref), 0.0)
     for _ in range(NOISE_DRAWS):
-        noisy = cpu_images * (1 + 2.0 ** -23 * torch.randn(
+        noisy = cpu_images * (1 + noise * torch.randn(
             cpu_images.shape, generator=noise_gen))
         for n, e in grad_err(one_step(init_net, cpu, noisy)[1], ref).items():
             spread[n] = max(spread[n], e)
     errs = grad_err(card, ref)
-    limit = {n: min(GRAD_TOL + ENVELOPE * spread[n], GRAD_CAP) for n in ref}
-    rows = sorted(((errs[n] / limit[n], n) for n in ref), reverse=True)
-    loose = [n for n in ref if limit[n] > 2 * GRAD_TOL]
+    limit = {n: min(GRAD_TOL + ENVELOPE * spread[n], grad_cap) for n in errs}
+    rows = sorted(((errs[n] / limit[n], n) for n in errs), reverse=True)
+    loose = [n for n in errs if limit[n] > 2 * GRAD_TOL]
     print(f"train step card vs CPU (as trained): gradient error against "
           f"min({GRAD_TOL} + {ENVELOPE} x CPU spread under {NOISE_DRAWS} "
-          f"one-ulp input perturbations, {GRAD_CAP}); {len(loose)} of "
+          f"input perturbations of {noise:.2g} relative, {grad_cap}); "
+          f"{len(loose)} of "
           f"{len(rows)} parameters held looser than {2 * GRAD_TOL} (limits "
           f"up to {max(limit.values()):.3g}, "
-          f"{sum(limit[n] == GRAD_CAP for n in ref)} at the cap); worst 3: "
+          f"{sum(limit[n] == grad_cap for n in errs)} at the cap); worst 3: "
           + ", ".join(f"{n} {errs[n]:.2e} (spread {spread[n]:.2e}, "
                       f"{r:.2f} of limit)" for r, n in rows[:3]))
     out = [n for n in errs if ".dark_conv_out." in n]
@@ -829,6 +855,50 @@ def dwsep_bound(x, cout):
     mm_rate = BF16_TC_OPS_PER_S if elt == 2 else FP32_OPS_PER_S
     return bound(nbytes, (px * (c * DW_OPS + cout * PW_EPILOGUE_OPS),
                           FP32_OPS_PER_S), (px * 2 * c * cout, mm_rate))
+
+
+def time_head(name, s, preds, hws_, thresh, max_out, iou, device, tag,
+              plain_iters=5, kern_iters=20):
+    """The head kernel alone against the plain version of the same function
+    on the same prepared inputs (plain, kernel, kernel, plain), on the card
+    alone (``device_ms``), and the whole head call both ways; prints them
+    with G, blocks an SM and the live candidate tests.  Returns (kernel ms,
+    plain ms, bound ms, bound_by, device_ms)."""
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+
+    p = TH._flatten_preds(preds, s.class_num)
+    geom = TH._geometry_on(s, device)
+    lbox = TH.letterbox_inverse_params(hws_, s.in_hw).contiguous()
+    kw = dict(classes=s.class_num, max_out=max_out, iou_thresh=iou)
+    plain = lambda: TH._decode_and_select(  # noqa: E731
+        p, geom, lbox, class_softmax=False, stop_below=thresh, **kw)
+    kern = lambda: TH._launch(  # noqa: E731
+        p, geom, lbox, score_thresh=thresh, class_softmax=False, **kw)
+    p1, k1, k2, p2 = (time_ms(plain, plain_iters), time_ms(kern, kern_iters),
+                      time_ms(kern, kern_iters), time_ms(plain, plain_iters))
+    dev_k = device_ms(kern, kern_iters)
+    res = TH.fused_decode_nms(preds, s, hws_, thresh, iou, max_out)
+    live = live_tests(lambda lv: TH._decode_and_select(
+        p, geom, lbox, class_softmax=False, stop_below=thresh, live=lv,
+        **kw))
+    bsz, n = p.shape[:2]
+    b_ms, by = head_bound(bsz, n, s.class_num, max_out, live)
+    # ... and the whole head call, wrapper ops included
+    call_k = time_ms(lambda: TH.fused_decode_nms(
+        preds, s, hws_, thresh, iou, max_out), kern_iters)
+    call_p = time_ms(lambda: TH.fused_decode_nms_reference(
+        preds, s, hws_, thresh, iou, max_out), plain_iters)
+    rows = TH._rows(device, bsz, n, s.class_num)
+    blocks = TH._blocks_per_sm(device, n, rows)
+    print(f"head b{bsz} {name:<6} (N={n}, thresh {thresh}, iou {iou}, "
+          f"max_out {max_out}, G={rows}, {blocks} blocks an SM): kernel "
+          f"{k1:.4f}/{k2:.4f} ms a launch by events, {dev_k:.4f} ms with "
+          f"launches queued; plain "
+          f"{p1:.4f}/{p2:.4f} ms; whole call {call_k:.4f} ms, plain "
+          f"call {call_p:.4f} ms; bound {b_ms:.4f} ms "
+          f"({by}, {greedy_passes(res)} greedy steps, "
+          f"{live} live candidate tests, {per_test(dev_k, live)}) {tag}")
+    return (k1 + k2) / 2, (p1 + p2) / 2, b_ms, by, dev_k
 
 
 def alternating(plain, kern, plain_iters, kern_iters):
@@ -1236,6 +1306,305 @@ def new_kernel_times(scenes, scene_preds, spec, h_dev, dw_inputs, pred, tag):
     return nms, dw
 
 
+# ---- 15. the builders ------------------------------------------------------
+# (name, alpha, layers): yolo_mobilev2 at the Makefile's DEPTHMUL (the K210
+# caps on, head width 128), tiny_yolo, and the darknet53 yolo on three
+# scales (4,410 candidates at 224x320)
+BUILDERS = (("yolo_mobilev2", 0.75, 2), ("tiny_yolo", 1.0, 2),
+            ("yolo", 1.0, 3))
+BUILDER_TRAIN_BATCHES = (TRAIN_BATCH, 64, 32)   # tried in turn on OOM
+SMALL_HW = (96, 128)                            # card against CPU
+# The seeded builders at B=2 are far worse conditioned than phase 8's net:
+# on the CPU alone, one-ulp input noise moves some of yolo_mobilev2's and
+# yolo's gradients by up to 29% and 40% of their largest entry (64x96), and
+# the 64-ulp noise below some of all three builders' by 45-87% (96x128),
+# past GRAD_CAP.  Their as-trained gradients are held to
+# GRAD_TOL + ENVELOPE x that spread, capped only at the entry's own size;
+# the smooth witness holds every gradient to GRAD_TOL.  The card's
+# forward differs from the CPU's by up to 8e-6 of a layer's largest value
+# (H100, fp32: cuDNN against the CPU's convs), 64 ulps, and a tiny_yolo
+# pool window whose two largest values lie that close sends its gradient
+# elsewhere; so the spread is taken under perturbations of that size.
+BUILDER_GRAD_CAP = 1.0
+BUILDER_NOISE = 2.0 ** -17
+
+
+def builder_spec(layers, in_hw=(224, 320)):
+    """The VOC spec at ``in_hw``; with three layers, the anchors of
+    ``three_scale_spec`` on grids at strides 32, 16 and 8."""
+    from k210_yolo_framework_tpu_torch import YoloSpec, voc_spec
+
+    strides = (32, 16, 8)[:layers]
+    out_hws = tuple((in_hw[0] // st, in_hw[1] // st) for st in strides)
+    if layers == 2:
+        return voc_spec(in_hw, out_hws)
+    return YoloSpec.create(in_hw, out_hws, 20, three_scale_spec().anchors)
+
+
+def dense_state(net, spec):
+    """``net``'s state with +3 on every output conv's conf and class
+    biases: most rows then run all 30 greedy steps."""
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    e = 5 + spec.class_num
+    for k, bias in state.items():
+        if k.endswith("dark_conv_out.bias"):
+            for a in range(spec.nanchors):
+                bias[a * e + 4:(a + 1) * e] += 3.0
+    return state
+
+
+def builder_serve(name, net, spec, device, canvases, hws, image, tag):
+    """Serve ``net`` in bf16 at B=128 through ``predict_batch`` and
+    ``predict_image`` in the 0.7 and the dense-bias scenes; one head launch
+    per call, detections against the plain head on the same Predictor's
+    logits; serve rate, batch-1 latency and a kernel profile.  Returns the
+    scenes' B=128 logits and the canvases' sizes on the card."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.inference import (
+        Predictor,
+        stack_detections,
+    )
+    from k210_yolo_framework_tpu_torch.ops import letterbox as LB
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    serve = dict(iou_thresh=IOU, compute_dtype=torch.bfloat16, device=device)
+    scenes = (("sparse", Predictor(net, None, spec, obj_thresh=0.7, **serve)),
+              ("dense", Predictor(net, dense_state(net, spec), spec,
+                                  obj_thresh=0.7, **serve)))
+    n = sum(h * w for h, w in spec.out_hws) * spec.nanchors
+    TH.fused_decode_nms.launches = 0
+    served = {k: (p.predict_batch(canvases, hws), p.predict_image(image))
+              for k, p in scenes}
+    torch.cuda.synchronize()
+    launches = TH.fused_decode_nms.launches
+    print(f"{name}: serving, N={n}: head kernel launches {launches} in "
+          f"{2 * len(scenes)} calls")
+    if launches != 2 * len(scenes):
+        raise AssertionError(f"{name}: the head kernel did not run once per "
+                             "serving call")
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    img_t = torch.from_numpy(image).to(device)
+    hw1 = torch.tensor([image.shape[:2]], dtype=torch.int32, device=device)
+    logits = {}
+    for scene, p in scenes:
+        dets, one = served[scene]
+        with torch.inference_mode():
+            lb = LB.letterbox_image(img_t[None], hw1, spec.in_hw,
+                                    torch.float32).to(torch.uint8)
+            inputs = ((p._forward_batch(c_dev, h_dev), h_dev, dets),
+                      (p._forward(lb), hw1, [one]))
+        for what, (preds, hws_, dets_) in zip(("batch", "image"), inputs):
+            if [tuple(t.shape[1:3]) for t in preds] != list(spec.out_hws):
+                raise AssertionError(f"{name}: head output shapes")
+            want = TH.fused_decode_nms_reference(preds, spec, hws_,
+                                                 p.obj_thresh, IOU, 30)
+            err, flip = compare_heads(p._head(preds, hws_), want,
+                                      p.obj_thresh)
+            n_a, n_b = assert_detections_close(stack_detections(dets_),
+                                               to_np(want))
+            print(f"{name}: {scene:<6} {what}: served {n_a} detections, "
+                  f"plain head {n_b}; same forward max_abs_err={err:.3g} "
+                  f"borderline_flips={flip}")
+            if scene == "dense" and n_a == 0:
+                raise AssertionError(f"{name}: the dense scene has no "
+                                     "detections")
+        logits[scene] = inputs[0][0]
+
+    pred = scenes[0][1]
+    serve_ms = time_ms(lambda: pred._run_batch(c_dev, h_dev), 10)
+    b1_ms = time_ms(lambda: pred._run_batch(c_dev[:1], h_dev[:1]), 20)
+    n_kernels, dev_ms, by_cat, top = kernel_profile(
+        lambda: pred._run_batch(c_dev, h_dev), iters=2)
+    elementwise = by_cat["elementwise/other"]
+    print(f"{name}: serve b{BATCH} bf16 {serve_ms:.3f} ms/batch = "
+          f"{BATCH * 1e3 / serve_ms:.1f} imgs/s; b1 latency {b1_ms:.3f} ms; "
+          f"profile b{BATCH}: {n_kernels:g} kernels/call, device "
+          f"{dev_ms:.3f} ms/call (busy share {dev_ms / serve_ms:.3f}), "
+          f"elementwise/other {elementwise:.3f} ms "
+          f"({elementwise / max(dev_ms, 1e-9):.1%}), conv/matmul "
+          f"{by_cat['conv/matmul']:.3f} ms, head kernel "
+          f"{by_cat['head kernel']:.3f} ms {tag}")
+    return logits, h_dev
+
+
+def builder_train(name, alpha, spec, device, ann, tag):
+    """``fit`` for 3 steps with augment on in bf16 at the largest batch of
+    BUILDER_TRAIN_BATCHES that fits: one rotation launch a step, finite
+    scalars, parameters and BN statistics moved; for yolo_mobilev2 one
+    more step moves a running mean by exactly m r + (1 - m) batch with
+    m = 0.999; then the train rate and the peak device memory."""
+    import gc
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    pp = PL.make_preprocess_fn(spec, True, torch.bfloat16)
+    for b in BUILDER_TRAIN_BATCHES:
+        cfg = TrainConfig(batch_size=b, max_epochs=1, augment=True)
+        net = build_network(name, spec.in_hw, spec.nanchors, spec.class_num,
+                            alpha=alpha,
+                            generator=torch.Generator().manual_seed(0))
+        before = {k: v.clone() for k, v in net.state_dict().items()}
+        it = iter(PL.DataPipeline(ann, b, seed=0))
+        scalars = []
+        torch.cuda.reset_peak_memory_stats()
+        TR.rotate_3shear.launches = 0
+        try:
+            state = TT.fit(net, spec, cfg, it, None, pp, None, 3, 0,
+                           device=device,
+                           generator=torch.Generator().manual_seed(6),
+                           compute_dtype=torch.bfloat16,
+                           log_fn=lambda line: print(f"  {name} fit: {line}"),
+                           scalar_logger=lambda s, d: scalars.append((s, d)))
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            it.close()
+            del net
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"{name}: train batch {b} does not fit the card's memory")
+    else:
+        raise AssertionError(f"{name}: no train batch fits")
+    launches = TR.rotate_3shear.launches
+    print(f"{name}: train b{b} bf16: rotate kernel launches {launches} in 3 "
+          f"steps")
+    if launches != 3:
+        raise AssertionError(f"{name}: the rotation did not run once a step")
+    if [s for s, _ in scalars] != [1, 2, 3] or not all(
+            np.isfinite(v) for _, d in scalars for v in d.values()):
+        raise AssertionError(f"{name}: logged scalars {scalars}")
+    after = net.state_dict()
+    # yolo_mobilev2's project BN biases have a gradient of 0 but for
+    # rounding (a 1x1 conv and a train-mode BN follow them): Adam may
+    # leave them as they were
+    still = [k for k in before if torch.equal(after[k].cpu(), before[k])]
+    print(f"{name}: {len(before) - len(still)} of {len(before)} parameters "
+          f"and BN statistics moved; unmoved: {still[:4]}"
+          f"{' ...' if len(still) > 4 else ''}")
+    if any(not k.endswith("project.bn.bias") for k in still):
+        raise AssertionError(f"{name}: parameters or statistics did not move")
+
+    hb = next(it).to(device)
+    it.close()
+    gen = torch.Generator().manual_seed(3)
+    if name == "yolo_mobilev2":
+        bn = state.net.backbone.block_5.project.bn
+        seen = {}
+        hook = bn.register_forward_pre_hook(
+            lambda mod, args: seen.setdefault("x", args[0].detach().clone()))
+        old = bn.running_mean.clone()
+        with torch.no_grad():
+            images, labels = pp(*hb, generator=gen)
+        TT.make_train_step(spec, cfg, torch.bfloat16)(state, images, labels)
+        hook.remove()
+        batch = seen["x"].to(torch.float32).mean(dim=(0, 2, 3))
+        new = bn.running_mean
+        exact = torch.equal(new, 0.999 * old + (1 - 0.999) * batch)
+        step_err = float(((new - old) - 0.001 * (batch - old)).abs().max())
+        print(f"{name}: BN momentum {bn.momentum}: one step moved "
+              f"block_5.project's running mean to 0.999 r + 0.001 batch "
+              f"{'exactly' if exact else 'NOT exactly'}; |(new - r) - "
+              f"0.001 (batch - r)| <= {step_err:.3g}")
+        if not exact or bn.momentum != 0.999:
+            raise AssertionError(f"{name}: BN momentum is not 0.999")
+    fused = TT.make_fused_train_step(spec, cfg, pp, torch.bfloat16)
+    step_ms = time_ms(lambda: fused(state, *hb, gen), 5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{name}: train b{b} bf16 preprocess+step {step_ms:.3f} ms = "
+          f"{b * 1e3 / step_ms:.1f} train imgs/s; peak device memory "
+          f"{peak:.2f} GiB {tag}")
+    del state, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def candidate_limits(device, tag):
+    """The most candidates the head kernel takes on this card, and for
+    each builder the in_hw (multiples of 32) at which N stops fitting."""
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+
+    limit = TH._max_candidates(device)
+    print(f"head kernel: at most {limit} candidates a launch on this card "
+          f"{tag}")
+    for name, _, layers in BUILDERS:
+        per_px = 3 * sum(4 ** i for i in range(layers)) / 1024
+        side = next(k for k in range(32, 4096, 32)
+                    if per_px * k * k > limit)
+        shapes = ", ".join(
+            f"{h}x{w}: N={int(per_px * h * w)} "
+            f"{'fits' if per_px * h * w <= limit else 'refused'}"
+            for h, w in ((224, 320), (416, 416), (608, 608)))
+        print(f"{name}: {shapes}; the first square in_hw refused is "
+              f"{side}x{side}")
+
+
+def builders_phase(device, tag, ann, canvases, hws, image):
+    """Phase 15: each builder served, trained, and held card against CPU;
+    then the head kernel at 4,410 candidates on the served yolo's own
+    logits.  Prints each part's wall seconds."""
+    import copy
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.models import build_network
+
+    yolo_logits = None
+    for name, alpha, layers in BUILDERS:
+        spec = builder_spec(layers)
+        t0 = time.perf_counter()
+        net = build_network(name, spec.in_hw, spec.nanchors, spec.class_num,
+                            alpha=alpha,
+                            generator=torch.Generator().manual_seed(0))
+        logits, h_dev = builder_serve(name, net, spec, device, canvases, hws,
+                                      image, tag)
+        if name == "yolo":
+            yolo_logits = (spec, logits, h_dev)
+        t1 = time.perf_counter()
+        builder_train(name, alpha, spec, device, ann, tag)
+        t2 = time.perf_counter()
+        small = builder_spec(layers, SMALL_HW)
+        it = iter(PL.DataPipeline(ann, 2, seed=4))
+        host = next(it)
+        it.close()
+        init_net = build_network(name, small.in_hw, small.nanchors,
+                                 small.class_num, alpha=alpha,
+                                 generator=torch.Generator().manual_seed(1))
+        print(f"{name}: card against CPU, fp32, B=2 at "
+              f"{SMALL_HW[0]}x{SMALL_HW[1]}:")
+        card_vs_cpu_step(device, small, TrainConfig(batch_size=2),
+                         copy.deepcopy(init_net), host, BUILDER_GRAD_CAP,
+                         vanishing=("project.bn.bias",), noise=BUILDER_NOISE)
+        t3 = time.perf_counter()
+        print(f"{name}: wall seconds: serve {t1 - t0:.1f}, train "
+              f"{t2 - t1:.1f}, card against CPU {t3 - t2:.1f}")
+
+    t0 = time.perf_counter()
+    spec, logits, h_dev = yolo_logits
+    for scene in ("sparse", "dense"):
+        time_head(f"yolo {scene}", spec, logits[scene], h_dev, 0.7, 30, IOU,
+                  device, tag, kern_iters=10)
+    time_head("yolo eval", spec, [t[:EVAL_BATCH] for t in logits["sparse"]],
+              h_dev[:EVAL_BATCH], EVAL["obj_thresh"], EVAL["max_out"],
+              EVAL["iou_thresh"], device, tag, plain_iters=2, kern_iters=10)
+    candidate_limits(device, tag)
+    print(f"head at 4,410 candidates: wall seconds "
+          f"{time.perf_counter() - t0:.1f}")
+
+
+
 def main() -> int:
     import torch
 
@@ -1272,13 +1641,8 @@ def serving_scenes(spec, device):
     serve = dict(iou_thresh=IOU, compute_dtype=torch.bfloat16, device=device)
     pred = Predictor(net, None, spec, obj_thresh=0.7, **serve)
     mid_pred = Predictor(net, None, spec, obj_thresh=MID_THRESH, **serve)
-    dense_state = {k: v.clone() for k, v in net.state_dict().items()}
-    e = 5 + spec.class_num
-    for layer in ("y1_out", "y2_out"):
-        bias = dense_state[f"head.{layer}.dark_conv_out.bias"]
-        for a in range(spec.nanchors):
-            bias[a * e + 4:(a + 1) * e] += 3.0   # conf and every class
-    dense_pred = Predictor(net, dense_state, spec, obj_thresh=0.7, **serve)
+    dense_pred = Predictor(net, dense_state(net, spec), spec, obj_thresh=0.7,
+                           **serve)
     scenes = (("sparse", pred), ("mid", mid_pred), ("dense", dense_pred))
 
     rng = np.random.default_rng(2)
@@ -1462,42 +1826,8 @@ def run(device) -> int:
                      EVAL["iou_thresh"])
     head_times, head_dev = {}, {}
     for name in ("slice", "sparse", "dense", "eval"):
-        s, preds, hws_, thresh, max_out, iou = cases[name]
-        # the kernel alone against the plain version of the same function,
-        # on the same prepared inputs ...
-        p = TH._flatten_preds(preds, s.class_num)
-        geom = TH._geometry_on(s, device)
-        lbox = TH.letterbox_inverse_params(hws_, s.in_hw).contiguous()
-        kw = dict(classes=s.class_num, max_out=max_out, iou_thresh=iou)
-        plain = lambda: TH._decode_and_select(  # noqa: E731
-            p, geom, lbox, class_softmax=False, stop_below=thresh, **kw)
-        kern = lambda: TH._launch(  # noqa: E731
-            p, geom, lbox, score_thresh=thresh, class_softmax=False, **kw)
-        p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 20),
-                          time_ms(kern, 20), time_ms(plain, 5))
-        dev_k = head_dev[name] = device_ms(kern, 20)
-        res = TH.fused_decode_nms(preds, s, hws_, thresh, iou, max_out)
-        live = live_tests(lambda lv: TH._decode_and_select(
-            p, geom, lbox, class_softmax=False, stop_below=thresh, live=lv,
-            **kw))
-        bsz, n = p.shape[:2]
-        head_times[name] = ((k1 + k2) / 2, (p1 + p2) / 2) + head_bound(
-            bsz, n, s.class_num, max_out, live)
-        # ... and the whole head call, wrapper ops included
-        call_k = time_ms(lambda: TH.fused_decode_nms(
-            preds, s, hws_, thresh, iou, max_out), 20)
-        call_p = time_ms(lambda: TH.fused_decode_nms_reference(
-            preds, s, hws_, thresh, iou, max_out), 5)
-        rows = TH._rows(device, bsz, n, s.class_num)
-        blocks = TH._blocks_per_sm(device, n, rows)
-        print(f"head b{bsz} {name:<6} (thresh {thresh}, iou {iou}, max_out "
-              f"{max_out}, G={rows}, {blocks} blocks an SM): kernel "
-              f"{k1:.4f}/{k2:.4f} ms a launch by events, {dev_k:.4f} ms with "
-              f"launches queued; plain "
-              f"{p1:.4f}/{p2:.4f} ms; whole call {call_k:.4f} ms, plain "
-              f"call {call_p:.4f} ms; bound {head_times[name][2]:.4f} ms "
-              f"({head_times[name][3]}, {greedy_passes(res)} greedy steps, "
-              f"{live} live candidate tests, {per_test(dev_k, live)}) {tag}")
+        timed = time_head(name, *cases[name], device, tag)
+        head_times[name], head_dev[name] = timed[:4], timed[4]
 
     # ---- 6. where the device time goes ----------------------------------
     for label, fn, wall_ms in (
@@ -1529,11 +1859,15 @@ def run(device) -> int:
         dw, dw_inputs = dwsep_phase(pred, on_gpu, c_dev, h_dev, part, tag)
         # ---- 13. VOC eval ----------------------------------------------
         eval_phase(net, spec, ann, device, tag)
-    # ---- 14. times of NMS alone and the fused block ---------------------
-    nms_t, dw_t = new_kernel_times(scenes, scene_preds, spec, h_dev,
-                                   dw_inputs, pred, tag)
-    print(f"peak device memory: "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
+        # ---- 14. times of NMS alone and the fused block -----------------
+        nms_t, dw_t = new_kernel_times(scenes, scene_preds, spec, h_dev,
+                                       dw_inputs, pred, tag)
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
+        # ---- 15. the builders -------------------------------------------
+        t0 = time.perf_counter()
+        builders_phase(device, tag, ann, canvases, hws, image)
+        print(f"builders: wall seconds {time.perf_counter() - t0:.1f}")
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{

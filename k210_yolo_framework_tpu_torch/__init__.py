@@ -15,9 +15,12 @@ held against.  Module names mirror it so each counterpart is easy to find:
                     or PIL threads) and the on-device preprocess
     native          ctypes bindings of the repository's C++ loader and
                     region layer (``csrc/*.cpp``, built with g++)
-    models          yolo_mobilev1 (train and eval) as ``nn.Module``s
-    training        loss, P/R metrics, Adam train step and ``fit``, and the
-                    weight bridge between the native h5 layout and torch
+    models          the four builders (yolo_mobilev1, yolo_mobilev2,
+                    tiny_yolo, the darknet53 yolo), train and eval, as
+                    ``nn.Module``s
+    training        loss, P/R metrics, Adam train step, ``fit`` and BN
+                    recalibration, and the weight bridge between the
+                    native h5 layout and torch
     inference       ``Predictor``: batched and single-image serving
     eval            VOC-style mAP over an annotation list
     csrc            hand-written CUDA C++ kernels (built at first use)

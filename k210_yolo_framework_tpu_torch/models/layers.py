@@ -2,12 +2,15 @@
 
 Counterpart of ``k210_yolo_framework_tpu/models/layers.py`` (``ConvBN``,
 ``DarknetConvBN``, ``darknet_head_conv``, ``leaky_relu``, ``relu6``,
-``upsample2x``).  Inside the net tensors are NCHW; the public entry points
+``upsample2x``) and of flax's 2x2 ``max_pool(..., padding="SAME")``
+(``max_pool_same``); ``smooth_witness`` smooths those kinks for checks
+of gradients.  Inside the net tensors are NCHW; the public entry points
 (``models/yolonet.py``) take and return NHWC, as the JAX package does.
 
 Where the rounding happens follows flax: each conv casts its input and its
 weights to the compute ``dtype`` and returns that dtype; BatchNorm runs in
-fp32 (eps 1e-3) and so do the activations.  ``module.train()`` puts
+fp32 (eps 1e-3, momentum per module: 0.99 unless a builder says
+otherwise) and so do the activations.  ``module.train()`` puts
 BatchNorm on batch statistics (flax's ``train=True``), ``.eval()`` on the
 running ones.  Under ``torch.no_grad()`` / ``inference_mode`` BatchNorm and
 the activations work in place on the fresh conv output, which serving
@@ -19,6 +22,7 @@ checkpoint mechanically.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -26,12 +30,12 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN",
-           "darknet_head_conv", "leaky_relu", "relu", "relu6", "upsample2x"]
+           "darknet_head_conv", "leaky_relu", "max_pool_same", "relu",
+           "relu6", "smooth_max_pool_same", "smooth_witness", "upsample2x"]
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
 _BN_EPS = 1e-3  # keras BatchNormalization's default, as the reference uses
-_BN_MOMENTUM = 0.99  # yolo_mobilev1's, the one builder ported
 
 
 class _LeakyReLU(torch.autograd.Function):
@@ -108,6 +112,52 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+def _pool_pads(x: torch.Tensor, stride: int) -> Tuple[int, int, int, int]:
+    """``F.pad``'s (left, right, top, bottom) for XLA's SAME 2x2 window on
+    an NCHW tensor: at most one, after (stride 1: one row and one column;
+    stride 2: where the size is odd)."""
+    ph, pw = (max((-(-n // stride) - 1) * stride + 2 - n, 0)
+              for n in x.shape[-2:])
+    return 0, pw, 0, ph
+
+
+def max_pool_same(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """flax ``max_pool(x, (2, 2), (stride, stride), padding="SAME")`` on an
+    NCHW tensor: the pad is -inf (``_pool_pads``); ``MaxPool2d``'s padding
+    is symmetric.  NaN propagates."""
+    pads = _pool_pads(x, stride)
+    if any(pads):
+        x = F.pad(x, pads, value=float("-inf"))
+    return F.max_pool2d(x, 2, stride)
+
+
+def smooth_max_pool_same(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """log-sum-exp over each window of ``max_pool_same``, the pad
+    contributing exp(-inf) = 0: a smooth max-pool."""
+    e = F.pad(torch.exp(x), _pool_pads(x, stride))
+    return torch.log(F.avg_pool2d(e, 2, stride) * 4)
+
+
+def smooth_witness(net: nn.Module, pools: bool = True) -> nn.Module:
+    """A copy of ``net`` with a * x + (1 - a) * softplus(x) in place of
+    each ConvBN's ReLU, ReLU6 (a = 0) or LeakyReLU(a), and with ``pools``
+    tiny_yolo's max-pools by ``smooth_max_pool_same``.  Its gradients are
+    well conditioned, where the kinks, and at small grids pool windows
+    whose two largest values lie within rounding, send a gradient to
+    another element between two programs (on an H100 against the CPU, 1%
+    of tiny_yolo's conv_4 kernel gradient): a check of gradients across
+    devices or frameworks holds this copy to a tight tolerance."""
+    net = copy.deepcopy(net)
+    for m in net.modules():
+        if isinstance(m, ConvBN) and m.act is not None:
+            with torch.no_grad():
+                a = -float(m.act(torch.tensor([-1.0])))   # slope below 0
+            m.act = lambda x, a=a: a * x + (1 - a) * F.softplus(x)
+        if pools and hasattr(m, "pool"):
+            m.pool = smooth_max_pool_same
+    return net
+
+
 def _same_pads(kernel: Tuple[int, int]) -> Pads:
     """XLA 'SAME' padding of a stride-1 conv: the odd pixel goes after."""
     return tuple(((k - 1) // 2, (k - 1) - (k - 1) // 2) for k in kernel)
@@ -150,12 +200,14 @@ class BatchNorm(nn.Module):
     In train mode (flax 0.12's ``use_fast_variance``) the statistics are
     the batch's, ``mean = E[x]`` and the biased ``var = max(0, E[x^2] -
     E[x]^2)`` over (N, H, W) in fp32, and each call moves the running ones:
-    ``r = m * r + (1 - m) * batch`` with m = 0.99.  ``F.batch_norm`` would
-    store the unbiased variance, so the statistics are written out here.
-    In eval mode the running statistics normalise."""
+    ``r = m * r + (1 - m) * batch`` with m = ``momentum`` (flax's
+    default 0.99; MobileNetV2 uses 0.999).  ``F.batch_norm`` would store
+    the unbiased variance, so the statistics are written out here.  In eval
+    mode the running statistics normalise."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = 0.99):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -168,7 +220,7 @@ class BatchNorm(nn.Module):
             var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
                                   0.0)
             with torch.no_grad():
-                m = _BN_MOMENTUM
+                m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
                                         + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -186,13 +238,15 @@ class ConvBN(nn.Module):
 
     ``explicit_pad``: ((top, bottom), (left, right)) zero padding before a
     VALID conv, how the reference writes every stride-2 conv; otherwise
-    stride-1 convs are SAME and others VALID."""
+    stride-1 convs are SAME and others VALID.  ``bn_momentum`` is the
+    BatchNorm's (the JAX ``ConvBN.bn_momentum``, default 0.99)."""
 
     def __init__(self, cin: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1),
                  explicit_pad: Optional[Pads] = None,
-                 act: Optional[Callable] = None, depthwise: bool = False):
+                 act: Optional[Callable] = None, depthwise: bool = False,
+                 bn_momentum: float = 0.99):
         super().__init__()
         if explicit_pad is not None:
             pads = explicit_pad
@@ -203,7 +257,7 @@ class ConvBN(nn.Module):
         cout = cin if depthwise else features
         self.conv = Conv(cin, cout, kernel, strides, pads,
                          groups=cin if depthwise else 1)
-        self.bn = BatchNorm(cout)
+        self.bn = BatchNorm(cout, bn_momentum)
         self.act = act
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,

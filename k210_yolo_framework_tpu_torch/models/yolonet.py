@@ -8,8 +8,8 @@ the compute ``dtype``.  ``net.train()`` is the JAX package's
 ``apply(..., train=True)``: BatchNorm on batch statistics, running
 statistics updated in place; ``net.eval()`` serves.
 
-Only ``yolo_mobilev1`` is ported so far; ``build_network`` names the others
-and raises ``NotImplementedError`` for them.
+All four builders of the JAX package: ``yolo_mobilev1``, ``yolo_mobilev2``
+and ``tiny_yolo`` (two scales) and the darknet53 ``yolo`` (three).
 """
 
 from __future__ import annotations
@@ -20,6 +20,11 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
+from k210_yolo_framework_tpu_torch.models.darknet import (
+    Darknet53,
+    LastLayers,
+    TinyYoloBody,
+)
 from k210_yolo_framework_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
@@ -28,12 +33,10 @@ from k210_yolo_framework_tpu_torch.models.layers import (
     upsample2x,
 )
 from k210_yolo_framework_tpu_torch.models.mobilenet_v1 import MobileNetV1
+from k210_yolo_framework_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
-__all__ = ["YoloNet", "YoloMobileV1", "build_network", "init_weights",
-           "NETWORKS"]
-
-# builders of the JAX package that have no port yet
-_NOT_PORTED = ("yolo_mobilev2", "tiny_yolo", "yolo")
+__all__ = ["YoloNet", "YoloMobileV1", "YoloMobileV2", "TinyYolo", "Yolo",
+           "build_network", "init_weights", "NETWORKS"]
 
 
 class _TwoScaleHead(nn.Module):
@@ -96,25 +99,95 @@ class YoloNet(nn.Module):
         return self.reshape_outputs(self.forward_raw(x, input_scale, dtype))
 
 
-class YoloMobileV1(YoloNet):
-    """yolo_mobilev1: y1 width 128 if alpha > 0.8 else 192, y2 width 128."""
+class _TwoScaleNet(YoloNet):
+    """A backbone returning (stride-16 tap, stride-32 trunk) under the
+    shared two-scale head."""
 
     def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
-                 alpha: float = 0.75):
+                 backbone: nn.Module, y1_filters: int, y2_filters: int):
         super().__init__(anchor_num, class_num, in_hw)
-        self.backbone = MobileNetV1(alpha=alpha)
+        self.backbone = backbone
         self.head = _TwoScaleHead(
-            tap_channels=self.backbone.tap16_channels,
-            trunk_channels=self.backbone.out_channels,
+            tap_channels=backbone.tap16_channels,
+            trunk_channels=backbone.out_channels,
             out_channels=anchor_num * (class_num + 5),
-            y1_filters=128 if alpha > 0.8 else 192, y2_filters=128)
+            y1_filters=y1_filters, y2_filters=y2_filters)
 
     def _heads(self, x, dtype, input_scale):
         tap16, trunk = self.backbone(x, dtype, input_scale)
         return self.head(tap16, trunk, dtype)
 
 
-NETWORKS: Dict[str, type] = {"yolo_mobilev1": YoloMobileV1}
+class YoloMobileV1(_TwoScaleNet):
+    """yolo_mobilev1: y1 width 128 if alpha > 0.8 else 192, y2 width 128."""
+
+    def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
+                 alpha: float = 0.75):
+        super().__init__(anchor_num, class_num, in_hw,
+                         MobileNetV1(alpha=alpha),
+                         128 if alpha > 0.8 else 192, 128)
+
+
+class YoloMobileV2(_TwoScaleNet):
+    """yolo_mobilev2: both head widths 128 if alpha > 0.7 else 192."""
+
+    def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
+                 alpha: float = 1.0):
+        w = 128 if alpha > 0.7 else 192
+        super().__init__(anchor_num, class_num, in_hw,
+                         MobileNetV2(alpha=alpha), w, w)
+
+
+class TinyYolo(_TwoScaleNet):
+    """tiny_yolo: y1 width 512, y2 width 256.  ``alpha`` is unused (the
+    builders' uniform signature)."""
+
+    def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
+                 alpha: float = 1.0):
+        super().__init__(anchor_num, class_num, in_hw, TinyYoloBody(),
+                         512, 256)
+
+
+class Yolo(YoloNet):
+    """The full YOLOv3 on darknet53, three scales: y1 from the stride-32
+    tap, y2 and y3 each from [upsample(the previous trunk, 1x1), the next
+    finer tap] (that order).  ``alpha`` is unused."""
+
+    n_out_layers = 3
+
+    def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
+                 alpha: float = 1.0):
+        super().__init__(anchor_num, class_num, in_hw)
+        out = anchor_num * (class_num + 5)
+        self.backbone = Darknet53()
+        c8, c16, c32 = self.backbone.tap_channels
+        self.last_512 = LastLayers(c32, 512)
+        self.y1_out = darknet_head_conv(1024, out)
+        self.up1_conv = DarknetConvBN(512, 256, (1, 1))
+        self.last_256 = LastLayers(256 + c16, 256)
+        self.y2_out = darknet_head_conv(512, out)
+        self.up2_conv = DarknetConvBN(256, 128, (1, 1))
+        self.last_128 = LastLayers(128 + c8, 128)
+        self.y3_out = darknet_head_conv(256, out)
+
+    def _heads(self, x, dtype, input_scale):
+        tap8, tap16, tap32 = self.backbone(x, dtype, input_scale)
+        x, y = self.last_512(tap32, dtype)
+        y1 = self.y1_out(y, dtype)
+        x = torch.cat([upsample2x(self.up1_conv(x, dtype)), tap16], dim=1)
+        x, y = self.last_256(x, dtype)
+        y2 = self.y2_out(y, dtype)
+        x = torch.cat([upsample2x(self.up2_conv(x, dtype)), tap8], dim=1)
+        _, y = self.last_128(x, dtype)
+        return [y1, y2, self.y3_out(y, dtype)]
+
+
+NETWORKS: Dict[str, type] = {
+    "yolo_mobilev1": YoloMobileV1,
+    "yolo_mobilev2": YoloMobileV2,
+    "tiny_yolo": TinyYolo,
+    "yolo": Yolo,
+}
 
 
 @torch.no_grad()
@@ -144,13 +217,9 @@ def build_network(model_def: str, in_hw, anchor_num: int, class_num: int,
                   generator: Optional[torch.Generator] = None) -> YoloNet:
     """Select a builder by name and initialise its weights from
     ``generator`` (a fresh one seeded 0 when none is given)."""
-    if model_def in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_def {model_def!r} is not ported yet; ported: "
-            f"{sorted(NETWORKS)}, still to port: {list(_NOT_PORTED)}")
     if model_def not in NETWORKS:
         raise KeyError(f"unknown model_def {model_def!r}; have "
-                       f"{sorted(NETWORKS) + list(_NOT_PORTED)}")
+                       f"{sorted(NETWORKS)}")
     net = NETWORKS[model_def](anchor_num=anchor_num, class_num=class_num,
                               in_hw=in_hw, alpha=alpha)
     if generator is None:

@@ -3,10 +3,10 @@
 Counterpart of ``k210_yolo_framework_tpu/training/train.py``
 (``keras_adam_schedule``, ``make_optimizer``, ``TrainState``,
 ``create_train_state``, the train / eval steps, their fused
-"preprocess then step" forms, and ``fit``).  One train step: forward with
-BatchNorm on batch statistics, the five-term loss per output layer, the
-l2 penalty, backward, Adam at ``lr / (1 + decay * step)``, and the
-streaming P/R counters.
+"preprocess then step" forms, ``fit`` and ``recalibrate_batch_stats``).
+One train step: forward with BatchNorm on batch statistics, the five-term
+loss per output layer, the l2 penalty, backward, Adam at
+``lr / (1 + decay * step)``, and the streaming P/R counters.
 
 Where JAX returns a new state, the port updates in place: the net holds the
 parameters and the BN running statistics, the optimizer its moments, and
@@ -26,6 +26,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 
 from k210_yolo_framework_tpu_torch.config import TrainConfig, YoloSpec
+from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
 from k210_yolo_framework_tpu_torch.training import loss as L
 from k210_yolo_framework_tpu_torch.training import metrics as M
@@ -33,7 +34,8 @@ from k210_yolo_framework_tpu_torch.training import metrics as M
 __all__ = ["keras_adam_schedule", "make_optimizer", "adam_update",
            "TrainState", "create_train_state", "make_train_step",
            "make_eval_step",
-           "make_fused_train_step", "make_fused_eval_step", "fit"]
+           "make_fused_train_step", "make_fused_eval_step", "fit",
+           "recalibrate_batch_stats"]
 
 
 def keras_adam_schedule(init_lr: float, decay: float) -> Callable:
@@ -292,3 +294,54 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
         for sig, prev in prev_handlers:
             signal.signal(sig, prev)
     return state
+
+
+@torch.no_grad()
+def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
+                            num_batches: int = 50, *, device,
+                            generator: Optional[torch.Generator] = None,
+                            compute_dtype: torch.dtype = torch.float32
+                            ) -> YoloNet:
+    """Replace every BatchNorm's EMA statistics with the arithmetic mean of
+    its exact per-batch moments over ``num_batches`` preprocessed batches
+    (the SWA ``update_bn`` recipe), in place; the net's train/eval mode and
+    each BatchNorm's momentum are restored after.
+
+    The JAX package recovers each layer's momentum m with a zeros / ones
+    probe and divides ``(1 - m) * batch`` by ``1 - m``; here every
+    ``BatchNorm.momentum`` is set to 0 for the forwards, so each leaves its
+    batch moments in the running statistics exactly, whatever its own m.
+    ``batches`` yield ``HostBatch``es; ``preprocess`` is
+    ``make_preprocess_fn``'s, drawing its augment from ``generator``."""
+    device = _device(device)
+    bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
+    ema = {bn: (bn.running_mean.clone(), bn.running_var.clone(), bn.momentum)
+           for bn in bns}
+    sums = {bn: (torch.zeros_like(bn.running_mean),
+                 torch.zeros_like(bn.running_var)) for bn in bns}
+    was_training = net.training
+    net.train()
+    try:
+        for bn in bns:
+            bn.momentum = 0.0
+        for _ in range(num_batches):
+            hb = next(batches).to(device)
+            images, _ = preprocess(*hb, generator)
+            net(images, dtype=compute_dtype)
+            for bn in bns:
+                sums[bn][0].add_(bn.running_mean)
+                sums[bn][1].add_(bn.running_var)
+    except BaseException:
+        # a failed batch leaves the statistics as they came
+        for bn, (mean, var, _) in ema.items():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+        raise
+    finally:
+        for bn, (_, _, momentum) in ema.items():
+            bn.momentum = momentum
+        net.train(was_training)
+    for bn, (mean, var) in sums.items():
+        bn.running_mean.copy_(mean / num_batches)
+        bn.running_var.copy_(var / num_batches)
+    return net

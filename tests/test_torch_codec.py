@@ -121,6 +121,26 @@ def test_encode_labels_matches_jax_exactly(seed):
         assert torch.equal(g[1], o)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_encode_labels_three_layers_matches_jax_exactly(seed):
+    """The darknet53 yolo's label encode: 3 layers, 9 anchors (each box to
+    its best anchor over all nine, then that anchor's layer and cell)."""
+    rng = np.random.default_rng(10 + seed)
+    anchors = np.sort(rng.uniform(0.02, 0.9, (3, 3, 2)), axis=None)[::-1]
+    args = ((64, 96), ((2, 3), (4, 6), (8, 12)), 3, anchors.reshape(3, 3, 2))
+    jspec, tspec = JConfig.YoloSpec.create(*args), TConfig.YoloSpec.create(*args)
+    boxes, valid = _edge_boxes(seed)
+    boxes[..., 3:5] = rng.uniform(0.01, 0.95, boxes[..., 3:5].shape)
+    want = JC.encode_labels_batch(jnp.asarray(boxes), jnp.asarray(valid), jspec)
+    got = TC.encode_labels_batch(_t(boxes), _t(valid), tspec)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want] == [
+        (3, 2, 3, 3, 8), (3, 4, 6, 3, 8), (3, 8, 12, 3, 8)]
+    for g, w in zip(got, want):
+        _eq(g, w)
+    # every layer receives boxes
+    assert all(float(g[..., 4].sum()) > 0 for g in got)
+
+
 def test_assign_anchor_and_pad_boxes_match_jax():
     rng = np.random.default_rng(3)
     wh = rng.uniform(0.01, 1, (40, 2)).astype(np.float32)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU:
 the fused decode+NMS head, NMS alone, the fused depthwise-separable block
-and the augment's 3-shear rotation; a train step on the card against the
-same step on the CPU; and the build naming a new library when only the
-shared header changes.
+and the augment's 3-shear rotation; each builder served on the card
+through the head kernel; a train step of each builder on the card against
+the same step on the CPU; and the build naming a new library when only
+the shared header changes.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports nothing of JAX, so it also runs where JAX is not
@@ -33,6 +34,7 @@ from k210_yolo_framework_tpu_torch.config import (
 )
 from k210_yolo_framework_tpu_torch.inference import Predictor
 from k210_yolo_framework_tpu_torch.models import build_network
+from k210_yolo_framework_tpu_torch.models.layers import smooth_witness
 from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops import augment as TA
 from k210_yolo_framework_tpu_torch.ops import decode as TD
@@ -170,6 +172,89 @@ def test_predictor_on_card_uses_the_kernel(dev):
     preds = pred._forward_batch(c, h)
     _close(pred._head(preds, h),
            TH.fused_decode_nms_reference(preds, spec, h, 0.2, 0.3, 30), 0.2)
+
+
+# (builder, alpha, spec): yolo_mobilev2 at the Makefile's DEPTHMUL, tiny_yolo,
+# and the darknet53 yolo on three scales
+BUILDERS = [("yolo_mobilev2", 0.75, 2), ("tiny_yolo", 1.0, 2),
+            ("yolo", 1.0, 3)]
+
+
+def _builder_spec(layers, in_hw=(224, 320), classes=20):
+    if layers == 2:
+        return YoloSpec.create(in_hw, ((in_hw[0] // 32, in_hw[1] // 32),
+                                       (in_hw[0] // 16, in_hw[1] // 16)),
+                               classes, np.asarray(VOC_ANCHORS))
+    rng = np.random.default_rng(2)
+    anchors = np.sort(rng.uniform(0.05, 0.9, (3, 3, 2)))[:, ::-1]
+    return YoloSpec.create(in_hw, tuple((in_hw[0] // s, in_hw[1] // s)
+                                        for s in (32, 16, 8)),
+                           classes, anchors)
+
+
+@pytest.mark.parametrize("name,alpha,layers", BUILDERS)
+def test_builder_served_on_card_through_the_kernel(dev, name, alpha, layers):
+    """Seeded weights, bf16, B=4: one head launch per predict_batch call,
+    and the kernel's detections equal the plain head's on the same
+    logits."""
+    spec = _builder_spec(layers)
+    net = build_network(name, spec.in_hw, 3, 20, alpha=alpha,
+                        generator=torch.Generator().manual_seed(0))
+    pred = Predictor(net, None, spec, obj_thresh=0.2,
+                     compute_dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(4)
+    canvases = rng.integers(0, 256, (4, 240, 320, 3)).astype(np.uint8)
+    hws = np.array([[240, 320], [200, 300], [240, 100], [120, 320]], np.int32)
+    before = TH.fused_decode_nms.launches
+    dets = pred.predict_batch(canvases, hws)
+    assert TH.fused_decode_nms.launches == before + 1 and len(dets) == 4
+    c = torch.from_numpy(canvases).to(dev)
+    h = torch.from_numpy(hws).to(dev)
+    preds = pred._forward_batch(c, h)
+    assert [tuple(p.shape[1:3]) for p in preds] == list(spec.out_hws)
+    _close(pred._head(preds, h),
+           TH.fused_decode_nms_reference(preds, spec, h, 0.2, 0.3, 30), 0.2)
+
+
+@pytest.mark.parametrize("name,alpha,layers", BUILDERS)
+def test_builder_train_step_on_card_matches_cpu(dev, name, alpha, layers):
+    """One fp32 train step at 96x128, B=2, TF32 off, card against CPU from
+    the same weights, on the smooth witness: losses rtol 1e-4, every
+    gradient within 1e-3 of its own largest entry, except v2's project BN
+    biases (a 1x1 conv and a train-mode BN follow them, so their exact
+    gradient is 0), which stay below 1e-6 of the largest gradient entry on
+    both."""
+    spec = _builder_spec(layers, (96, 128), classes=3)
+    cfg = TrainConfig(batch_size=2)
+    rng = np.random.default_rng(7)
+    images = torch.from_numpy(rng.uniform(0, 1, (2, 96, 128, 3)).astype(
+        np.float32))
+    labels = [torch.zeros((2, h, w, 3, 8)) for h, w in spec.out_hws]
+    labels[-1][:, 1, 2, 0, :5] = torch.tensor([0.4, 0.3, 0.2, 0.3, 1.0])
+    labels[-1][:, 1, 2, 0, 6] = 1.0
+    grads, logs = [], []
+    for device in ("cpu", dev):
+        net = smooth_witness(build_network(
+            name, spec.in_hw, 3, 3, alpha=alpha,
+            generator=torch.Generator().manual_seed(0)))
+        state = TT.create_train_state(net, cfg, device)
+        state, lg = TT.make_train_step(spec, cfg)(
+            state, images.to(device), [l.to(device) for l in labels])
+        grads.append({n: p.grad.cpu() for n, p in
+                      state.net.named_parameters()})
+        logs.append(lg)
+    for k in ["loss"] + [f"l{i + 1}_loss" for i in range(layers)]:
+        np.testing.assert_allclose(float(logs[1][k]), float(logs[0][k]),
+                                   rtol=1e-4, err_msg=k)
+    top = max(float(g.abs().max()) for g in grads[0].values())
+    for n, g0 in grads[0].items():
+        g1 = grads[1][n]
+        if n.endswith("project.bn.bias"):
+            assert max(float(g0.abs().max()), float(g1.abs().max())) \
+                <= 1e-6 * top, n
+            continue
+        scale = float(g0.abs().max())
+        assert float((g1 - g0).abs().max()) <= 1e-3 * scale + 1e-12, n
 
 
 @pytest.mark.parametrize("n,h,w,c,dtype", [

@@ -22,6 +22,7 @@ from k210_yolo_framework_tpu_torch.models.layers import Conv
 from k210_yolo_framework_tpu_torch.training import checkpoint as TC
 
 import shared
+from torch_parity import jax_weights
 
 torch.set_num_threads(1)
 
@@ -153,11 +154,35 @@ def test_forward_raw_layout():
         assert torch.equal(r[0, 1, 2, 8 + 4], v[0, 1, 2, 1, 4])
 
 
-def test_build_network_names_unported_builders():
-    for name in ("yolo_mobilev2", "tiny_yolo", "yolo"):
-        with pytest.raises(NotImplementedError, match=name):
-            build_network(name, (224, 320), 3, 20)
-    with pytest.raises(KeyError):
+@pytest.mark.parametrize("name,alpha", [
+    ("yolo_mobilev1", 0.75), ("yolo_mobilev2", 0.75), ("yolo_mobilev2", 0.35),
+    ("tiny_yolo", 1.0), ("yolo", 1.0)])
+def test_build_network_builds_every_builder(name, alpha):
+    """Each of the JAX package's builders, with its output shapes, and the
+    weight bridge bit for bit both ways on its tree (depthwise [3, 3, 1, C]
+    kernels included)."""
+    in_hw = (64, 96)
+    jnet, _, flat = jax_weights(name, in_hw, 3, 20, alpha)
+    want = jax.eval_shape(lambda v, x: jnet.apply(v, x),
+                          _unflatten(flat),
+                          jax.ShapeDtypeStruct((1, *in_hw, 3), jnp.float32))
+    net = build_network(name, in_hw, 3, 20, alpha=alpha)
+    assert net.n_out_layers == jnet.n_out_layers == len(want)
+    with torch.inference_mode():
+        got = net(torch.zeros((1, *in_hw, 3)))
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    sd = TC.state_dict_from_flat(flat, net)
+    back = TC.flat_from_state_dict(sd)
+    assert sorted(back) == sorted(flat)
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k])
+    net.load_state_dict(sd)
+    for k, v in net.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+
+
+def test_build_network_rejects_an_unknown_name():
+    with pytest.raises(KeyError, match="resnet"):
         build_network("resnet", (224, 320), 3, 20)
 
 

@@ -216,7 +216,8 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import k210_yolo_framework_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-assert "k210_yolo_framework_tpu_torch.native" in names, names
+for mod in ("native", "models.mobilenet_v2", "models.darknet"):
+    assert f"k210_yolo_framework_tpu_torch.{mod}" in names, names
 for name in names:
     importlib.import_module(name)
 exec(sys.argv[1])   # chip_smoke.py's import statements
@@ -234,4 +235,4 @@ print(len(names))
                           cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 24
+    assert int(proc.stdout.strip()) >= 26
