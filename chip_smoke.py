@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and eval paths, and each of
 its four CUDA kernels on the path that runs it, once on one NVIDIA GPU;
-then the three other builders served and trained (phase 15).
+then the three other builders served and trained (phase 15), and the
+command-line entry points (phase 16).
 
     python3 chip_smoke.py
 
@@ -104,7 +105,21 @@ Phases (any failure raises and the script exits non-zero):
      head kernel on the served yolo's own logits at B=128 (0.7 and dense)
      and at the eval settings (B=32, 0.01, max_out 100) against its plain
      version and bound, and the in_hw at which each builder's N no longer
-     fits the kernel.  Each part prints its wall seconds.
+     fits the kernel.  Each part prints its wall seconds;
+ 16. the entry points, run in this process on phase 8's JPEGs in a working
+     directory laid out as they expect: ``cli.make_anchor_list``, then
+     ``cli.keras_train`` (yolo_mobilev1 alpha 0.75, b64 bf16, augment on,
+     pruned to 0.9 by the schedule's end, ``--profile``,
+     ``--bn_recalibrate 2``): one rotation launch per train step, every
+     large kernel of the saved ``yolo_prune_model.npz`` at the target
+     sparsity, scalars and events at the same steps, a trace naming
+     ``rotate_kernel``; again with ``--pre_ckpt`` (the step count goes
+     on); ``update_masks`` on the card against the CPU mask for mask;
+     ``cli.keras_inference`` (bf16, one head launch) printing
+     ``Predictor.predict_image``'s table row for row; ``cli.keras_eval``
+     at its defaults (one head launch a batch) giving ``evaluate_map``'s
+     mAP; and the B=128 train step with pruning off, updating the masks
+     and applying them.
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -1605,6 +1620,314 @@ def builders_phase(device, tag, ann, canvases, hws, image):
 
 
 
+# ---- 16. the entry points ----------------------------------------------------
+# the command-line scripts on phase 8's JPEGs, laid out as they expect
+# (data/<set>_img_ann.npy, data/<set>_anchor.npy) in a working directory
+CLI_SET = "smoke"
+CLI_NET = ["--train_set", CLI_SET, "--class_num", "20", "--model_def",
+           "yolo_mobilev1", "--depth_multiplier", "0.75", "--device", "cuda"]
+# batch 64 at split 0.25 of 256: 3 train steps and 1 validation step an
+# epoch; the masks' last update falls on the schedule's end (step 3)
+CLI_TRAIN = CLI_NET + ["--batch_size", "64", "--vaildation_split", "0.25",
+                       "--is_prune", "True", "--prune_frequency", "1",
+                       "--prune_end_epoch", "1"]
+PRUNE_FINAL = 0.9          # keras_train's --prune_final_sparsity default
+ROT_TRACE_NAME = "rotate_kernel"   # csrc/rotate3shear.cu's __global__
+CLI_ECHO = 14              # captured lines echoed per script
+
+
+def captured(fn):
+    """(fn's result, its standard output); the first CLI_ECHO lines are
+    echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    text = buf.getvalue()
+    lines = text.splitlines()
+    for line in lines[:CLI_ECHO]:
+        print(f"  | {line}")
+    if len(lines) > CLI_ECHO:
+        print(f"  | ... {len(lines) - CLI_ECHO} more lines")
+    return res, text
+
+
+def table_lines(det) -> list:
+    """keras_inference's rows for ``det``."""
+    return [f"[{t:.1f}\t{l:.1f}\t{b:.1f}\t{r:.1f}\t{s:.2f}\t{int(c):2d}]"
+            for (t, l, b, r), s, c in zip(det.boxes, det.scores,
+                                          det.classes)]
+
+
+def prune_step_times(device, tag, ann):
+    """The B=128 bf16 train step on one preprocessed batch: pruning off,
+    a step that updates the masks, a step that only applies them; then
+    ``update_masks`` and ``apply_masks`` alone."""
+    import dataclasses
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch import voc_spec
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.training import pruning as P
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    spec = voc_spec()
+    it = iter(PL.DataPipeline(ann, TRAIN_BATCH, seed=5))
+    hb = next(it).to(device)
+    it.close()
+    with torch.no_grad():
+        images, labels = PL.make_preprocess_fn(spec, True, torch.bfloat16)(
+            *hb, generator=torch.Generator().manual_seed(5))
+    base = TrainConfig(batch_size=TRAIN_BATCH)
+    times = {}
+    for what, cfg in (
+            ("off", base),
+            ("update", dataclasses.replace(base, is_prune=True,
+                                           prune_frequency=1)),
+            ("apply", dataclasses.replace(base, is_prune=True,
+                                          prune_frequency=10 ** 9))):
+        net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                            spec.class_num, alpha=0.75,
+                            generator=torch.Generator().manual_seed(0))
+        state = TT.create_train_state(net, cfg, device)
+        step = TT.make_train_step(spec, cfg, torch.bfloat16,
+                                  train_epoch_step=1000)
+        times[what] = time_ms(lambda: step(state, images, labels), 10)
+    params = dict(state.net.named_parameters())
+    masks = state.masks
+    n_w = sum(m.numel() for m in masks.values())
+    upd = time_ms(lambda: P.update_masks(params, masks, 0.9), 20)
+    app = time_ms(lambda: P.apply_masks(params, masks), 50)
+    # the same with the thresholds' index and weight tables copied from
+    # pageable memory: each such copy waits for the stream's queued work
+    pinned = P._to_device
+    P._to_device = lambda a, dev: torch.from_numpy(a).to(dev)
+    try:
+        upd_sync = time_ms(lambda: P.update_masks(params, masks, 0.9), 20)
+        step = TT.make_train_step(
+            spec, dataclasses.replace(cfg, prune_frequency=1),
+            torch.bfloat16, train_epoch_step=1000)
+        step_sync = time_ms(lambda: step(state, images, labels), 10)
+    finally:
+        P._to_device = pinned
+    print(f"entry points: train step b{TRAIN_BATCH} bf16: pruning off "
+          f"{times['off']:.3f} ms; pruning on, mask-update step "
+          f"{times['update']:.3f} ms, mask-apply step {times['apply']:.3f} "
+          f"ms; update_masks alone {upd:.3f} ms, apply_masks alone "
+          f"{app:.4f} ms ({len(masks)} kernels, {n_w} weights) {tag}")
+    print(f"entry points: with pageable copies in the thresholds (a host "
+          f"sync each): update_masks alone {upd_sync:.3f} ms, mask-update "
+          f"step {step_sync:.3f} ms {tag}")
+    return times, upd, app
+
+
+def masks_card_vs_cpu(device, nets):
+    """``update_masks`` on the card against the CPU, mask for mask, on
+    each (label, state dict, sparsities); a differing entry is printed with
+    its distance from the threshold."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.training import pruning as P
+    from k210_yolo_framework_tpu_torch.training.checkpoint import native_key
+
+    for label, sd, sparsities in nets:
+        cpu = {n: v.float() for n, v in sd.items() if P.is_prunable(n, v)}
+        card = {n: v.to(device) for n, v in cpu.items()}
+        names = {n: None for n in cpu}
+        for s in sparsities:
+            a = P.update_masks(card, names, s)
+            b = P.update_masks(cpu, names, s)
+            thr = P._thresholds([torch.sort(cpu[n].abs().reshape(-1)).values
+                                 for n in names], np.float32(s))
+            differ = 0
+            for i, n in enumerate(names):
+                diff = a[n].cpu() != b[n]
+                for w in cpu[n][diff][:5].tolist():
+                    print(f"  mask differs: {native_key(n, 4)} |w| {abs(w)!r}"
+                          f" threshold {float(thr[i])!r}")
+                differ += int(diff.sum())
+            kept = sum(int(m.sum()) for m in b.values())
+            print(f"entry points: update_masks card vs CPU, {label}, "
+                  f"sparsity {s}: {len(names)} kernels, {kept} weights kept, "
+                  f"{differ} masks differ")
+            if differ:
+                raise AssertionError("update_masks on the card differs from "
+                                     "the CPU")
+
+
+def entry_points_phase(device, tag, ann):
+    """Phase 16: make_anchor_list, keras_train (pruned, profiled,
+    recalibrated, then resumed), keras_inference and keras_eval, run in
+    this process as a user would run them, against the library calls."""
+    import os
+    import re
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch import YoloSpec
+    from k210_yolo_framework_tpu_torch.cli import keras_eval as KE
+    from k210_yolo_framework_tpu_torch.cli import keras_inference as KI
+    from k210_yolo_framework_tpu_torch.cli import keras_train as KT
+    from k210_yolo_framework_tpu_torch.cli import make_anchor_list as MA
+    from k210_yolo_framework_tpu_torch.data.annotations import read_image
+    from k210_yolo_framework_tpu_torch.eval import evaluate_map
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.training import checkpoint as CK
+    from k210_yolo_framework_tpu_torch.utils.tboard import read_events
+
+    t_phase = time.perf_counter()
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(f"{root}/data")
+        np.save(f"{root}/data/{CLI_SET}_img_ann.npy", ann)
+        os.chdir(root)
+        try:
+            rc, _ = captured(lambda: MA.main(MA.parse_args(
+                [CLI_SET, "--is_plot", "False"])))
+            anchors = np.load(f"data/{CLI_SET}_anchor.npy")
+            if rc != 0 or anchors.shape != (2, 3, 2) or \
+                    not np.isfinite(anchors).all():
+                raise AssertionError(f"make_anchor_list: rc {rc}, {anchors}")
+
+            # ---- keras_train: pruned, profiled, recalibrated -------------
+            TR.rotate_3shear.launches = 0
+            t0 = time.perf_counter()
+            run, text = captured(lambda: KT.main(KT.parse_args(
+                CLI_TRAIN + ["--max_nrof_epochs", "2", "--profile", "True",
+                             "--bn_recalibrate", "2", "--log_dir", "log1"])))
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = TR.rotate_3shear.launches
+            print(f"entry points: keras_train (2 epochs of 3 steps, b64 "
+                  f"bf16, pruned): rotate kernel launches {launches}; wall "
+                  f"{train_s:.1f} s {tag}")
+            if launches != 6:
+                raise AssertionError("the rotate kernel did not run once "
+                                     "per train step of keras_train")
+            rates = re.findall(r"epoch (\d+) done in ([\d.]+)s \((\d+) "
+                               r"img/s\)", text)
+            for ep, sec, rate in rates:
+                print(f"entry points: keras_train epoch {ep}: {rate} img/s "
+                      f"({sec} s, its own line) {tag}")
+            if len(rates) != 2 or "val_loss" not in text:
+                raise AssertionError("keras_train: no epoch / validation "
+                                     "line")
+            checked = 0
+            with np.load(run / "yolo_prune_model.npz") as z:
+                for k in z.files:
+                    n = z[k].size
+                    if k.endswith("/kernel") and n >= 1000:
+                        zero = float((z[k] == 0).mean())
+                        if abs(zero - PRUNE_FINAL) > 1.0 / n + 1e-3:
+                            raise AssertionError(f"{k}: zero share {zero}")
+                        checked += 1
+            lines = [json.loads(l) for l in
+                     (run / "scalars.jsonl").read_text().splitlines()]
+            events = [e for e in read_events(
+                str(next(run.glob("events.out.tfevents.*"))))
+                if e["scalars"]]
+            steps = [d["step"] for d in lines]
+            if steps != list(range(1, 7)) or \
+                    [e["step"] for e in events] != steps or \
+                    not all("sparsity" in e["scalars"] for e in events):
+                raise AssertionError(f"scalars {steps}, events "
+                                     f"{[e['step'] for e in events]}")
+            traces = list((run / "profile").glob("*.json"))
+            trace = traces[0].read_text() if len(traces) == 1 else ""
+            if ROT_TRACE_NAME not in trace:
+                raise AssertionError("keras_train --profile: no trace naming "
+                                     "the rotate kernel")
+            print(f"entry points: yolo_prune_model.npz: {checked} kernels "
+                  f"of >= 1000 weights at {PRUNE_FINAL} +- 1/n + 1e-3; "
+                  f"sparsity by step "
+                  f"{[round(d['sparsity'], 4) for d in lines]}; scalars and "
+                  f"events at steps {steps}; trace {traces[0].name} "
+                  f"({len(trace) / 2**20:.1f} MiB) names {ROT_TRACE_NAME} "
+                  f"{trace.count(ROT_TRACE_NAME)} times")
+
+            TR.rotate_3shear.launches = 0
+            resumed, text = captured(lambda: KT.main(KT.parse_args(
+                CLI_TRAIN + ["--max_nrof_epochs", "1", "--pre_ckpt",
+                             str(run / "ckpt"), "--log_dir", "log2"])))
+            steps = [json.loads(l)["step"] for l in
+                     (resumed / "scalars.jsonl").read_text().splitlines()]
+            print(f"entry points: keras_train --pre_ckpt {run.name}/ckpt: "
+                  f"steps {steps}, rotate kernel launches "
+                  f"{TR.rotate_3shear.launches}")
+            if steps != [7, 8, 9] or TR.rotate_3shear.launches != 3:
+                raise AssertionError("keras_train did not resume the step "
+                                     "count")
+
+            weights = str(run / "yolo_prune_model.npz")
+            spec = YoloSpec.from_files(f"data/{CLI_SET}_anchor.npy")
+            net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                                spec.class_num, alpha=0.75)
+            init = {k: v.clone() for k, v in net.state_dict().items()}
+            sd = CK.load_variables(weights, "yolo_mobilev1", net)
+            masks_card_vs_cpu(device, (("seeded net", init, (0.5, 0.9)),
+                                       ("trained net", sd, (0.95,))))
+
+            # ---- keras_inference ---------------------------------------
+            image = str(ann[0][0])
+            probe = Predictor(net, sd, spec, obj_thresh=0.01,
+                              compute_dtype=torch.bfloat16, device=device)
+            scores = np.sort(probe.predict_image(read_image(image)).scores)
+            thresh = float(scores[-min(10, len(scores))]) * 0.999 \
+                if len(scores) else 0.01
+            TH.fused_decode_nms.launches = 0
+            t0 = time.perf_counter()
+            det, text = captured(lambda: KI.main(KI.parse_args(
+                CLI_NET + ["--bf16", "True", "--obj_thresh", str(thresh),
+                           "--output", f"{root}/det.png", weights, image])))
+            inf_s = time.perf_counter() - t0
+            launches = TH.fused_decode_nms.launches
+            want = Predictor(net, sd, spec, obj_thresh=thresh,
+                             compute_dtype=torch.bfloat16,
+                             device=device).predict_image(read_image(image))
+            printed = [l for l in text.splitlines()
+                       if re.match(r"^\[-?[\d.]+\t", l)]
+            print(f"entry points: keras_inference (obj_thresh {thresh:.4f}):"
+                  f" {len(printed)} rows, head kernel launches {launches}; "
+                  f"wall {inf_s:.3f} s for one image {tag}")
+            if launches != 1 or printed != table_lines(want) or \
+                    not printed or not all(
+                        np.array_equal(a, b) for a, b in zip(det, want)):
+                raise AssertionError("keras_inference's table differs from "
+                                     "Predictor.predict_image")
+
+            # ---- keras_eval, keras_eval.py's defaults -------------------
+            TH.fused_decode_nms.launches = 0
+            res, text = captured(lambda: KE.main(KE.parse_args(
+                [weights] + CLI_NET)))
+            launches = TH.fused_decode_nms.launches
+            ref = evaluate_map(Predictor(net, sd, spec, **EVAL,
+                                         compute_dtype=torch.float32,
+                                         device=device),
+                               ann, spec.class_num, batch_size=EVAL_BATCH)
+            n_batches = -(-len(ann) // EVAL_BATCH)
+            print(f"entry points: keras_eval ({len(ann)} images, b"
+                  f"{EVAL_BATCH} fp32, obj_thresh 0.01, max_out 100): mAP "
+                  f"{res['map']!r}, evaluate_map {ref['map']!r}; head kernel "
+                  f"launches {launches}; {res['imgs_per_s']:.1f} imgs/s "
+                  f"{tag}")
+            if launches != n_batches or res["map"] != ref["map"] or \
+                    not np.isfinite(res["map"]):
+                raise AssertionError("keras_eval's mAP differs from "
+                                     "evaluate_map")
+        finally:
+            os.chdir(here)
+    prune_step_times(device, tag, ann)
+    print(f"entry points: wall seconds {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -1868,6 +2191,8 @@ def run(device) -> int:
         t0 = time.perf_counter()
         builders_phase(device, tag, ann, canvases, hws, image)
         print(f"builders: wall seconds {time.perf_counter() - t0:.1f}")
+        # ---- 16. the entry points ----------------------------------------
+        entry_points_phase(device, tag, ann)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{

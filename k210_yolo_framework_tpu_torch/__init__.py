@@ -18,15 +18,26 @@ held against.  Module names mirror it so each counterpart is easy to find:
     models          the four builders (yolo_mobilev1, yolo_mobilev2,
                     tiny_yolo, the darknet53 yolo), train and eval, as
                     ``nn.Module``s
-    training        loss, P/R metrics, Adam train step, ``fit`` and BN
-                    recalibration, and the weight bridge between the
-                    native h5 layout and torch
+    training        loss, P/R metrics, Adam train step, magnitude
+                    pruning, ``fit`` (with a profiled step) and BN
+                    recalibration, and checkpoints: the weight bridge
+                    between the native h5 layout and torch, ``.h5`` /
+                    ``.npz`` weights and the resumable train state
     inference       ``Predictor``: batched and single-image serving
     eval            VOC-style mAP over an annotation list
+    anchors         kmeans anchors (1 - IoU), on the CPU
+    port            reference Keras ``.h5`` files in and out
+    utils           colormap, detection matching, the TensorBoard event
+                    writer and the console prefixes
+    cli             the command-line entry points (``python -m
+                    k210_yolo_framework_tpu_torch.cli.<name>``):
+                    make_voc_list, make_anchor_list, keras_train,
+                    keras_inference, keras_eval
     csrc            hand-written CUDA C++ kernels (built at first use)
 
 Only ``torch`` and numpy are imported here; nothing of JAX or flax, and
-nothing of the JAX package.
+nothing of the JAX package.  h5py, PIL and matplotlib are imported by the
+functions that use them.
 """
 
 from k210_yolo_framework_tpu_torch.config import (  # noqa: F401

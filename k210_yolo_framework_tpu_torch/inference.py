@@ -184,6 +184,10 @@ def draw_detections(img: np.ndarray, det: Detections,
         right = min(img.shape[1], int(np.floor(right + 0.5)))
         color = tuple(colormap[int(cls) % len(colormap)])
         for j in range(max(thickness, 1)):
+            # a box thinner than the outline (or clipped away) stops early:
+            # PIL refuses a rectangle whose corners cross
+            if right - j < left + j or bottom - j < top + j:
+                break
             drawer.rectangle([left + j, top + j, right - j, bottom - j],
                              outline=color)
         name = labels[int(cls)] if int(cls) < len(labels) else str(int(cls))

@@ -12,8 +12,10 @@ Where JAX returns a new state, the port updates in place: the net holds the
 parameters and the BN running statistics, the optimizer its moments, and
 :class:`TrainState` also the step count and the P/R counters; each step
 returns the same state object.  Logged scalars stay on the device until the
-10-step print boundary, which fetches them in one copy.  Pruning
-(``cfg.is_prune``) is not ported and raises.
+10-step print boundary, which fetches them in one copy.  With
+``cfg.is_prune`` the state also holds magnitude masks over the conv kernels
+(``training/pruning.py``): after each Adam update the masks are recomputed
+when the schedule is due and multiplied into the weights.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import signal
 import time
+from pathlib import Path
 from typing import Callable, Dict, Iterator, Optional
 
 import torch
@@ -30,12 +33,13 @@ from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
 from k210_yolo_framework_tpu_torch.training import loss as L
 from k210_yolo_framework_tpu_torch.training import metrics as M
+from k210_yolo_framework_tpu_torch.training import pruning as P
 
 __all__ = ["keras_adam_schedule", "make_optimizer", "adam_update",
            "TrainState", "create_train_state", "make_train_step",
            "make_eval_step",
            "make_fused_train_step", "make_fused_eval_step", "fit",
-           "recalibrate_batch_stats"]
+           "recalibrate_batch_stats", "checked_device", "prune_step"]
 
 
 def keras_adam_schedule(init_lr: float, decay: float) -> Callable:
@@ -64,13 +68,20 @@ def adam_update(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 @dataclasses.dataclass
 class TrainState:
+    """``masks`` (parameter name -> 0/1 tensor) exist only for the prunable
+    parameters and only when pruning; ``sparsity`` is their share of zeros,
+    a device scalar recomputed with them."""
     net: YoloNet
     optimizer: torch.optim.Optimizer
     step: int
     pr: Dict[str, torch.Tensor]
+    masks: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    sparsity: Optional[torch.Tensor] = None
 
 
-def _device(device) -> torch.device:
+def checked_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no card
+    raises (nothing falls back to the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(device)!r}: no CUDA device is "
@@ -80,13 +91,34 @@ def _device(device) -> torch.device:
 
 def create_train_state(net: YoloNet, cfg: TrainConfig, device) -> TrainState:
     """Move ``net`` to ``device`` (channels_last, as served) in train mode
-    and give it an optimizer; the net is trained in place."""
-    if cfg.is_prune:
-        raise NotImplementedError("pruning (cfg.is_prune) is not ported yet")
-    device = _device(device)
+    and give it an optimizer; the net is trained in place.  With
+    ``cfg.is_prune`` the masks start at all ones and are applied at once,
+    as JAX's ``init_masks`` are (the weights stay as they are)."""
+    device = checked_device(device)
     net.to(device, memory_format=torch.channels_last).train()
-    return TrainState(net=net, optimizer=make_optimizer(net.parameters(), cfg),
-                      step=0, pr=M.init_pr_state(net.n_out_layers, device))
+    state = TrainState(net=net,
+                       optimizer=make_optimizer(net.parameters(), cfg),
+                       step=0, pr=M.init_pr_state(net.n_out_layers, device))
+    if cfg.is_prune:
+        state.masks = P.init_masks(net)
+        P.apply_masks(dict(net.named_parameters()), state.masks)
+        state.sparsity = P.sparsity_of(state.masks)
+    return state
+
+
+def prune_step(state: TrainState, cfg: TrainConfig, prune_end: int) -> None:
+    """After an update at ``state.step``: recompute the masks where the
+    schedule is due (every ``prune_frequency`` steps up to ``prune_end``),
+    then multiply them into the weights.  The step count is the host's, so
+    deciding costs no device sync."""
+    params = dict(state.net.named_parameters())
+    if state.step % cfg.prune_frequency == 0 and state.step <= prune_end:
+        sparsity = P.polynomial_sparsity(
+            state.step, cfg.prune_initial_sparsity, cfg.prune_final_sparsity,
+            0, prune_end)
+        state.masks = P.update_masks(params, state.masks, sparsity)
+        state.sparsity = P.sparsity_of(state.masks)
+    P.apply_masks(params, state.masks)
 
 
 def _layer_logs(logs: dict, prefix: str, layer_losses, pr) -> dict:
@@ -107,13 +139,21 @@ def _losses(net, spec, cfg, images, labels, dtype):
 
 
 def make_train_step(spec: YoloSpec, cfg: TrainConfig,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32,
+                    train_epoch_step: Optional[int] = None):
     """(state, images [B, H, W, 3], labels per layer) -> (state, logs).
     ``compute_dtype`` is the convs' dtype (the JAX net's ``dtype``); the
     parameters stay fp32.  After the step every parameter's ``.grad`` holds
-    the gradient of ``loss + l2`` that the update used."""
-    if cfg.is_prune:
-        raise NotImplementedError("pruning (cfg.is_prune) is not ported yet")
+    the gradient of ``loss + l2`` that the update used.  With
+    ``cfg.is_prune``, ``train_epoch_step`` (steps an epoch) is required:
+    the schedule ends after ``prune_end_epoch`` epochs; the masks follow
+    the update (:func:`prune_step`) and ``logs["sparsity"]`` is their share
+    of zeros."""
+    if cfg.is_prune and train_epoch_step is None:
+        raise ValueError("pruning needs train_epoch_step: the schedule ends "
+                         "after prune_end_epoch epochs")
+    # the step at which the schedule reaches its final sparsity
+    prune_end = max((train_epoch_step or 1) * cfg.prune_end_epoch, 1)
     schedule = keras_adam_schedule(cfg.init_learning_rate,
                                    cfg.learning_rate_decay_factor)
 
@@ -126,6 +166,8 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
         (main + L.l2_penalty(net)).backward()
         lr = schedule(state.step)
         adam_update(opt, lr)
+        if cfg.is_prune:
+            prune_step(state, cfg, prune_end)
 
         state.pr = M.update_pr_state(state.pr, labels,
                                      [o.detach() for o in outs],
@@ -133,6 +175,8 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
         p, r = M.pr_results(state.pr)
         logs = {"loss": main.detach(), "p": p, "r": r, "lr": lr}
         _layer_logs(logs, "", layer_losses, state.pr)
+        if cfg.is_prune:
+            logs["sparsity"] = state.sparsity
         state.step += 1
         return state, logs
 
@@ -162,13 +206,14 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
 
 
 def make_fused_train_step(spec: YoloSpec, cfg: TrainConfig, preprocess,
-                          compute_dtype: torch.dtype = torch.float32):
+                          compute_dtype: torch.dtype = torch.float32,
+                          train_epoch_step: Optional[int] = None):
     """Preprocess (letterbox, augment, /max, encode; no gradients) then
     the train step:
 
     (state, canvases u8, img_hws, boxes, valid, generator=None,
      params=None) -> (state, logs)."""
-    step = make_train_step(spec, cfg, compute_dtype)
+    step = make_train_step(spec, cfg, compute_dtype, train_epoch_step)
 
     def fused(state, canvases, img_hws, boxes, valid, generator=None,
               params=None):
@@ -207,6 +252,34 @@ def _flush_scalars(scalar_logger, pending_logs) -> None:
     pending_logs.clear()
 
 
+def _start_profiler(device: torch.device, log_fn):
+    """A started ``torch.profiler.profile``, or None (logged) where the
+    profiler cannot start."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+    # tracing is optional: the step runs whatever the profiler raises
+    except Exception as e:  # noqa: BLE001
+        log_fn(f"profiler unavailable: {e}")
+        return None
+    return prof
+
+
+def _write_trace(prof, device: torch.device, profile_dir: str, step: int,
+                 log_fn) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"trace_step{step}.json"
+    prof.export_chrome_trace(str(path))
+    log_fn(f"profiler trace written to {path}")
+
+
 def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
         train_batches: Iterator, test_batches: Optional[Iterator],
         preprocess_train, preprocess_test,
@@ -215,19 +288,24 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
         compute_dtype: torch.dtype = torch.float32,
         log_fn: Callable[[str], None] = print,
         scalar_logger=None,
-        state: Optional[TrainState] = None) -> TrainState:
+        state: Optional[TrainState] = None,
+        profile_dir: str = "", profile_step: int = 3) -> TrainState:
     """The epoch loop: a loss/p/r line every 10 steps, one validation pass
     per epoch, and SIGINT / SIGTERM stop at a step boundary with the state
     whole.  ``train_batches`` / ``test_batches`` yield ``HostBatch``es;
     the augment draws come from ``generator`` (a CPU generator seeded with
-    ``cfg.rand_seed`` when none is given).  Returns the final state."""
-    device = _device(device)
+    ``cfg.rand_seed`` when none is given).  With ``profile_dir``, the step
+    that makes the run's step count ``profile_step`` runs under
+    ``torch.profiler`` (CUDA activity too on a CUDA device) and its Chrome
+    trace is written there; a profiler that cannot start is logged and the
+    step runs unprofiled.  Returns the final state."""
+    device = checked_device(device)
     if state is None:
         state = create_train_state(net, cfg, device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.rand_seed)
     train_step = make_fused_train_step(spec, cfg, preprocess_train,
-                                       compute_dtype)
+                                       compute_dtype, train_epoch_step)
     eval_step = make_fused_eval_step(spec, cfg, preprocess_test,
                                      compute_dtype)
     n_layers = state.net.n_out_layers
@@ -251,8 +329,16 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
             t0 = time.time()
             logs = {}
             for i in range(train_epoch_step):
-                hb = next(train_batches).to(device)
-                state, logs = train_step(state, *hb, generator)
+                prof = None
+                if profile_dir and state.step + 1 == profile_step:
+                    prof = _start_profiler(device, log_fn)
+                try:
+                    hb = next(train_batches).to(device)
+                    state, logs = train_step(state, *hb, generator)
+                finally:
+                    if prof is not None:
+                        _write_trace(prof, device, profile_dir, state.step,
+                                     log_fn)
                 pending_logs.append((state.step, logs))
                 if i % 10 == 0 or i == train_epoch_step - 1:
                     _flush_scalars(scalar_logger, pending_logs)
@@ -313,7 +399,7 @@ def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
     batch moments in the running statistics exactly, whatever its own m.
     ``batches`` yield ``HostBatch``es; ``preprocess`` is
     ``make_preprocess_fn``'s, drawing its augment from ``generator``."""
-    device = _device(device)
+    device = checked_device(device)
     bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
     ema = {bn: (bn.running_mean.clone(), bn.running_var.clone(), bn.momentum)
            for bn in bns}

@@ -740,3 +740,107 @@ def test_build_rebuilds_when_only_the_header_changes(dev, tmp_path,
     header.write_text(header.read_text() + "\n// edited\n")
     rebuilt, log = _build.build("nms")
     assert rebuilt != first and rebuilt.exists() and "nms_kernel" in log
+
+
+# ---- pruning and the overfit chain -----------------------------------------
+
+def test_pruned_train_step_on_card_matches_cpu(dev):
+    """Two pruned fp32 steps (masks updated after each) on the smooth
+    witness, card against CPU from the same weights: losses and sparsity
+    rtol 1e-4; masks equal, except where the updated weight lies within
+    1e-6 of its kernel's threshold (counted; none expected).  From the same
+    weights ``update_masks`` agrees exactly."""
+    from k210_yolo_framework_tpu_torch.training import pruning as P
+
+    spec = _builder_spec(2, (96, 128), classes=3)
+    cfg = TrainConfig(batch_size=2, is_prune=True, prune_frequency=1,
+                      prune_end_epoch=1)
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.uniform(0, 1, (2, 96, 128, 3)).astype(
+        np.float32))
+    labels = [torch.zeros((2, h, w, 3, 8)) for h, w in spec.out_hws]
+    labels[-1][:, 1, 2, 0, :5] = torch.tensor([0.4, 0.3, 0.2, 0.3, 1.0])
+    labels[-1][:, 1, 2, 0, 6] = 1.0
+    states, logs = [], []
+    for device in ("cpu", dev):
+        net = smooth_witness(build_network(
+            "yolo_mobilev1", spec.in_hw, 3, 3, alpha=0.5,
+            generator=torch.Generator().manual_seed(0)))
+        state = TT.create_train_state(net, cfg, device)
+        step = TT.make_train_step(spec, cfg, train_epoch_step=2)
+        lg = []
+        for _ in range(2):
+            state, out = step(state, images.to(device),
+                              [l.to(device) for l in labels])
+            lg.append({k: float(v) for k, v in out.items()})
+        states.append(state)
+        logs.append(lg)
+    for a, b in zip(*logs):
+        for k in ("loss", "l1_loss", "l2_loss", "sparsity"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-4, err_msg=k)
+    cpu, card = states
+    params = {n: p.detach().cpu() for n, p in cpu.net.named_parameters()}
+    near = 0
+    for n, m in cpu.masks.items():
+        diff = card.masks[n].cpu() != m
+        if diff.any():
+            thr = P._thresholds([torch.sort(
+                params[n].abs().reshape(-1)).values],
+                P.polynomial_sparsity(1, 0.5, 0.9, 0, 2))
+            w = params[n].abs()[diff]
+            assert ((w - thr).abs() <= 1e-6 * thr).all(), n
+            near += int(diff.sum())
+    assert near <= 2
+    same = {n: params[n].to(dev) for n in cpu.masks}
+    got = P.update_masks(same, cpu.masks, 0.7)
+    want = P.update_masks(params, cpu.masks, 0.7)
+    for n in want:
+        assert torch.equal(got[n].cpu(), want[n]), n
+    assert abs(float(P.sparsity_of(got)) - float(P.sparsity_of(want))) == 0
+
+
+def test_overfit_recalibrate_npz_map_on_card(dev, tmp_path):
+    """The JAX package's end-to-end chain (``tests/test_end_to_end.py``) on
+    the card: overfit 6 images for 250 steps, recalibrate the BN
+    statistics, save and load the weights through ``.npz``, and score VOC
+    mAP above the JAX test's pinned floor of 0.8."""
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.eval import evaluate_map
+    from k210_yolo_framework_tpu_torch.training import checkpoint as TC
+
+    n_img, classes = 6, 4
+    ann = PL.synthetic_ann_list(str(tmp_path), n=n_img, class_num=classes,
+                                seed=5)
+    anchors = np.array([[[0.7, 0.6], [0.5, 0.5], [0.4, 0.3]],
+                        [[0.3, 0.3], [0.2, 0.2], [0.15, 0.15]]], np.float32)
+    spec = YoloSpec.create((96, 96), ((3, 3), (6, 6)), classes, anchors)
+    cfg = TrainConfig(batch_size=n_img, obj_thresh=0.7, iou_thresh=0.5,
+                      init_learning_rate=2e-3)
+    net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                        spec.class_num, alpha=0.5)
+    pipe = PL.DataPipeline(ann, n_img, seed=1, use_native=False,
+                           canvas_hw=(512, 512))
+    pp = PL.make_preprocess_fn(spec, is_training=False)
+    state = TT.create_train_state(net, cfg, dev)
+    step = TT.make_train_step(spec, cfg, train_epoch_step=1)
+    with torch.no_grad():
+        images, labels = pp(*next(iter(pipe)).to(dev))
+    losses = []
+    for _ in range(250):
+        state, logs = step(state, images, labels)
+        losses.append(logs["loss"])
+    first, last = float(losses[0]), float(losses[-1])
+    assert last < first * 0.2, f"did not overfit: {first} -> {last}"
+    TT.recalibrate_batch_stats(net, iter(pipe), pp, num_batches=4,
+                               device=dev)
+    TC.save_npz(str(tmp_path / "m.npz"), net)
+    fresh = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                          spec.class_num, alpha=0.5)
+    sd = TC.load_variables(str(tmp_path / "m.npz"), "yolo_mobilev1", fresh)
+    for k, v in net.state_dict().items():
+        assert torch.equal(sd[k], v.cpu()), k
+    pred = Predictor(fresh, sd, spec, obj_thresh=0.1, iou_thresh=0.45,
+                     max_out=20, device=dev)
+    res = evaluate_map(pred, ann, classes, batch_size=n_img)
+    print(f"mAP after overfit + recalibrate on the card: {res['map']:.4f}")
+    assert res["map"] > 0.8, res["map"]

@@ -199,30 +199,37 @@ def _chip_smoke_imports():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the native loader's bindings among them),
-    and every module chip_smoke.py imports, imports in a fresh interpreter
-    in which importing jax, flax or optax fails.  None ends up in
-    sys.modules, and no module of the JAX package
+    """Every module of the port (the native loader's bindings and the
+    command-line entry points among them), and every module chip_smoke.py
+    imports, imports in a fresh interpreter in which importing jax, flax,
+    optax, orbax, h5py or matplotlib fails (the card's machine has no flax
+    and no h5py: the port imports h5py and matplotlib where it uses them).
+    None ends up in sys.modules, and no module of the JAX package
     ``k210_yolo_framework_tpu`` is loaded, not even a numpy-only one."""
     code = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                  "h5py", "matplotlib"):
             raise ImportError(f"the port imported {name}")
         return None
 
 sys.meta_path.insert(0, Block())
 import k210_yolo_framework_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-for mod in ("native", "models.mobilenet_v2", "models.darknet"):
+for mod in ("native", "models.mobilenet_v2", "models.darknet", "port",
+            "anchors.kmeans", "utils.tboard", "utils.console",
+            "training.pruning", "cli.keras_train", "cli.keras_inference",
+            "cli.keras_eval", "cli.make_anchor_list", "cli.make_voc_list"):
     assert f"k210_yolo_framework_tpu_torch.{mod}" in names, names
 for name in names:
     importlib.import_module(name)
 exec(sys.argv[1])   # chip_smoke.py's import statements
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "optax"))
+             if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "h5py",
+                                    "matplotlib"))
 assert not bad, bad
 jax_pkg = sorted(m for m in sys.modules
                  if m.split(".")[0] == "k210_yolo_framework_tpu")
@@ -235,4 +242,4 @@ print(len(names))
                           cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 26
+    assert int(proc.stdout.strip()) >= 45

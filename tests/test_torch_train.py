@@ -468,9 +468,21 @@ def test_fit_and_train_state_refuse_what_is_not_there():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TT.fit(torch_net(), TSPEC, CFG, iter(()), None, None, None, 1, 0,
                device="cuda")
-    with pytest.raises(NotImplementedError, match="pruning"):
-        TT.create_train_state(torch_net(), dataclasses.replace(
-            CFG, is_prune=True), "cpu")
+    # pruning is there: all-ones masks over exactly the prunable
+    # parameters (every conv kernel), the weights left as they were
+    net = torch_net()
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    state = TT.create_train_state(net, dataclasses.replace(
+        CFG, is_prune=True), "cpu")
+    kernels = sorted(n for n, p in net.named_parameters() if p.ndim == 4)
+    assert sorted(state.masks) == kernels and len(kernels) == 32
+    for n, p in net.named_parameters():
+        if n in state.masks:
+            m = state.masks[n]
+            assert m.shape == p.shape and bool((m == 1).all()), n
+    for k, v in net.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert float(state.sparsity) == 0.0
 
 
 def test_trained_state_round_trip_serves_like_jax():
