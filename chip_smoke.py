@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and eval paths, and each of
 its four CUDA kernels on the path that runs it, once on one NVIDIA GPU;
-then the three other builders served and trained (phase 15), and the
-command-line entry points (phase 16).
+then the three other builders served and trained (phase 15), the
+command-line entry points (phase 16), and quantized serving, the export
+and the ``Helper`` facade (phase 17).
 
     python3 chip_smoke.py
 
@@ -119,7 +120,31 @@ Phases (any failure raises and the script exits non-zero):
      ``Predictor.predict_image``'s table row for row; ``cli.keras_eval``
      at its defaults (one head launch a batch) giving ``evaluate_map``'s
      mAP; and the B=128 train step with pruning off, updating the masks
-     and applying them.
+     and applying them;
+ 17. quantized serving: phase 4's net at B=128 bf16 in each of the five
+     modes (none, int8, int8_act, int8_act_sym, int8_act_cal, the last
+     calibrated by ``eval.calibrate_from_rows`` on 32 of phase 8's JPEGs)
+     on the 0.7, mid and dense scenes: one head launch a call, imgs/s,
+     b1 latency, a kernel profile and the bytes of the weights held on
+     the card; on each scene the head kernel against the plain head on
+     the same B=128 logits (``compare_heads``); each int8 product
+     (``torch._int_mm``) of an int8-activation forward at B=8, card
+     against CPU exactly; each mode's detections at B=8 fp32 against the
+     CPU at set level; the match rate of each quantized mode's boxes
+     against the unquantized ones (IoU >= 0.7, score within 0.1; a
+     finding).  tiny_yolo and the darknet53 yolo in int8_act and
+     int8_act_cal at B=32 (the zp-padded SAME 3x3 convs), yolo_mobilev2
+     in int8 and int8_act (124-channel convs: the zero-padded int8
+     product) at B=128, against the plain head.  ``yolo_serving.pt2`` of
+     the bf16 and the int8 Predictor on the 0.7 and the mid scene, saved,
+     loaded and run on the card (in b8 programs) against the live
+     Predictor at set level, with its rate and size.  In process on phase 16's checkpoint:
+     ``cli.keras_freeze`` (its serving program equal to the Predictor's),
+     ``cli.keras_inference --quantize int8_act_cal`` (the table of
+     ``predict_image``) and ``cli.keras_eval --quantize int8 --calib_list``
+     (``evaluate_map``'s mAP).  ``compat.Helper``: one batch of
+     ``set_dataset`` on the card, and ``_process_img(is_training=True)``
+     with a rotation drawn (one rotation launch).
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -1760,12 +1785,15 @@ def masks_card_vs_cpu(device, nets):
                                      "the CPU")
 
 
-def entry_points_phase(device, tag, ann):
+def entry_points_phase(device, tag, ann, keep_dir):
     """Phase 16: make_anchor_list, keras_train (pruned, profiled,
     recalibrated, then resumed), keras_inference and keras_eval, run in
-    this process as a user would run them, against the library calls."""
+    this process as a user would run them, against the library calls.
+    Copies the trained ``yolo_prune_model.npz`` and the anchors into
+    ``keep_dir`` for phase 17 and returns their paths."""
     import os
     import re
+    import shutil
 
     import torch
 
@@ -1922,10 +1950,525 @@ def entry_points_phase(device, tag, ann):
                     not np.isfinite(res["map"]):
                 raise AssertionError("keras_eval's mAP differs from "
                                      "evaluate_map")
+            kept = (shutil.copy(weights, keep_dir),
+                    shutil.copy(f"data/{CLI_SET}_anchor.npy", keep_dir))
         finally:
             os.chdir(here)
     prune_step_times(device, tag, ann)
     print(f"entry points: wall seconds {time.perf_counter() - t_phase:.1f}")
+    return kept
+
+
+# ---- 17. quantized serving, the export, keras_freeze, Helper -----------------
+# the five serving modes: None and the Predictor's quantize modes
+QUANT_MODES = (None, "int8", "int8_act", "int8_act_sym", "int8_act_cal")
+CALIB_ROWS = 32            # phase 8's JPEGs that calibrate int8_act_cal
+EXPORT_BATCH = 8           # the export NMS's [B, C, N, N] IoU at N = 1050
+# tests/test_quantize.py:77-78's bounds of a quantized box against the
+# unquantized one: same class, IoU >= 0.7, score within 0.1
+MATCH_IOU, MATCH_SCORE = 0.7, 0.1
+# card against CPU in the int8-activation modes: an ulp between cuDNN's and
+# the CPU's fp32 convs flips an activation's rounding now and then, one
+# quantum each, which moves the logits by up to ~1% of their largest
+# (tests/test_torch_quantize.py: the port against JAX).  So each int8 conv
+# is held to the CPU bit for bit on the card's own input, and the
+# detections to the CPU within twice the CPU's own spread when every conv
+# weight moves by one ulp (unmatched detections and matched score
+# difference; never tighter than detmatch's defaults)
+SPREAD_ENVELOPE = 2.0
+# (builder, alpha, layers, modes, batch): the zp-padded SAME 3x3 path
+# (tiny_yolo, yolo) and v2 under int8 weights and int8 activations (its
+# 124-channel convs through the zero-padded int8 product)
+QUANT_BUILDERS = (("tiny_yolo", 1.0, 2, ("int8_act", "int8_act_cal"), 32),
+                  ("yolo", 1.0, 3, ("int8_act", "int8_act_cal"), 32),
+                  ("yolo_mobilev2", 0.75, 2, ("int8", "int8_act"), 128))
+
+
+def match_rate(ref, got) -> tuple:
+    """(matched, total): ``ref``'s detections with a detection of ``got``
+    of the same class, IoU >= MATCH_IOU and score within MATCH_SCORE."""
+    from k210_yolo_framework_tpu_torch.utils.detmatch import match_stats
+
+    from k210_yolo_framework_tpu_torch.inference import stack_detections
+
+    un, total, _ = match_stats(stack_detections(ref), stack_detections(got),
+                               MATCH_IOU, MATCH_SCORE)
+    return total - un, total
+
+
+def int8_convs_card_vs_cpu(pred, canvases, hws) -> int:
+    """Run ``pred`` (an int8-activation mode) on the canvases, capturing
+    each int8 conv's input: the conv, and its int8 product
+    (``torch._int_mm``) on the same quantized operands, card against CPU,
+    exactly.  Returns the number of convs checked."""
+    import copy
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.models.layers import Conv
+
+    captured = []
+    real_conv, real_product = Conv.forward_int8, Conv._int8_product
+
+    def capture_conv(self, x, act):
+        y = real_conv(self, x, act)
+        captured.append((self, x, act, y))
+        return y
+
+    def capture_product(self, xq, wq):
+        products.append((self, xq, wq))
+        return real_product(self, xq, wq)
+
+    products = []
+    Conv.forward_int8 = capture_conv
+    Conv._int8_product = capture_product
+    try:
+        pred.predict_batch(canvases, hws)
+    finally:
+        Conv.forward_int8, Conv._int8_product = real_conv, real_product
+    for conv, xq, wq in products:
+        if not torch.equal(real_product(conv, xq, wq).cpu(),
+                           real_product(conv, xq.cpu(), wq.cpu())):
+            raise AssertionError(f"{conv.scope}: _int_mm on the card "
+                                 "differs from the CPU")
+    for conv, x, act, y in captured:
+        cpu = copy.deepcopy(conv).cpu()
+        if not torch.equal(y.cpu(), real_conv(cpu, x.cpu(), act)):
+            raise AssertionError(f"{conv.scope}: the int8 conv on the card "
+                                 "differs from the CPU on the same input")
+    if len(captured) != len(products):
+        raise AssertionError("int8 convs and products do not pair up")
+    return len(products)
+
+
+def nudged_state(net):
+    """``net``'s state with every conv kernel one ulp up."""
+    import torch
+
+    return {k: torch.nextafter(v, torch.full_like(v, float("inf")))
+            if k.endswith(".weight") and v.ndim == 4 else v.clone()
+            for k, v in net.state_dict().items()}
+
+
+def quantized_serving(device, tag, ann, spec, net, canvases, hws, image):
+    """The five modes of phase 4's served net at B=128 bf16 on the three
+    scenes: head launches, rate, latency, profile, weight bytes; the int8
+    products and each mode's detections card against CPU; the match rate
+    against the unquantized Predictor.  Returns the head launches."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.eval import calibrate_from_rows
+    from k210_yolo_framework_tpu_torch.inference import (
+        Predictor,
+        stack_detections,
+    )
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+        match_stats,
+    )
+
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    calib = ann[:CALIB_ROWS]
+    dense = dense_state(net, spec)
+    serve = dict(iou_thresh=IOU, compute_dtype=torch.bfloat16, device=device)
+    scenes = (("sparse", None, 0.7), ("mid", None, MID_THRESH),
+              ("dense", dense, 0.7))
+    results, head_launches = {}, 0
+    for mode in QUANT_MODES:
+        label = mode or "none"
+        preds = {name: Predictor(net, st, spec, obj_thresh=t, quantize=mode,
+                                 **serve) for name, st, t in scenes}
+        if mode == "int8_act_cal":
+            t0 = time.perf_counter()
+            for p in preds.values():
+                calibrate_from_rows(p, calib)
+            print(f"quantized {label}: calibrated on {len(calib)} JPEGs "
+                  f"(512x512 canvases) in {time.perf_counter() - t0:.2f} s "
+                  "for three Predictors")
+        TH.fused_decode_nms.launches = 0
+        served = {name: (p.predict_batch(canvases, hws),
+                         p.predict_image(image)) for name, p in preds.items()}
+        torch.cuda.synchronize()
+        launches = TH.fused_decode_nms.launches
+        head_launches += launches
+        if launches != 2 * len(scenes):
+            raise AssertionError(f"{label}: head kernel launched {launches} "
+                                 "times, expected one per serving call")
+        for name, (dets, one) in served.items():
+            for d in dets + [one]:
+                if not (np.isfinite(d.scores).all()
+                        and (d.scores >= preds[name].obj_thresh).all()
+                        and d.boxes.shape == (len(d.scores), 4)):
+                    raise AssertionError(f"{label} {name}: malformed "
+                                         "detections")
+        if sum(len(d.scores) for d in served["dense"][0]) == 0:
+            raise AssertionError(f"{label}: no dense-scene detections")
+        results[label] = served
+        # the head kernel against its plain version on the same logits
+        # (launches of this check are not counted)
+        held = []
+        for name, p in preds.items():
+            with torch.inference_mode():
+                logits = p._forward_batch(c_dev, h_dev)
+                got = p._head(logits, h_dev)
+            want = TH.fused_decode_nms_reference(logits, spec, h_dev,
+                                                 p.obj_thresh, IOU, p.max_out)
+            err, flip = compare_heads(got, want, p.obj_thresh)
+            held.append(f"{name} {int(got.valid.sum())} kept, max abs err "
+                        f"{err:.3g}, {flip} borderline flips")
+        print(f"quantized {label}: b{BATCH} head kernel vs plain head on "
+              f"the same logits: {'; '.join(held)}")
+
+        pred = preds["sparse"]
+        serve_ms = time_ms(lambda: pred._run_batch(c_dev, h_dev), 10)
+        b1_ms = time_ms(lambda: pred._run_batch(c_dev[:1], h_dev[:1]), 20)
+        n_kernels, dev_ms, by_cat, _ = kernel_profile(
+            lambda: pred._run_batch(c_dev, h_dev), iters=2)
+        elem = by_cat["elementwise/other"]
+        print(f"quantized {label:<12}: serve b{BATCH} bf16 {serve_ms:.3f} "
+              f"ms/batch = {BATCH * 1e3 / serve_ms:.1f} imgs/s; b1 latency "
+              f"{b1_ms:.3f} ms; profile b{BATCH}: {n_kernels:g} kernels/call,"
+              f" device {dev_ms:.3f} ms/call (busy share "
+              f"{dev_ms / serve_ms:.3f}), elementwise/other {elem:.3f} ms "
+              f"({elem / max(dev_ms, 1e-9):.1%}), conv/matmul "
+              f"{by_cat['conv/matmul']:.3f} ms, head kernel "
+              f"{by_cat['head kernel']:.3f} ms; weights on the card "
+              f"{pred.weight_bytes()} bytes {tag}")
+
+        # card against the CPU plain path, fp32 (TF32 off), 8 images
+        part = slice(BATCH // 2 - 4, BATCH // 2 + 4)
+        small = dict(obj_thresh=0.2, iou_thresh=0.45, quantize=mode)
+        act = bool(mode) and mode.startswith("int8_act")
+        runs = [(device, None), ("cpu", None)]
+        if act:
+            runs.append(("cpu", nudged_state(net)))
+        preds_ = [Predictor(net, st, spec, device=d, **small)
+                  for d, st in runs]
+        if mode == "int8_act_cal":
+            for p in preds_:
+                calibrate_from_rows(p, calib)
+        set_tol = {}
+        if act:
+            n = int8_convs_card_vs_cpu(preds_[0], canvases[part], hws[part])
+            print(f"quantized {label}: {n} int8 convs card vs CPU on the "
+                  "card's inputs, and their int8 products (_int_mm), "
+                  "exactly equal")
+        dets = [stack_detections(p.predict_batch(canvases[part], hws[part]))
+                for p in preds_]
+        if act:
+            un = max(match_stats(dets[1], dets[2])[0],
+                     match_stats(dets[2], dets[1])[0])
+            ds = match_stats(dets[1], dets[2])[2]
+            total = max(1, int(dets[1].valid.sum()))
+            set_tol = dict(
+                score_tol=max(1e-3, SPREAD_ENVELOPE * ds),
+                max_flip_frac=max(0.005, SPREAD_ENVELOPE * un / total))
+            print(f"quantized {label}: the CPU's own spread under one-ulp "
+                  f"weights: {un} of {total} detections unmatched, largest "
+                  f"matched score difference {ds:.3g}")
+        un, total, ds = match_stats(dets[0], dets[1])
+        n_a, n_b = assert_detections_close(dets[0], dets[1], **set_tol)
+        print(f"quantized {label}: fp32 card vs CPU (8 images, obj_thresh "
+              f"0.2): {n_a} vs {n_b} detections match ({un} unmatched, "
+              f"largest matched score difference {ds:.3g}; bounds "
+              f"{set_tol or 'detmatch defaults'})")
+
+    for label in QUANT_MODES[1:]:
+        for name in ("mid", "dense"):
+            m, total = match_rate(results["none"][name][0],
+                                  results[label][name][0])
+            print(f"quantized {label:<12} vs bf16, {name} scene: {m}/{total}"
+                  f" boxes matched (IoU >= {MATCH_IOU}, score within "
+                  f"{MATCH_SCORE}) = {m / max(total, 1):.3f}")
+    return head_launches
+
+
+def quantized_builders(device, tag, ann, canvases, hws):
+    """tiny_yolo and the darknet53 yolo in int8_act and int8_act_cal at
+    B=32, yolo_mobilev2 in int8 at B=128: one head launch a call,
+    detections against the plain head on the same logits, rate.  Returns
+    the head launches."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.eval import calibrate_from_rows
+    from k210_yolo_framework_tpu_torch.inference import (
+        Predictor,
+        stack_detections,
+    )
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    total = 0
+    for name, alpha, layers, modes, bsz in QUANT_BUILDERS:
+        spec = builder_spec(layers)
+        net = build_network(name, spec.in_hw, spec.nanchors, spec.class_num,
+                            alpha=alpha,
+                            generator=torch.Generator().manual_seed(0))
+        c_dev = torch.from_numpy(canvases[:bsz]).to(device)
+        h_dev = torch.from_numpy(hws[:bsz]).to(device)
+        for mode in modes:
+            pred = Predictor(net, None, spec, obj_thresh=MID_THRESH,
+                             iou_thresh=IOU, compute_dtype=torch.bfloat16,
+                             quantize=mode, device=device)
+            if mode == "int8_act_cal":
+                calibrate_from_rows(pred, ann[:CALIB_ROWS])
+            TH.fused_decode_nms.launches = 0
+            dets = pred.predict_batch(canvases[:bsz], hws[:bsz])
+            torch.cuda.synchronize()
+            launches = TH.fused_decode_nms.launches
+            total += launches
+            if launches != 1:
+                raise AssertionError(f"{name} {mode}: the head kernel did "
+                                     "not run once")
+            with torch.inference_mode():
+                logits = pred._forward_batch(c_dev, h_dev)
+            want = TH.fused_decode_nms_reference(logits, spec, h_dev,
+                                                 MID_THRESH, IOU, 30)
+            n_a, n_b = assert_detections_close(stack_detections(dets),
+                                               to_np(want))
+            ms = time_ms(lambda: pred._run_batch(c_dev, h_dev), 5)
+            print(f"quantized {name} {mode}: b{bsz} bf16 {ms:.3f} ms/batch "
+                  f"= {bsz * 1e3 / ms:.1f} imgs/s; {n_a} detections (plain "
+                  f"head on its logits {n_b}); weights on the card "
+                  f"{pred.weight_bytes()} bytes {tag}")
+    return total
+
+
+def export_phase(device, tag, spec, net, canvases, hws, tmp):
+    """yolo_serving.pt2 of the bf16 and the int8 Predictor on the 0.7 and
+    the mid scene, saved, loaded and run on the card in batches of
+    EXPORT_BATCH: equal to the live Predictor at set level; rate and file
+    sizes."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.export import export_serving
+    from k210_yolo_framework_tpu_torch.inference import (
+        Predictor,
+        stack_detections,
+    )
+    from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    for mode, thresh in ((None, 0.7), ("int8", 0.7), (None, MID_THRESH),
+                         ("int8", MID_THRESH)):
+        label = f"{mode or 'bf16'} obj_thresh {thresh}"
+        pred = Predictor(net, None, spec, obj_thresh=thresh, iou_thresh=IOU,
+                         compute_dtype=torch.bfloat16, quantize=mode,
+                         device=device)
+        t0 = time.perf_counter()
+        path = Path(tmp) / f"yolo_serving_{mode}_{thresh}.pt2"
+        torch.export.save(export_serving(pred, batch=EXPORT_BATCH,
+                                         canvas_hw=CANVAS_HW), path)
+        program = torch.export.load(path).module()
+        built = time.perf_counter() - t0
+
+        def run():
+            parts = [program(c_dev[i:i + EXPORT_BATCH],
+                             h_dev[i:i + EXPORT_BATCH])
+                     for i in range(0, BATCH, EXPORT_BATCH)]
+            return NmsResult(*(torch.cat(t) for t in zip(*parts)))
+
+        got = run()
+        n_a, n_b = assert_detections_close(
+            to_np(got), stack_detections(pred.predict_batch(canvases, hws)))
+        ms = time_ms(run, 3, warmup=1)
+        print(f"export {label}: yolo_serving.pt2 {path.stat().st_size} "
+              f"bytes, exported and loaded in {built:.1f} s; on the card "
+              f"(b{EXPORT_BATCH} programs over {BATCH} canvases) "
+              f"{BATCH * 1e3 / ms:.1f} imgs/s; {n_a} detections, live "
+              f"Predictor {n_b} {tag}")
+
+
+def quantized_scripts(device, tag, ann, weights, anchors):
+    """keras_freeze, keras_inference --quantize int8_act_cal and keras_eval
+    --quantize int8 --calib_list, in this process in a working directory,
+    each against the library calls it wraps."""
+    import os
+    import re
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch import YoloSpec
+    from k210_yolo_framework_tpu_torch.cli import keras_eval as KE
+    from k210_yolo_framework_tpu_torch.cli import keras_freeze as KF
+    from k210_yolo_framework_tpu_torch.cli import keras_inference as KI
+    from k210_yolo_framework_tpu_torch.data.annotations import read_image
+    from k210_yolo_framework_tpu_torch.data.pipeline import stage_image
+    from k210_yolo_framework_tpu_torch.eval import evaluate_map
+    from k210_yolo_framework_tpu_torch.export import ServingProgram
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.training import checkpoint as CK
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(f"{root}/data")
+        np.save(f"{root}/data/{CLI_SET}_img_ann.npy", ann[:64])
+        np.save(f"{root}/data/calib_img_ann.npy", ann[64:128])
+        np.save(f"{root}/data/{CLI_SET}_anchor.npy", np.load(anchors))
+        os.chdir(root)
+        try:
+            spec = YoloSpec.from_files(f"data/{CLI_SET}_anchor.npy")
+            net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                                spec.class_num, alpha=0.75)
+            sd = CK.load_variables(weights, "yolo_mobilev1", net)
+
+            # ---- keras_freeze -------------------------------------------
+            t0 = time.perf_counter()
+            arts, text = captured(lambda: KF.main(KF.parse_args(
+                [weights] + CLI_NET + ["--out_dir", f"{root}/frz"])))
+            frz_s = time.perf_counter() - t0
+            nodes = [l for l in text.splitlines() if "Node:" in l]
+            if not {"program", "serving", "npz"} <= set(arts) or \
+                    len(nodes) != 3:
+                raise AssertionError(f"keras_freeze: {arts}, {nodes}")
+            # the program takes canvases of the net's input size
+            canvas, hw = stage_image(read_image(str(ann[0][0])), spec.in_hw)
+            c1 = torch.from_numpy(canvas[None]).to(device)
+            h1 = torch.from_numpy(hw[None]).to(device)
+            got = torch.export.load(arts["serving"]).module()(c1, h1)
+            with torch.inference_mode():
+                want = ServingProgram(Predictor(net, sd, spec,
+                                                device=device))(c1, h1)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("keras_freeze's yolo_serving.pt2 "
+                                     "differs from the Predictor's program")
+            sizes = {k: Path(v).stat().st_size for k, v in arts.items()}
+            print(f"quantized scripts: keras_freeze wrote {sizes} (bytes) in "
+                  f"{frz_s:.1f} s; its serving program equals the "
+                  f"Predictor's on the card {tag}")
+
+            # ---- keras_inference --quantize int8_act_cal ---------------
+            image = str(ann[0][0])
+            pixels = read_image(image)
+            probe = Predictor(net, sd, spec, obj_thresh=0.01,
+                              compute_dtype=torch.bfloat16,
+                              quantize="int8_act_cal", device=device)
+            probe.calibrate(pixels[None], np.asarray([pixels.shape[:2]],
+                                                     np.int32))
+            scores = np.sort(probe.predict_image(pixels).scores)
+            thresh = float(scores[-min(10, len(scores))]) * 0.999 \
+                if len(scores) else 0.01
+            TH.fused_decode_nms.launches = 0
+            det, text = captured(lambda: KI.main(KI.parse_args(
+                CLI_NET + ["--bf16", "True", "--quantize", "int8_act_cal",
+                           "--obj_thresh", str(thresh), "--output",
+                           f"{root}/det.png", weights, image])))
+            launches = TH.fused_decode_nms.launches
+            want = Predictor(net, sd, spec, obj_thresh=thresh,
+                             compute_dtype=torch.bfloat16,
+                             quantize="int8_act_cal", device=device)
+            want.calibrate(pixels[None], np.asarray([pixels.shape[:2]],
+                                                    np.int32))
+            want = want.predict_image(pixels)
+            printed = [l for l in text.splitlines()
+                       if re.match(r"^\[-?[\d.]+\t", l)]
+            print(f"quantized scripts: keras_inference --quantize "
+                  f"int8_act_cal (obj_thresh {thresh:.4f}): {len(printed)} "
+                  f"rows, head kernel launches {launches}")
+            if launches != 1 or printed != table_lines(want) or \
+                    not printed or not all(
+                        np.array_equal(a, b) for a, b in zip(det, want)):
+                raise AssertionError("keras_inference --quantize differs "
+                                     "from Predictor.predict_image")
+
+            # ---- keras_eval --quantize int8 --calib_list -----------------
+            TH.fused_decode_nms.launches = 0
+            res, _ = captured(lambda: KE.main(KE.parse_args(
+                [weights] + CLI_NET + ["--quantize", "int8", "--calib_list",
+                                       "data/calib_img_ann.npy"])))
+            launches = TH.fused_decode_nms.launches
+            ref = evaluate_map(Predictor(net, sd, spec, **EVAL,
+                                         compute_dtype=torch.float32,
+                                         quantize="int8", device=device),
+                               ann[:64], spec.class_num,
+                               batch_size=EVAL_BATCH)
+            print(f"quantized scripts: keras_eval --quantize int8 (64 "
+                  f"images, b{EVAL_BATCH} fp32): mAP {res['map']!r}, "
+                  f"evaluate_map {ref['map']!r}; head kernel launches "
+                  f"{launches}; {res['imgs_per_s']:.1f} imgs/s {tag}")
+            if launches != 64 // EVAL_BATCH or res["map"] != ref["map"] or \
+                    not np.isfinite(res["map"]):
+                raise AssertionError("keras_eval --quantize int8's mAP "
+                                     "differs from evaluate_map")
+        finally:
+            os.chdir(here)
+
+
+def helper_phase(device, ann, anchors, tmp) -> int:
+    """compat.Helper on the card: one batch of set_dataset, and
+    _process_img(is_training=True) with a draw that rotates (one rotation
+    launch).  Returns the rotation launches."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.compat import Helper
+    from k210_yolo_framework_tpu_torch.ops import augment as TA
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+
+    np.save(f"{tmp}/helper_ann.npy", ann[:40])
+    h = Helper(f"{tmp}/helper_ann.npy", 20, anchors, (224, 320),
+               np.array([[7, 10], [14, 20]]), validation_split=0.2,
+               device=device)
+    h.set_dataset(batch_size=16, rand_seed=3, is_training=True)
+    imgs, labels = next(h.train_dataset)
+    if imgs.device.type != torch.device(device).type or \
+            imgs.shape != (16, 224, 320, 3) or \
+            labels[0].shape != (16, 7, 10, 3, 25):
+        raise AssertionError(f"Helper.set_dataset: {imgs.shape} on "
+                             f"{imgs.device}")
+    seed = next(s for s in range(100) if int(TA.draw_params(
+        1, (224, 320), "iid", torch.Generator().manual_seed(s)).branch[0])
+        == TA.ROTATE)
+    row = h.train_list[0]
+    TR.rotate_3shear.launches = 0
+    out, boxes = h._process_img(h._read_img(str(row[0])), np.copy(row[1]),
+                                is_training=True,
+                                generator=torch.Generator().manual_seed(seed))
+    launches = TR.rotate_3shear.launches
+    print(f"Helper: set_dataset batch {tuple(imgs.shape)} on "
+          f"{imgs.device}; _process_img(is_training=True) (rotation drawn): "
+          f"rotate kernel launches {launches}, {len(boxes)} boxes, max "
+          f"{out.max():.3f}")
+    if launches != 1 or out.shape != (224, 320, 3) or not np.isfinite(
+            out).all():
+        raise AssertionError("Helper._process_img did not rotate through "
+                             "the kernel")
+    return launches
+
+
+def quantized_phase(device, tag, ann, spec, net, canvases, hws, image,
+                    weights, anchors):
+    """Phase 17.  Returns (head launches, rotation launches) of its main
+    paths."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        head = quantized_serving(device, tag, ann, spec, net, canvases, hws,
+                                 image)
+        print(f"quantized serving: wall seconds "
+              f"{time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        head += quantized_builders(device, tag, ann, canvases, hws)
+        print(f"quantized builders: wall seconds "
+              f"{time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        export_phase(device, tag, spec, net, canvases, hws, tmp)
+        print(f"export: wall seconds {time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        quantized_scripts(device, tag, ann, weights, anchors)
+        print(f"quantized scripts: wall seconds "
+              f"{time.perf_counter() - t0:.1f}")
+        rot = helper_phase(device, ann, anchors, tmp)
+    return head, rot
 
 
 def main() -> int:
@@ -2192,7 +2735,13 @@ def run(device) -> int:
         builders_phase(device, tag, ann, canvases, hws, image)
         print(f"builders: wall seconds {time.perf_counter() - t0:.1f}")
         # ---- 16. the entry points ----------------------------------------
-        entry_points_phase(device, tag, ann)
+        weights, anchors = entry_points_phase(device, tag, ann, tmp)
+        # ---- 17. quantized serving, the export, keras_freeze, Helper ------
+        t0 = time.perf_counter()
+        q_launches, q_rot = quantized_phase(device, tag, ann, spec, net,
+                                            canvases, hws, image, weights,
+                                            anchors)
+        print(f"quantized: wall seconds {time.perf_counter() - t0:.1f}")
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
@@ -2200,7 +2749,7 @@ def run(device) -> int:
         "route": "cuda",
         "source": "k210_yolo_framework_tpu_torch/csrc/yolo_head.cu",
         "replaces": "k210_yolo_framework_tpu/ops/yolo_head_pallas.py:140",
-        "launches": launches,
+        "launches": launches + q_launches,
         "max_abs_err": max(max_err, slice_err),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2214,6 +2763,7 @@ def run(device) -> int:
         "source": "k210_yolo_framework_tpu_torch/csrc/rotate3shear.cu",
         "replaces": "k210_yolo_framework_tpu/ops/rotate_pallas.py:113",
         **rot,
+        "launches": rot["launches"] + q_rot,
     }, {
         "name": "nms_select",
         "route": "cuda",

@@ -23,8 +23,16 @@ held against.  Module names mirror it so each counterpart is easy to find:
                     recalibration, and checkpoints: the weight bridge
                     between the native h5 layout and torch, ``.h5`` /
                     ``.npz`` weights and the resumable train state
-    inference       ``Predictor``: batched and single-image serving
-    eval            VOC-style mAP over an annotation list
+    inference       ``Predictor``: batched and single-image serving, fp32,
+                    bf16 and the quantized modes (int8 weights; int8
+                    conv compute with dynamic or calibrated activation
+                    ranges)
+    quantize        per-channel int8 conv kernels of a state dict
+    export          ``torch.export`` programs of the raw forward and of
+                    the whole serving path, and ``freeze``
+    compat          ``Helper``, the reference's facade
+    eval            VOC-style mAP over an annotation list, and the
+                    calibration rows of the int8_act_cal mode
     anchors         kmeans anchors (1 - IoU), on the CPU
     port            reference Keras ``.h5`` files in and out
     utils           colormap, detection matching, the TensorBoard event
@@ -32,7 +40,7 @@ held against.  Module names mirror it so each counterpart is easy to find:
     cli             the command-line entry points (``python -m
                     k210_yolo_framework_tpu_torch.cli.<name>``):
                     make_voc_list, make_anchor_list, keras_train,
-                    keras_inference, keras_eval
+                    keras_inference, keras_eval, keras_freeze
     csrc            hand-written CUDA C++ kernels (built at first use)
 
 Only ``torch`` and numpy are imported here; nothing of JAX or flax, and

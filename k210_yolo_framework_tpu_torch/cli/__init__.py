@@ -1,6 +1,6 @@
 """Command-line entry points, each run as
 ``python -m k210_yolo_framework_tpu_torch.cli.<name>``, with the flags and
-defaults of the JAX package's root scripts of the same name; the three that
+defaults of the JAX package's root scripts of the same name; the four that
 run a net add ``--device`` (default ``cuda``; ``cpu`` for a machine
 without a card, and a missing card raises):
 
@@ -9,14 +9,13 @@ without a card, and a missing card raises):
     keras_train       train (pruned or not), log, save and resume
     keras_inference   one image -> the detection table and a drawn image
     keras_eval        VOC mAP over data/<set>_img_ann.npy
+    keras_freeze      a checkpoint -> torch.export programs and weights
 
 A flag whose feature the port lacks raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item; it is never ignored.
 """
 
-__all__ = ["str2bool", "refuse_quantize"]
-
-_FALSE = ("false", "none", "", "0", "no")
+__all__ = ["str2bool"]
 
 
 def str2bool(v) -> bool:
@@ -24,11 +23,3 @@ def str2bool(v) -> bool:
     if isinstance(v, bool):
         return v
     return str(v).lower() in ("true", "1", "yes")
-
-
-def refuse_quantize(flag) -> None:
-    """``--quantize`` off ('False', 'none', ...) passes; any mode raises."""
-    if str(flag).lower() not in _FALSE:
-        raise NotImplementedError(
-            f"--quantize {flag!r}: quantized serving is not ported "
-            "(ROADMAP.md, queue 1: quantize)")

@@ -8,7 +8,9 @@ root ``keras_eval.py``, plus ``--device``.
 Scores ``data/<set>_img_ann.npy`` in batches of ``--batch_size`` through
 ``Predictor.predict_batch`` (one fused head launch a batch on a CUDA
 device), prints each class's AP and the mAP, and with ``--coco`` also
-mAP@[.5:.95].
+mAP@[.5:.95].  ``--quantize`` takes the ``Predictor`` modes;
+``int8_act_cal`` calibrates on ``--calib_size`` rows of ``--calib_list``
+(or, without it, on the last rows of the set, held out of the eval).
 """
 
 import argparse
@@ -23,25 +25,23 @@ def main(args) -> dict:
     result with ``imgs_per_s`` (detection only, host staging included)."""
     import torch
 
-    from k210_yolo_framework_tpu_torch.cli import refuse_quantize, str2bool
+    from k210_yolo_framework_tpu_torch.cli import str2bool
     from k210_yolo_framework_tpu_torch.config import YoloSpec
     from k210_yolo_framework_tpu_torch.data.annotations import load_ann_list
     from k210_yolo_framework_tpu_torch.eval import (
+        calibrate_from_rows,
         collect_detections,
         match_detections,
         match_detections_sweep,
+        split_calibration_rows,
     )
     from k210_yolo_framework_tpu_torch.inference import Predictor, VOC_LABELS
     from k210_yolo_framework_tpu_torch.models import build_network
     from k210_yolo_framework_tpu_torch.training import checkpoint as CK
     from k210_yolo_framework_tpu_torch.training.train import checked_device
-    from k210_yolo_framework_tpu_torch.utils import INFO, NOTE
+    from k210_yolo_framework_tpu_torch.utils import INFO, NOTE, quantize_mode
 
-    refuse_quantize(args.quantize)
-    if args.calib_list is not None:
-        raise NotImplementedError(
-            "--calib_list: activation calibration belongs to quantized "
-            "serving, which is not ported (ROADMAP.md, queue 1: quantize)")
+    mode = quantize_mode(args.quantize)
     device = checked_device(args.device)
     spec = YoloSpec.from_files(
         f"data/{args.train_set}_anchor.npy",
@@ -58,8 +58,21 @@ def main(args) -> dict:
                      iou_thresh=args.iou_thresh, max_out=args.max_out,
                      compute_dtype=(torch.bfloat16 if str2bool(args.bf16)
                                     else torch.float32),
-                     device=device)
+                     quantize=mode, device=device)
     ann = load_ann_list(f"data/{args.train_set}_img_ann.npy")
+    if mode == "int8_act_cal":
+        # calibration rows disjoint from the eval rows: calibrating on the
+        # eval set would leak it into the quantization ranges
+        calib = load_ann_list(args.calib_list) if args.calib_list else None
+        ann, calib_rows = split_calibration_rows(ann, calib, args.calib_size)
+        src = args.calib_list or f"last {len(calib_rows)} rows (held out)"
+        print(NOTE, f"int8_act_cal: calibrating on {len(calib_rows)} rows "
+                    f"from {src}")
+        if not args.calib_list:
+            print(NOTE, f"eval set is {len(ann)} rows after the holdout "
+                        "(other quantize modes eval the full list; use "
+                        "--calib_list to keep eval sets identical)")
+        calibrate_from_rows(pred, calib_rows)
     if args.limit:
         ann = ann[:args.limit]
     print(INFO, f"evaluating {len(ann)} rows")
@@ -111,10 +124,13 @@ def parse_args(argv):
     parser.add_argument("--bf16", type=str, default="False",
                         help="bf16 conv compute (default fp32)")
     parser.add_argument("--quantize", type=str, default="False",
-                        help="not ported: any mode other than False raises")
+                        help="True/int8, int8_act, int8_act_sym, "
+                             "int8_act_cal or False")
     parser.add_argument("--limit", type=int, default=0)
     parser.add_argument("--calib_list", type=str, default=None,
-                        help="not ported (quantize): any value raises")
+                        help="int8_act_cal: an ann-list .npy disjoint from "
+                             "the eval set (e.g. the train split); default: "
+                             "hold out the last --calib_size eval rows")
     parser.add_argument("--calib_size", type=int, default=32)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' where there is no card")

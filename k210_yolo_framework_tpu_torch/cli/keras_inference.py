@@ -9,19 +9,23 @@ Loads the weights with ``training.checkpoint.load_variables``, serves the
 image with ``Predictor.predict_image`` (on a CUDA device the fused
 decode+NMS head runs as its CUDA kernel), prints the boxes as the
 ``[top left bottom right score class]`` table and saves the drawn image
-(``--output``, default ``<image>_det.png``).
+(``--output``, default ``<image>_det.png``).  ``--quantize`` takes the
+``Predictor`` modes (``utils.quantize_mode``); ``int8_act_cal`` calibrates
+on the input image itself.
 """
 
 import argparse
 import sys
 from pathlib import Path
 
+import numpy as np
+
 
 def main(args):
     """Serve the image, print and draw the detections, return them."""
     import torch
 
-    from k210_yolo_framework_tpu_torch.cli import refuse_quantize, str2bool
+    from k210_yolo_framework_tpu_torch.cli import str2bool
     from k210_yolo_framework_tpu_torch.config import YoloSpec
     from k210_yolo_framework_tpu_torch.data.annotations import read_image
     from k210_yolo_framework_tpu_torch.inference import (
@@ -31,9 +35,8 @@ def main(args):
     from k210_yolo_framework_tpu_torch.models import build_network
     from k210_yolo_framework_tpu_torch.training import checkpoint as CK
     from k210_yolo_framework_tpu_torch.training.train import checked_device
-    from k210_yolo_framework_tpu_torch.utils import INFO, NOTE
+    from k210_yolo_framework_tpu_torch.utils import INFO, NOTE, quantize_mode
 
-    refuse_quantize(args.quantize)
     device = checked_device(args.device)
     spec = YoloSpec.from_files(
         f"data/{args.train_set}_anchor.npy",
@@ -50,8 +53,12 @@ def main(args):
                      iou_thresh=args.iou_thresh,
                      compute_dtype=(torch.bfloat16 if str2bool(args.bf16)
                                     else None),
-                     device=device)
+                     quantize=quantize_mode(args.quantize), device=device)
     img = read_image(args.test_image)
+    if pred.quantize == "int8_act_cal":
+        # one image: calibrate on the input itself (a one-image
+        # representative set)
+        pred.calibrate(img[None], np.asarray([img.shape[:2]], np.int32))
     det = pred.predict_image(img)
 
     if len(det.classes) > 0:
@@ -89,7 +96,10 @@ def parse_args(argv):
     parser.add_argument("--bf16", type=str, default="False",
                         help="bf16 conv compute (default fp32)")
     parser.add_argument("--quantize", type=str, default="False",
-                        help="not ported: any mode other than False raises")
+                        help="True/int8 (int8 weights), int8_act, "
+                             "int8_act_sym, int8_act_cal (int8 conv "
+                             "compute; _cal calibrates on the image) or "
+                             "False")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' where there is no card")
     parser.add_argument("pre_ckpt", type=str)

@@ -3,8 +3,9 @@
 Counterpart of ``k210_yolo_framework_tpu/eval.py`` (numpy and the host
 loader only): batched inference through a ``Predictor`` over an
 annotation list (rows ``[image_path, boxes[n, 5], (h, w)]``), and the VOC AP
-computation, 11-point interpolated (VOC2007) or all-points (VOC2010+).
-``calibrate_from_rows`` waits for the port's int8 ``Predictor.calibrate``.
+computation, 11-point interpolated (VOC2007) or all-points (VOC2010+);
+and the calibration rows of the ``int8_act_cal`` mode
+(``split_calibration_rows``, ``calibrate_from_rows``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from k210_yolo_framework_tpu_torch.data.pipeline import stage_image
 
 __all__ = ["voc_ap", "DetectionRecord", "match_detections",
            "match_detections_sweep", "collect_detections", "evaluate_map",
-           "split_calibration_rows"]
+           "split_calibration_rows", "calibrate_from_rows"]
 
 
 def voc_ap(recall: np.ndarray, precision: np.ndarray,
@@ -226,3 +227,13 @@ def split_calibration_rows(ann_list: np.ndarray,
             f"{len(ann_list)}-row eval list; pass a separate calibration "
             "list (e.g. the train split) or lower calib_size")
     return ann_list[:-calib_size], ann_list[-calib_size:]
+
+
+def calibrate_from_rows(predictor, rows: np.ndarray,
+                        canvas_hw: Tuple[int, int] = (512, 512)) -> None:
+    """Stage ``rows`` (ann-list format) as serving does and record the
+    activation ranges of an ``int8_act_cal`` predictor from them (one
+    unquantized forward over the representative set)."""
+    staged = [stage_image(read_image(str(r[0])), canvas_hw) for r in rows]
+    canvases, hws = zip(*staged)
+    predictor.calibrate(np.stack(canvases), np.stack(hws))

@@ -10,24 +10,36 @@ the system's main serving path:
   3. decode + per-class greedy NMS in one fused head
      (``ops/yolo_head_pallas.fused_decode_nms``: the CUDA kernel for CUDA
      tensors, its plain version for CPU tensors).
+
+``quantize`` selects the JAX package's quantized modes: ``'int8'`` serves
+from per-channel int8 conv kernels held on the device as int8 plus fp32
+scales and dequantized inside each call; ``'int8_act'``,
+``'int8_act_sym'`` and ``'int8_act_cal'`` run the dense convs int8 x int8
+-> int32 (``models.layers.Int8Act``: dynamic affine, dynamic symmetric and
+calibrated static activation ranges; :meth:`Predictor.calibrate`).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Mapping, NamedTuple, Optional, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from k210_yolo_framework_tpu_torch.config import YoloSpec
+from k210_yolo_framework_tpu_torch.models.layers import Conv, Int8Act, name_convs
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
 from k210_yolo_framework_tpu_torch.ops import letterbox as LB
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
 from k210_yolo_framework_tpu_torch.ops.yolo_head_pallas import fused_decode_nms
+from k210_yolo_framework_tpu_torch.quantize import QTensor, quantize_state
 
-__all__ = ["Detections", "Predictor", "VOC_LABELS", "draw_detections",
+__all__ = ["Detections", "Predictor", "QUANTIZE_MODES", "VOC_LABELS",
+           "draw_detections", "folded_logits", "net_call",
            "stack_detections"]
+
+QUANTIZE_MODES = (None, "int8", "int8_act", "int8_act_sym", "int8_act_cal")
 
 # 20-class VOC label table
 VOC_LABELS = [
@@ -65,6 +77,29 @@ def stack_detections(dets: List[Detections]) -> NmsResult:
     return NmsResult(boxes, scores, classes, valid)
 
 
+def net_call(net: YoloNet, weights: Mapping[str, torch.Tensor],
+             imgs: torch.Tensor, **kwargs) -> List[torch.Tensor]:
+    """``net(imgs, **kwargs)``, with ``weights`` (by parameter name) in
+    place of the net's own where given: the int8 mode's dequantized
+    kernels."""
+    if not weights:
+        return net(imgs, **kwargs)
+    return torch.func.functional_call(net, dict(weights), (imgs,), kwargs,
+                                      strict=False)
+
+
+def folded_logits(net: YoloNet, weights: Mapping[str, torch.Tensor],
+                  imgs_u8: torch.Tensor, dtype) -> List[torch.Tensor]:
+    """Letterboxed uint8 [B, h, w, 3] -> per-layer fp32 head logits, each
+    image's 1/max folded in after the stem conv (``dtype``: the net's
+    compute dtype or an ``Int8Act``)."""
+    inv_scale = 1.0 / torch.clamp_min(
+        torch.amax(imgs_u8, dim=(1, 2, 3)).to(torch.float32), 1e-12)
+    preds = net_call(net, weights, imgs_u8, input_scale=inv_scale,
+                     dtype=dtype)
+    return [p.to(torch.float32) for p in preds]
+
+
 class Predictor:
     """Holds a net on ``device`` and serves predictions.
 
@@ -72,31 +107,139 @@ class Predictor:
     ``training.checkpoint.load_h5``), or None to serve the net's own
     weights.  The net is copied, so the caller's module is left as it was.
     ``compute_dtype`` (default fp32) is the dtype of the letterbox products
-    and of every conv; BN, activations and the head stay fp32.  ``device``
-    is required: a CUDA device that is not there raises, and nothing falls
-    back to the CPU."""
+    and of every conv; BN, activations and the head stay fp32.  It may be
+    an ``Int8Act``, which implies its quantize mode (a conflicting
+    ``quantize`` raises).  ``quantize`` is one of ``QUANTIZE_MODES`` (see
+    the module docstring).  ``device`` is required: a CUDA device that is
+    not there raises, and nothing falls back to the CPU."""
 
     def __init__(self, net: YoloNet, state: Optional[Mapping[str, torch.Tensor]],
                  spec: YoloSpec, obj_thresh: float = 0.7,
                  iou_thresh: float = 0.3, class_softmax: bool = False,
-                 max_out: int = 30, compute_dtype: Optional[torch.dtype] = None,
-                 *, device):
+                 max_out: int = 30, compute_dtype=None,
+                 quantize: Optional[str] = None, *, device):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Predictor(device={str(device)!r}): no CUDA "
                                "device is available")
+        compute_dtype = compute_dtype or torch.float32
+        if isinstance(compute_dtype, Int8Act):
+            # the sentinel is a quantize request; its affine / static bits
+            # win (the mode strings cannot say symmetric and calibrated)
+            act = compute_dtype
+            implied = "int8_act_cal" if act.static else (
+                "int8_act" if act.affine else "int8_act_sym")
+            if quantize is None:
+                quantize = implied
+            elif quantize != implied:
+                raise ValueError(
+                    f"conflicting quantize modes: compute_dtype={act!r} "
+                    f"implies {implied!r} but quantize={quantize!r}")
+            compute_dtype = act.out_dtype
+            self.int8_act = Int8Act(compute_dtype, affine=act.affine,
+                                    static=act.static)
+        elif quantize in ("int8_act", "int8_act_sym", "int8_act_cal"):
+            self.int8_act = Int8Act(compute_dtype,
+                                    affine=quantize != "int8_act_sym",
+                                    static=quantize == "int8_act_cal")
+        else:
+            self.int8_act = None
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        self.quantize = quantize
         net = copy.deepcopy(net)
         if state is not None:
             net.load_state_dict(state)
         net.eval().requires_grad_(False)
-        self.net = net.to(device, memory_format=torch.channels_last)
+        self.net = name_convs(net.to(device,
+                                     memory_format=torch.channels_last))
+        self.qweights: Dict[str, QTensor] = {}
+        if quantize == "int8":
+            self._hold_int8()
+        elif self.int8_act is not None:
+            # the int8 convs' quantized kernels, made once: the weights
+            # are frozen
+            for conv in self.net.modules():
+                if isinstance(conv, Conv) and conv.int8_capable:
+                    conv.hold_int8_weight()
         self.spec = spec
         self.obj_thresh = obj_thresh
         self.iou_thresh = iou_thresh
         self.class_softmax = class_softmax
         self.max_out = max_out
-        self.compute_dtype = compute_dtype or torch.float32
+        self.compute_dtype = compute_dtype
         self.device = device
+        self._cal_checked = False   # see _require_calibrated
+
+    @property
+    def module_dtype(self):
+        """What the net's forward takes as ``dtype``."""
+        return self.int8_act or self.compute_dtype
+
+    def _hold_int8(self) -> None:
+        """Quantize the conv kernels and keep only their int8 form and
+        scales on the device: each fp32 kernel leaves the net, and
+        :meth:`_materialize` supplies it to each call."""
+        params = dict(self.net.named_parameters())
+        for name, v in quantize_state(params).items():
+            if isinstance(v, QTensor):
+                self.qweights[name] = QTensor(
+                    v.q.contiguous(memory_format=torch.channels_last), v.scale)
+                mod_name, leaf = name.rsplit(".", 1)
+                del self.net.get_submodule(mod_name)._parameters[leaf]
+
+    def _materialize(self) -> Dict[str, torch.Tensor]:
+        """The int8 kernels dequantized (``q.float() * scale``), by name;
+        empty in the other modes."""
+        return {k: v.q.to(torch.float32) * v.scale
+                for k, v in self.qweights.items()}
+
+    def weight_bytes(self) -> int:
+        """Bytes of the weights and statistics this Predictor holds on its
+        device (int8 kernels and their scales in the int8 mode)."""
+        held = list(self.net.parameters()) + list(self.net.buffers())
+        held += [t for v in self.qweights.values() for t in v]
+        return sum(t.numel() * t.element_size() for t in held)
+
+    def calibrate(self, canvases: np.ndarray,
+                  img_hws: np.ndarray) -> "Predictor":
+        """Record each int8 conv's activation range for
+        ``quantize='int8_act_cal'`` from a representative batch: the
+        canvases are letterboxed and normalised by their max as in
+        training, and go through an unquantized recording forward; ranges
+        widen over calls.  The next serve checks them again.  Returns
+        self."""
+        if self.quantize != "int8_act_cal":
+            raise ValueError(
+                "calibrate() only applies to quantize='int8_act_cal'")
+        act = Int8Act(self.compute_dtype, affine=self.int8_act.affine,
+                      static=True, calibrate=True)
+        c = torch.from_numpy(np.ascontiguousarray(canvases)).to(self.device)
+        h = torch.as_tensor(np.asarray(img_hws), dtype=torch.int32).to(
+            self.device)
+        with torch.no_grad():
+            imgs = LB.letterbox_image(c, h, self.spec.in_hw,
+                                      self.compute_dtype)
+            imgs = LB.normalize_images(imgs).to(self.compute_dtype)
+            net_call(self.net, self._materialize(), imgs, dtype=act)
+        self._cal_checked = False
+        return self
+
+    def _require_calibrated(self) -> None:
+        """In the ``int8_act_cal`` mode, raise unless some conv holds a
+        nonzero range: zero ranges (never calibrated) would saturate every
+        activation."""
+        if self.quantize != "int8_act_cal" or self._cal_checked:
+            return
+        for conv in self.net.modules():   # the int8 convs hold ranges
+            if hasattr(conv, "act_min") and bool(
+                    (conv.act_min != 0) | (conv.act_max != 0)):
+                self._cal_checked = True
+                return
+        raise RuntimeError(
+            "quantize='int8_act_cal' serves from calibrated activation "
+            "ranges: call calibrate(canvases, img_hws) with a "
+            "representative batch first")
 
     def _head(self, preds: List[torch.Tensor],
               img_hws: torch.Tensor) -> NmsResult:
@@ -107,11 +250,8 @@ class Predictor:
     def _forward(self, imgs_u8: torch.Tensor) -> List[torch.Tensor]:
         """Letterboxed uint8 [B, h, w, 3] -> per-layer fp32 head logits
         [B, h, w, a, 5 + C], with each image's 1/max folded into the stem."""
-        inv_scale = 1.0 / torch.clamp_min(
-            torch.amax(imgs_u8, dim=(1, 2, 3)).to(torch.float32), 1e-12)
-        preds = self.net(imgs_u8, input_scale=inv_scale,
-                         dtype=self.compute_dtype)
-        return [p.to(torch.float32) for p in preds]
+        return folded_logits(self.net, self._materialize(), imgs_u8,
+                             self.module_dtype)
 
     # ---- single image -----------------------------------------------------
 
@@ -124,6 +264,7 @@ class Predictor:
 
     def predict_image(self, img: np.ndarray) -> Detections:
         """img: [h, w, 3] uint8 original image."""
+        self._require_calibrated()
         img_t = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
         hw = torch.tensor(img.shape[:2], dtype=torch.int32, device=self.device)
         res = self._run_single(img_t, hw)
@@ -149,6 +290,7 @@ class Predictor:
     def predict_batch(self, canvases: np.ndarray,
                       img_hws: np.ndarray) -> List[Detections]:
         """canvases [B, H, W, 3] uint8; img_hws [B, 2] true (h, w) sizes."""
+        self._require_calibrated()
         c = torch.from_numpy(np.ascontiguousarray(canvases)).to(self.device)
         h = torch.as_tensor(np.asarray(img_hws), dtype=torch.int32).to(
             self.device)

@@ -18,6 +18,12 @@ relies on; with gradients on they are out of place, as autograd needs.
 Parameter names follow the flax scopes (``conv.weight`` for ``conv/kernel``,
 ``bn.weight`` for ``bn/scale``), so ``training/checkpoint.py`` maps a native
 checkpoint mechanically.
+
+``dtype`` may also be the :class:`Int8Act` sentinel (the JAX package's
+serving-only int8-activation modes): then every bias-free dense conv but
+the stem computes int8 x int8 -> int32 (``Conv.forward_int8``), and the
+stem, the depthwise convs and the biased head convs stay in the sentinel's
+``out_dtype``.
 """
 
 from __future__ import annotations
@@ -29,13 +35,61 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN",
-           "darknet_head_conv", "leaky_relu", "max_pool_same", "relu",
-           "relu6", "smooth_max_pool_same", "smooth_witness", "upsample2x"]
+__all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN", "Int8Act",
+           "darknet_head_conv", "leaky_relu", "max_pool_same", "name_convs",
+           "exact_div", "relu", "relu6", "smooth_max_pool_same",
+           "smooth_witness", "split_dtype", "upsample2x"]
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
 _BN_EPS = 1e-3  # keras BatchNormalization's default, as the reference uses
+
+
+class Int8Act:
+    """Compute-dtype sentinel of the JAX package's ``Int8Act``: the dense
+    convs run int8 x int8 -> int32 and are rescaled into ``out_dtype``.
+    Weights quantize per output channel inside each call; activations per
+    tensor, with a zero point (``affine``, default) or one abs-max scale
+    (``affine=False``), from the tensor itself or, with ``static``, from
+    each conv's calibrated ``act_min`` / ``act_max`` buffers.  With
+    ``calibrate`` (and ``static``) a conv records its input's range into
+    those buffers, widening them, and returns the unquantized fp32 conv.
+    Pass it wherever a builder takes ``dtype``; serving only."""
+
+    def __init__(self, out_dtype: torch.dtype = torch.bfloat16,
+                 affine: bool = True, static: bool = False,
+                 calibrate: bool = False):
+        self.out_dtype = out_dtype
+        self.affine = affine
+        self.static = static
+        self.calibrate = calibrate
+
+    def _key(self):
+        return (self.out_dtype, self.affine, self.static, self.calibrate)
+
+    def __hash__(self):
+        return hash((Int8Act,) + self._key())
+
+    def __eq__(self, other):
+        return isinstance(other, Int8Act) and self._key() == other._key()
+
+    def __repr__(self):
+        return (f"Int8Act({self.out_dtype}, affine={self.affine}, "
+                f"static={self.static}, calibrate={self.calibrate})")
+
+
+def exact_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device: CUDA divides by a host
+    scalar as a product with its reciprocal (an ulp off, as XLA under
+    jit), but by a device tensor exactly."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def split_dtype(dtype):
+    """(the float dtype of the wide paths, the Int8Act sentinel or None)."""
+    if isinstance(dtype, Int8Act):
+        return dtype.out_dtype, dtype
+    return dtype, None
 
 
 class _LeakyReLU(torch.autograd.Function):
@@ -167,7 +221,14 @@ class Conv(nn.Module):
     """A 2-D convolution holding ``weight`` [O, I/groups, kh, kw] and an
     optional ``bias``; it runs in the ``dtype`` it is called with.  The
     weights are left uninitialised: ``models.yolonet.init_weights`` or a
-    loaded state dict fills them."""
+    loaded state dict fills them.
+
+    A bias-free dense conv of more than 4 input channels also runs int8
+    (:meth:`forward_int8`).  Its calibrated activation range, the JAX
+    package's ``act_ranges`` collection (``act_ranges/<scope>/min`` and
+    ``max``), lives in the buffers ``act_min`` / ``act_max``: not part of
+    the state dict, made at zero by the first static call
+    (``training.checkpoint.load_act_ranges`` brings JAX's across)."""
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1),
@@ -180,17 +241,143 @@ class Conv(nn.Module):
         self.strides = tuple(strides)
         self.pads = tuple(tuple(p) for p in pads)
         self.groups = groups
+        # the JAX dispatch: the stem (cin <= 4), depthwise and biased convs
+        # stay wide under Int8Act
+        self.int8_capable = groups == 1 and not use_bias and cin > 4
+        self.scope = "conv"     # the module path, for error messages
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def _conv2d(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
         (top, bottom), (left, right) = self.pads
         if top == bottom and left == right:
             padding = (top, left)
         else:
             x = F.pad(x, (left, right, top, bottom))
             padding = (0, 0)
+        return F.conv2d(x, weight, bias, self.strides, padding, 1,
+                        self.groups)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(dtype)
-        return F.conv2d(x.to(dtype), self.weight.to(dtype), bias,
-                        self.strides, padding, 1, self.groups)
+        return self._conv2d(x.to(dtype), self.weight.to(dtype), bias)
+
+    def act_ranges(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(act_min, act_max), made at zero on ``device`` if absent."""
+        if not hasattr(self, "act_min"):
+            with torch.inference_mode(False):
+                for name in ("act_min", "act_max"):
+                    self.register_buffer(
+                        name, torch.zeros((), device=device), persistent=False)
+        return self.act_min, self.act_max
+
+    def forward_int8(self, x: torch.Tensor, act: Int8Act) -> torch.Tensor:
+        """The JAX ``_Int8Conv`` on an NCHW tensor: per-channel weight
+        scale ``sw``, per-tensor activation scale ``sx`` (affine: the zero
+        point ``zp`` maps the range's min to -127), the int32 product of
+        the quantized tensors, the exact correction ``- zp * sum(kq)`` and
+        the fp32 rescale by ``sx * sw``; NHWC inside, an NCHW view out.
+        Every padded position reads ``zp`` (0 when symmetric), as JAX's
+        zp padding and its zero-padded stride-2 input give."""
+        if not self.int8_capable:
+            raise ValueError(f"{self.scope}: no int8 path for a biased, "
+                             "depthwise or <= 4-channel conv")
+        xf = x.to(torch.float32)
+        if act.static:
+            rmin, rmax = self.act_ranges(x.device)
+            if act.calibrate:
+                # ranges of the float net's activations, widening; the
+                # calibration forward itself runs unquantized
+                rmin.copy_(torch.minimum(rmin, torch.amin(xf)))
+                rmax.copy_(torch.maximum(rmax, torch.amax(xf)))
+                return self._conv2d(xf, self.weight.to(torch.float32),
+                                    None).to(act.out_dtype)
+            xmin = torch.clamp_max(rmin, 0.0)
+            xmax = torch.clamp_min(rmax, 0.0)
+        elif act.affine:
+            xmin = torch.clamp_max(torch.amin(xf), 0.0)
+            xmax = torch.clamp_min(torch.amax(xf), 0.0)
+        else:
+            amax = torch.amax(xf.abs())
+            xmin, xmax = -amax, amax
+        (top, bottom), (left, right) = self.pads
+        # a padded 0 quantizes to exactly zp (affine) or 0 (symmetric)
+        xf = F.pad(xf, (left, right, top, bottom))
+        if act.affine:
+            sx = exact_div(torch.clamp_min(xmax - xmin, 1e-6), 254.0)
+            zp = torch.clamp(-127.0 - torch.round(xmin / sx), -127.0, 127.0)
+            xq = torch.clamp(torch.round(xf / sx) + zp, -127.0, 127.0)
+        else:
+            sx = exact_div(torch.clamp_min(torch.maximum(-xmin, xmax), 1e-6),
+                           127.0)
+            xq = torch.clamp(torch.round(xf / sx), -127, 127)
+        wq, sw, wsum = self.int8_weight()
+        y = self._int8_product(xq.to(torch.int8), wq)      # [B, Ho, Wo, O]
+        if act.affine:
+            y = y - zp.to(torch.int32) * wsum
+        y = (y.to(torch.float32) * (sx * sw)).to(act.out_dtype)
+        return y.permute(0, 3, 1, 2)
+
+    def int8_weight(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The quantized kernel of :meth:`forward_int8`: (``wq`` [n8, k8]
+        int8, row o the kernel of output channel o in (kh, kw, cin) order,
+        zero padded to multiples of 8; ``sw`` [O] fp32; ``sum(kq)`` [O]
+        int32).  The copy :meth:`hold_int8_weight` keeps, else made from
+        ``weight`` on each call."""
+        if hasattr(self, "int8_wq"):
+            return self.int8_wq, self.int8_sw, self.int8_wsum
+        kf = self.weight.to(torch.float32)
+        sw = exact_div(torch.clamp_min(torch.amax(kf.abs(), dim=(1, 2, 3)),
+                                       1e-12), 127.0)
+        kq = torch.clamp(torch.round(kf / sw[:, None, None, None]),
+                         -127, 127).to(torch.int8)
+        cout, k = kq.shape[0], kq[0].numel()
+        wq = F.pad(kq.permute(0, 2, 3, 1).reshape(cout, k),
+                   (0, -k % 8, 0, -cout % 8))
+        return wq, sw, kq.to(torch.int32).sum(dim=(1, 2, 3))
+
+    def hold_int8_weight(self) -> None:
+        """Keep :meth:`int8_weight` as buffers, for a net whose weights no
+        longer change (a Predictor's): each call then skips quantizing the
+        kernel."""
+        for name, t in zip(("int8_wq", "int8_sw", "int8_wsum"),
+                           self.int8_weight()):
+            self.register_buffer(name, t, persistent=False)
+
+    def _int8_product(self, xq: torch.Tensor, wq: torch.Tensor
+                      ) -> torch.Tensor:
+        """Padded int8 NCHW input and :meth:`int8_weight`'s ``wq`` -> the
+        VALID conv's int32 [B, Ho, Wo, O]: one ``torch._int_mm`` over an
+        im2col built from the kh * kw shifted slices (``F.unfold`` has no
+        int8), columns in (kh, kw, cin) order.  ``_int_mm`` on a CUDA
+        tensor (cuBLASLt) takes more than 16 rows and k, n multiples of 8:
+        the columns are zero padded to ``wq``'s k, the rows to 17 where
+        fewer, and the result cut back; zeros leave an integer product
+        exactly as it was."""
+        cout, cin, kh, kw = self.weight.shape
+        sh, sw = self.strides
+        x = xq.permute(0, 2, 3, 1)                          # NHWC
+        b, hp, wp, _ = x.shape
+        ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+        if (kh, kw, sh, sw) == (1, 1, 1, 1):
+            cols = x.reshape(b * ho * wo, cin)
+        else:
+            cols = torch.stack([x[:, i:i + sh * (ho - 1) + 1:sh,
+                                  j:j + sw * (wo - 1) + 1:sw]
+                                for i in range(kh) for j in range(kw)], 3)
+            cols = cols.reshape(b * ho * wo, kh * kw * cin)
+        m, k = cols.shape
+        if m <= 16 or k != wq.shape[1]:
+            cols = F.pad(cols, (0, wq.shape[1] - k, 0, max(17 - m, 0)))
+        y = torch._int_mm(cols.contiguous(), wq.t())
+        return y[:m, :cout].reshape(b, ho, wo, cout)
+
+
+def name_convs(net: nn.Module) -> nn.Module:
+    """Set each :class:`Conv`'s ``scope`` to its module path."""
+    for name, mod in net.named_modules():
+        if isinstance(mod, Conv):
+            mod.scope = name
+    return net
 
 
 class BatchNorm(nn.Module):
@@ -263,7 +450,17 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
                 post_conv_scale: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        x = self.conv(x, dtype)
+        dtype, int8_act = split_dtype(dtype)
+        if int8_act is not None and self.training:
+            # round() has no gradient: the conv stack would not train
+            raise NotImplementedError(
+                "Int8Act is a serving-only compute mode; build the training "
+                "net with a float dtype (train with bf16/fp32, serve with "
+                "quantize='int8_act')")
+        if int8_act is not None and self.conv.int8_capable:
+            x = self.conv.forward_int8(x, int8_act)
+        else:
+            x = self.conv(x, dtype)
         if post_conv_scale is not None:
             # per-image scalar folded in after the conv: conv(x * s) ==
             # conv(x) * s, so raw 0..255 pixels can go in and the
@@ -305,4 +502,6 @@ class darknet_head_conv(nn.Module):  # noqa: N801 (the JAX package's name)
 
     def forward(self, x: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return self.dark_conv_out(x, dtype)
+        # under Int8Act the head conv stays wide: its output is the decode
+        # surface
+        return self.dark_conv_out(x, split_dtype(dtype)[0])

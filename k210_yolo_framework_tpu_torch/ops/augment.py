@@ -2,7 +2,8 @@
 
 Counterpart of ``k210_yolo_framework_tpu/ops/augment.py``
 (``_translate_bilinear``, ``_flip_params`` / ``_rot_params`` /
-``_tr_params``, ``_affine_boxes``, ``augment_batch``).  The reference's
+``_tr_params``, ``_affine_boxes``, ``augment_batch``,
+``augment_image_and_boxes``).  The reference's
 imgaug pipeline: one branch per image, Fliplr(0.5), Affine(rotate U(-10,
 10) degrees) or Affine(translate_percent U(-0.1, 0.1) per axis); the boxes
 ride the same affine (corners moved, re-boxed, clipped, and marked invalid
@@ -37,7 +38,8 @@ from k210_yolo_framework_tpu_torch.ops.rotate_pallas import (
 )
 
 __all__ = ["MAX_ROT_DEG", "MAX_TRANSLATE", "AugmentParams", "draw_params",
-           "augment_batch", "translate_bilinear", "affine_boxes"]
+           "augment_batch", "augment_image_and_boxes", "translate_bilinear",
+           "affine_boxes"]
 
 MAX_TRANSLATE = 0.1    # reference: Affine(translate_percent=+-0.1)
 FLIP, ROTATE, TRANSLATE = 0, 1, 2
@@ -216,3 +218,17 @@ def augment_batch(imgs: torch.Tensor, boxes: torch.Tensor,
                                 valid.index_select(0, perm),
                                 mats.reshape(b, 3, 3), (h, w))
     return out, boxes, valid
+
+
+def augment_image_and_boxes(img: torch.Tensor, boxes: torch.Tensor,
+                            valid: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            params: Optional[AugmentParams] = None):
+    """One image [H, W, C], its boxes [N, 5] and valid [N] -> the augmented
+    (img, boxes, valid): :func:`augment_batch` on a batch of one (a branch
+    drawn for the image; a CUDA image's rotation is the rotation
+    kernel)."""
+    out, boxes, valid = augment_batch(img[None], boxes[None], valid[None],
+                                      generator=generator, params=params,
+                                      mode="iid")
+    return out[0], boxes[0], valid[0]

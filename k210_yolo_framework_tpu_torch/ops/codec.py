@@ -150,6 +150,9 @@ def _grid_consts_on(spec: YoloSpec, layer: int, device: torch.device,
 
 
 def _grid_consts(layer: int, spec: YoloSpec, like: torch.Tensor):
+    if torch.compiler.is_compiling():   # keep the tracer's tensors out
+        return _grid_consts_on.__wrapped__(spec, layer, like.device,
+                                           like.dtype)
     return _grid_consts_on(spec, layer, like.device, like.dtype)
 
 

@@ -21,10 +21,19 @@ __all__ = ["letterbox_params", "weight_mat", "letterbox_image",
 
 
 @functools.lru_cache(maxsize=16)
+def _cached_const(values: Tuple[float, ...],
+                  device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _const(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
     """A small fp32 constant on ``device``, copied there once: a fresh
-    host-to-device copy on every call would wait for the device's queue."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
+    host-to-device copy on every call would wait for the device's queue.
+    Under ``torch.export`` (or ``torch.compile``) it is made afresh: the
+    tracer's tensors must not reach the cache."""
+    if torch.compiler.is_compiling():
+        return _cached_const.__wrapped__(values, device)
+    return _cached_const(values, device)
 
 
 def letterbox_params(img_hws: torch.Tensor, in_hw: Tuple[int, int]):

@@ -9,7 +9,9 @@ program's NMS and the JAX tests' oracle for the NMS kernel.  Per class:
      only suppress lower-ranked boxes;
   3. greedy selection as a fixed point over the whole batch:
      ``keep <- valid & ~(keep @ edge)`` until nothing changes, which is the
-     sequential greedy answer after (longest suppression chain) sweeps;
+     sequential greedy answer after (longest suppression chain) sweeps
+     (eagerly a Python loop; while ``torch.export`` traces, the same sweep
+     as a ``while_loop``, as JAX's ``lax.while_loop``);
   4. kept boxes compacted into ``max_out`` slots in score order.
 
 ``finish_winners`` turns the winner buffers of the greedy-loop NMS (the
@@ -26,7 +28,7 @@ import torch
 from k210_yolo_framework_tpu_torch.ops.codec import top_k_first
 
 __all__ = ["NmsResult", "batched_nms", "finish_winners", "greedy_keep_sorted",
-           "per_class_nms"]
+           "greedy_keep_sorted_traced", "per_class_nms"]
 
 
 class NmsResult(NamedTuple):
@@ -53,22 +55,54 @@ def _iou_matrix_yxyx(boxes: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, zero)
 
 
+def _edges(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """[..., K, K] fp32: 1 where j < i and IoU(j, i) > iou_thresh."""
+    k = boxes.shape[-2]
+    tri = torch.triu(torch.ones((k, k), dtype=torch.bool,
+                                device=boxes.device), 1)  # j suppresses i > j
+    return ((_iou_matrix_yxyx(boxes) > iou_thresh) & tri).to(torch.float32)
+
+
+def _sweep(keep: torch.Tensor, valid: torch.Tensor,
+           edge: torch.Tensor) -> torch.Tensor:
+    # suppressed[i] = any kept j < i that overlaps i; 0/1 sums are exact
+    hits = torch.einsum("...j,...ji->...i", keep.to(torch.float32), edge)
+    return valid & (hits == 0.0)
+
+
 def greedy_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor,
                        iou_thresh: float) -> torch.Tensor:
     """Exact greedy-NMS keep mask for score-descending candidates:
     boxes [..., K, 4], valid [..., K] -> keep [..., K] bool."""
-    k = boxes.shape[-2]
-    tri = torch.triu(torch.ones((k, k), dtype=torch.bool,
-                                device=boxes.device), 1)  # j suppresses i > j
-    edge = ((_iou_matrix_yxyx(boxes) > iou_thresh) & tri).to(torch.float32)
+    edge = _edges(boxes, iou_thresh)
     keep = valid
     while True:
-        # suppressed[i] = any kept j < i that overlaps i; 0/1 sums are exact
-        hits = torch.einsum("...j,...ji->...i", keep.to(torch.float32), edge)
-        new = valid & (hits == 0.0)
+        new = _sweep(keep, valid, edge)
         if torch.equal(new, keep):
             return keep
         keep = new
+
+
+def greedy_keep_sorted_traced(boxes: torch.Tensor, valid: torch.Tensor,
+                              iou_thresh: float) -> torch.Tensor:
+    """:func:`greedy_keep_sorted` as a ``while_loop`` over (keep, changed),
+    which ``torch.export`` captures (eagerly it compiles the loop first:
+    seconds).  ``cond`` returns a copy: an output aliasing a carried input
+    is refused."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    edge = _edges(boxes, iou_thresh)
+
+    def cond(keep, changed):
+        return changed.clone()
+
+    def body(keep, changed):
+        new = _sweep(keep, valid, edge)
+        return new, torch.any(new != keep)
+
+    keep, _ = while_loop(cond, body, (valid.clone(), torch.ones(
+        (), dtype=torch.bool, device=valid.device)))
+    return keep
 
 
 def _compact(kept: torch.Tensor, boxes: torch.Tensor, scores: torch.Tensor,
@@ -98,7 +132,10 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     """boxes [B, N, 4] yxyx, scores [B, N, C] -> NmsResult [B, C * max_out].
 
     Exact for any input with at most ``top_k`` candidates per class above
-    ``score_thresh``; the export program passes ``top_k = N``."""
+    ``score_thresh``; the export program passes ``top_k = N``.  While
+    ``torch.export`` traces, the greedy loop is
+    :func:`greedy_keep_sorted_traced` (an eager ``while_loop`` compiles
+    itself on every call)."""
     bsz, n, class_num = scores.shape
     k = min(top_k, n)
     top_scores, top_idx = top_k_first(scores.transpose(1, 2), k)  # [B, C, K]
@@ -106,7 +143,9 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
         boxes[:, None].expand(bsz, class_num, n, 4), 2,
         top_idx[..., None].expand(bsz, class_num, k, 4))
     valid = top_scores >= score_thresh
-    kept = greedy_keep_sorted(top_boxes, valid, iou_thresh)
+    greedy = (greedy_keep_sorted_traced if torch.compiler.is_compiling()
+              else greedy_keep_sorted)
+    kept = greedy(top_boxes, valid, iou_thresh)
     b, s, v = _compact(kept, top_boxes, top_scores, max_out)
     classes = torch.arange(class_num, dtype=torch.int32, device=scores.device)
     classes = classes[None, :, None].expand(bsz, class_num, max_out)

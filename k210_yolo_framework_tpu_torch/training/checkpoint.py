@@ -22,6 +22,12 @@ port's modules are named after the flax scopes, so the map is mechanical:
 
 A depthwise kernel ``[kh, kw, 1, C]`` becomes ``[C, 1, kh, kw]`` by the same
 permutation.  ``flat`` dicts hold numpy arrays keyed by the full path.
+
+The calibrated activation ranges of the int8-activation modes (JAX's
+``act_ranges`` collection) are buffers outside the state dict and cross by
+:func:`load_act_ranges` / :func:`act_ranges_flat`:
+
+    act_ranges/<a>/conv/min  <->  <a>.conv.act_min   (and max)
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 from torch import nn
 
 __all__ = ["native_key", "state_dict_from_flat", "flat_from_state_dict",
-           "load_h5", "load_npz", "save_h5", "save_npz", "save_state",
+           "load_act_ranges", "act_ranges_flat", "load_h5", "load_npz", "save_h5", "save_npz", "save_state",
            "restore_state", "load_variables", "write_args_txt"]
 
 STATE_FILE = "train_state.pt"
@@ -116,6 +122,35 @@ def flat_from_state_dict(sd: Mapping[str, torch.Tensor]
         if key.endswith("/kernel"):
             t = t.permute(*_OIHW_TO_HWIO)
         flat[key] = t.contiguous().numpy()
+    return flat
+
+
+def load_act_ranges(net: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+    """Set each conv's ``act_min`` / ``act_max`` from ``act_ranges/...``
+    entries of ``flat`` (other groups are ignored); a path that is not an
+    int8-capable conv of ``net`` raises ``KeyError``."""
+    convs = dict(net.named_modules())
+    for key, value in flat.items():
+        group, *scope, leaf = key.split("/")
+        if group != "act_ranges":
+            continue
+        conv = convs.get(".".join(scope))
+        if leaf not in ("min", "max") or not getattr(conv, "int8_capable",
+                                                     False):
+            raise KeyError(f"{key}: no int8 conv of the net holds it")
+        buf = conv.act_ranges(conv.weight.device)[leaf == "max"]
+        with torch.no_grad():
+            buf.copy_(torch.from_numpy(np.array(value, np.float32)))
+
+
+def act_ranges_flat(net: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`load_act_ranges`: every conv holding ranges."""
+    flat = {}
+    for name, mod in net.named_modules():
+        if hasattr(mod, "act_min"):
+            path = "/".join(["act_ranges", *name.split(".")])
+            flat[f"{path}/min"] = mod.act_min.detach().cpu().numpy()
+            flat[f"{path}/max"] = mod.act_max.detach().cpu().numpy()
     return flat
 
 

@@ -307,19 +307,126 @@ def test_keras_eval_map_matches_jax(exact, monkeypatch, capsys):
     assert abs(got_map - want_map) <= 0.02, (got_map, want_map)
 
 
-def test_inference_and_eval_refuse_what_is_not_ported(exact, monkeypatch):
+def _served(exact, quantize, **kw):
+    """The Predictor the scripts build for the CLI net, from ``w.h5``."""
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+
+    spec = TConfig.YoloSpec.from_files(str(exact / "data" / "s_anchor.npy"),
+                                       in_hw=(96, 96), out_hws=((3, 3), (6, 6)),
+                                       class_num=4)
+    net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors, 4,
+                        alpha=0.5)
+    state = TC.load_variables(str(exact / "w.h5"), "yolo_mobilev1", net)
+    return Predictor(net, state, spec, quantize=quantize, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_act", "int8_act_cal"])
+def test_inference_and_eval_quantized(exact, monkeypatch, capsys, mode):
+    """--quantize through both scripts: keras_inference's detections are
+    predict_image's of the same Predictor (int8_act_cal calibrated on the
+    image itself), keras_eval's mAP is evaluate_map's (int8_act_cal holding
+    the last --calib_size rows out of the eval for calibration)."""
+    from k210_yolo_framework_tpu_torch.data.annotations import (
+        load_ann_list,
+        read_image,
+    )
+    from k210_yolo_framework_tpu_torch.eval import (
+        calibrate_from_rows,
+        evaluate_map,
+    )
+
     monkeypatch.chdir(exact)
     img = str(exact / "data" / "img_0.png")
-    for flag in ("int8", "True", "int8_act"):
-        with pytest.raises(NotImplementedError, match="quantize"):
-            TKI.main(TKI.parse_args(NET + ["--device", "cpu", "--quantize",
-                                           flag, str(exact / "w.h5"), img]))
-        with pytest.raises(NotImplementedError, match="quantize"):
-            TKE.main(TKE.parse_args([str(exact / "w.h5")] + NET + [
-                "--device", "cpu", "--quantize", flag]))
-    with pytest.raises(NotImplementedError, match="calib"):
+    det = TKI.main(TKI.parse_args(NET + [
+        "--device", "cpu", "--quantize", mode, "--obj_thresh", "0.3",
+        "--output", str(exact / "q.png"), str(exact / "w.h5"), img]))
+    pixels = read_image(img)
+    pred = _served(exact, mode, obj_thresh=0.3)
+    assert pred.quantize == mode
+    if mode == "int8_act_cal":
+        pred.calibrate(pixels[None], np.asarray([pixels.shape[:2]], np.int32))
+    want = pred.predict_image(pixels)
+    assert len(det.scores) > 0
+    for a, b in zip(det, want):
+        np.testing.assert_array_equal(a, b)
+    assert len(_table(capsys.readouterr().out).scores) == len(det.scores)
+
+    res = TKE.main(TKE.parse_args([str(exact / "w.h5")] + NET + [
+        "--device", "cpu", "--batch_size", "4", "--quantize", mode,
+        "--calib_size", "2"]))
+    out = capsys.readouterr().out
+    ann = load_ann_list("data/s_img_ann.npy")
+    pred = _served(exact, mode, obj_thresh=0.01, iou_thresh=0.45,
+                   max_out=100)
+    if mode == "int8_act_cal":
+        assert "calibrating on 2 rows" in out and "6 rows after" in out
+        calibrate_from_rows(pred, ann[-2:])
+        ann = ann[:-2]
+    ref = evaluate_map(pred, ann, 4, batch_size=4)
+    assert np.isfinite(res["map"]) and res["map"] == ref["map"]
+
+
+def test_eval_calib_list(exact, synth, monkeypatch, capsys):
+    """--calib_list: calibration on its first --calib_size rows, the eval
+    set whole; a list sharing an image with the eval set raises."""
+    from k210_yolo_framework_tpu_torch.data.annotations import load_ann_list
+    from k210_yolo_framework_tpu_torch.eval import (
+        calibrate_from_rows,
+        evaluate_map,
+    )
+
+    monkeypatch.chdir(exact)
+    calib = str(synth / "data" / "s_img_ann.npy")
+    res = TKE.main(TKE.parse_args([str(exact / "w.h5")] + NET + [
+        "--device", "cpu", "--batch_size", "4", "--quantize", "int8_act_cal",
+        "--calib_list", calib, "--calib_size", "3"]))
+    out = capsys.readouterr().out
+    assert f"calibrating on 3 rows from {calib}" in out
+    assert "evaluating 8 rows" in out
+    pred = _served(exact, "int8_act_cal", obj_thresh=0.01, iou_thresh=0.45,
+                   max_out=100)
+    calibrate_from_rows(pred, load_ann_list(calib)[:3])
+    ref = evaluate_map(pred, load_ann_list("data/s_img_ann.npy"), 4,
+                       batch_size=4)
+    assert res["map"] == ref["map"]
+    with pytest.raises(ValueError, match="also appear in the eval"):
         TKE.main(TKE.parse_args([str(exact / "w.h5")] + NET + [
-            "--device", "cpu", "--calib_list", "data/s_img_ann.npy"]))
+            "--device", "cpu", "--quantize", "int8_act_cal", "--calib_list",
+            "data/s_img_ann.npy", "--calib_size", "2"]))
+    with pytest.raises(ValueError, match="unknown --quantize"):
+        TKE.main(TKE.parse_args([str(exact / "w.h5")] + NET + [
+            "--device", "cpu", "--quantize", "int8act"]))
+
+
+def test_keras_freeze_writes_the_artifacts(exact, monkeypatch, capsys):
+    """keras_freeze on the JAX-written weights: the artifacts, the node
+    lines of the JAX script, and a serving program equal to the eager one
+    of the Predictor it wraps."""
+    from k210_yolo_framework_tpu_torch.cli import keras_freeze as TKF
+    from k210_yolo_framework_tpu_torch.export import ServingProgram
+
+    monkeypatch.chdir(exact)
+    arts = TKF.main(TKF.parse_args([str(exact / "w.h5")] + NET + [
+        "--device", "cpu", "--out_dir", str(exact / "frz")]))
+    out = capsys.readouterr().out
+    assert sorted(arts) == ["h5", "npz", "program", "reference_h5",
+                            "serving"]
+    assert all(Path(v).is_file() for v in arts.values())
+    assert "Model Inputs Node:  image:0 (1, 96, 96, 3) float32" in out
+    assert "Model Outputs Node: l1/raw:0 (1, 3, 3, 27) float32" in out
+    assert "Model Outputs Node: l2/raw:0 (1, 6, 6, 27) float32" in out
+    assert "skipping the .tflite artifact" in out
+    pred = _served(exact, None)
+    rng = np.random.default_rng(5)
+    canvas = torch.from_numpy(rng.integers(0, 256, (1, 96, 96, 3)).astype(
+        np.uint8))
+    hw = torch.tensor([[96, 80]], dtype=torch.int32)
+    got = torch.export.load(arts["serving"]).module()(canvas, hw)
+    for a, b in zip(got, ServingProgram(pred)(canvas, hw)):
+        assert torch.equal(a, b)
+    sd = TC.load_npz(arts["npz"], pred.net)
+    assert all(torch.equal(sd[k], v.cpu()) for k, v in
+               pred.net.state_dict().items())
 
 
 # ---- make_voc_list / make_anchor_list ---------------------------------

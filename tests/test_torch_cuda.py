@@ -20,6 +20,7 @@ at other places than its plain version: fp32 rtol/atol 2e-5, bf16 0.05
 (``tests/test_dwsep_pallas.py``'s tolerances).
 """
 
+import copy
 import shutil
 
 import numpy as np
@@ -844,3 +845,178 @@ def test_overfit_recalibrate_npz_map_on_card(dev, tmp_path):
     res = evaluate_map(pred, ann, classes, batch_size=n_img)
     print(f"mAP after overfit + recalibrate on the card: {res['map']:.4f}")
     assert res["map"] > 0.8, res["map"]
+
+
+# ---- quantized serving and the exported program ----------------------------
+
+def _int8_scene(bsz=4):
+    rng = np.random.default_rng(6)
+    canvases = rng.integers(0, 256, (bsz, 240, 320, 3)).astype(np.uint8)
+    hws = np.tile(np.array([[240, 320], [200, 300], [240, 100], [120, 320]],
+                           np.int32), (bsz // 4, 1))
+    return canvases, hws
+
+
+@pytest.mark.parametrize("m,k,n", [(70, 768, 192), (8960, 384, 384),
+                                   (1120, 4608, 128)])
+def test_int_mm_card_equals_cpu(dev, m, k, n):
+    """The int8 product of the int8 conv (cuBLASLt IMMA on the card) is
+    exact int32, as on the CPU, at the served shapes."""
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).t()
+    want = torch._int_mm(a, b)
+    got = torch._int_mm(a.to(dev), b.to(dev)).cpu()
+    assert torch.equal(got, want)
+    assert torch.equal(want, (a.long() @ b.long()).int())
+
+
+@pytest.mark.parametrize("cin,cout,hw,kernel", [
+    (12, 16, (4, 4), (1, 1)),     # 16 rows
+    (12, 20, (5, 5), (1, 1)),     # k and n not multiples of 8
+    (124, 124, (3, 4), (1, 1)),   # yolo_mobilev2's widths, 12 rows
+    (16, 24, (5, 7), (3, 3)),     # a shape _int_mm takes as it is
+    (20, 12, (3, 3), (3, 3))])
+def test_int8_conv_pads_shapes_int_mm_cannot_take(dev, cin, cout, hw,
+                                                  kernel):
+    """A shape that torch._int_mm on CUDA refuses (16 rows or fewer, k or
+    n not a multiple of 8) is zero padded: the card's int8 conv equals the
+    CPU's bit for bit (the same IEEE quantize arithmetic, an exact int32
+    product)."""
+    from k210_yolo_framework_tpu_torch.models.layers import Conv, Int8Act
+
+    pads = tuple(((k - 1) // 2, k // 2) for k in kernel)
+    conv = Conv(cin, cout, kernel, pads=pads)
+    torch.nn.init.normal_(conv.weight)
+    x = torch.rand(1, cin, *hw) - 0.2
+    for act in (Int8Act(torch.float32), Int8Act(torch.float32, False)):
+        want = conv.forward_int8(x, act)
+        got = copy.deepcopy(conv).to(dev).forward_int8(x.to(dev), act)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_v2_int8_act_on_card_matches_cpu(dev):
+    """yolo_mobilev2 alpha 0.75 serves int8_act on the card: its
+    124-channel convs go through the zero-padded product, each int8 conv
+    equals the CPU's bit for bit on the card's input, and the head kernel
+    runs once a call."""
+    from k210_yolo_framework_tpu_torch.models.layers import Conv
+
+    spec = voc_spec()
+    net = build_network("yolo_mobilev2", spec.in_hw, 3, 20, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    canvases, hws = _int8_scene()
+    convs = []
+    real = Conv.forward_int8
+
+    def capture(self, x, act):
+        y = real(self, x, act)
+        convs.append((self, x, act, y))
+        return y
+
+    pred = Predictor(net, None, spec, obj_thresh=0.2, quantize="int8_act",
+                     device=dev)
+    before = TH.fused_decode_nms.launches
+    Conv.forward_int8 = capture
+    try:
+        dets = pred.predict_batch(canvases, hws)
+    finally:
+        Conv.forward_int8 = real
+    assert TH.fused_decode_nms.launches == before + 1
+    assert all(np.isfinite(d.scores).all() for d in dets)
+    assert any(conv.weight.shape[0] % 8 for conv, *_ in convs)
+    for conv, x, act, y in convs:
+        want = real(copy.deepcopy(conv).cpu(), x.cpu(), act)
+        assert torch.equal(y.cpu(), want), conv.scope
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_act", "int8_act_sym",
+                                  "int8_act_cal"])
+def test_quantized_predictor_on_card_matches_cpu(dev, mode):
+    """yolo_mobilev1 alpha 0.75 (every dense conv's k and n multiples of
+    8), B=4 fp32, TF32 off, one head launch a call.  int8: the kernels are
+    int8 on the card and the detections are the CPU's at set level.  The
+    int8-activation modes: an ulp between cuDNN's and the CPU's fp32 convs
+    flips an activation rounding now and then (one quantum each), which
+    the later layers carry; so each int8 conv is held to the CPU bit for
+    bit on the input the card's forward gave it."""
+    from k210_yolo_framework_tpu_torch.inference import stack_detections
+    from k210_yolo_framework_tpu_torch.models.layers import Conv
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    spec = voc_spec()
+    net = build_network("yolo_mobilev1", spec.in_hw, 3, 20, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    canvases, hws = _int8_scene()
+    dets, convs = [], []
+    real = Conv.forward_int8
+
+    def capture(self, x, act):
+        y = real(self, x, act)
+        if x.is_cuda:
+            convs.append((self, x, act, y))
+        return y
+
+    for device in ("cpu", dev):
+        pred = Predictor(net, None, spec, obj_thresh=0.2, quantize=mode,
+                         device=device)
+        if mode == "int8_act_cal":
+            pred.calibrate(canvases, hws)
+        before = TH.fused_decode_nms.launches
+        Conv.forward_int8 = capture
+        try:
+            dets.append(stack_detections(pred.predict_batch(canvases, hws)))
+        finally:
+            Conv.forward_int8 = real
+        if device != "cpu":
+            assert TH.fused_decode_nms.launches == before + 1
+    if mode == "int8":
+        assert all(v.q.is_cuda and v.q.dtype == torch.int8
+                   for v in pred.qweights.values())
+        n_cpu, _ = assert_detections_close(dets[1], dets[0])
+        assert n_cpu > 0 and not convs
+        return
+    assert len(convs) == 16
+    for conv, x, act, y in convs:
+        want = real(copy.deepcopy(conv).cpu(), x.cpu(), act)
+        assert torch.equal(y.cpu(), want), conv.scope
+
+
+def test_exported_serving_program_on_card(dev, tmp_path):
+    """export_serving of a bf16 and an int8 card Predictor: saved, loaded
+    and run on the card, each equals its eager program there and the live
+    Predictor at set level (the program runs the live forward; its NMS is
+    the plain one, which phase 11 of chip_smoke.py holds to the kernel)."""
+    from k210_yolo_framework_tpu_torch.export import (
+        ServingProgram,
+        export_serving,
+    )
+    from k210_yolo_framework_tpu_torch.inference import stack_detections
+    from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    spec = voc_spec()
+    net = build_network("yolo_mobilev1", spec.in_hw, 3, 20, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    canvases, hws = _int8_scene()
+    c = torch.from_numpy(canvases).to(dev)
+    h = torch.from_numpy(hws).to(dev)
+    for mode, dtype in ((None, torch.bfloat16), ("int8", torch.bfloat16)):
+        pred = Predictor(net, None, spec, obj_thresh=0.2, quantize=mode,
+                         compute_dtype=dtype, device=dev)
+        path = tmp_path / f"{mode}.pt2"
+        torch.export.save(export_serving(pred, batch=4,
+                                         canvas_hw=(240, 320)), path)
+        got = torch.export.load(path).module()(c, h)
+        with torch.inference_mode():
+            want = ServingProgram(pred)(c, h)
+        for a, b in zip(got, want):
+            assert a.is_cuda and torch.equal(a, b)
+        live = stack_detections(pred.predict_batch(canvases, hws))
+        n, _ = assert_detections_close(
+            NmsResult(*(t.cpu().numpy() for t in got)), live)
+        assert n > 0
