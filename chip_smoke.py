@@ -2,8 +2,10 @@
 """Drive the PyTorch port's serving, training and eval paths, and each of
 its four CUDA kernels on the path that runs it, once on one NVIDIA GPU;
 then the three other builders served and trained (phase 15), the
-command-line entry points (phase 16), and quantized serving, the export
-and the ``Helper`` facade (phase 17).
+command-line entry points (phase 16), quantized serving, the export and
+the ``Helper`` facade (phase 17), and the darknet53 yolo at 608x608 with
+the greedy kernels' global path, the stem modes and data-parallel serving
+(phase 18).
 
     python3 chip_smoke.py
 
@@ -105,8 +107,9 @@ Phases (any failure raises and the script exits non-zero):
      fp32 step at B=2, 96x128, card against CPU as in phase 8.  Last, the
      head kernel on the served yolo's own logits at B=128 (0.7 and dense)
      and at the eval settings (B=32, 0.01, max_out 100) against its plain
-     version and bound, and the in_hw at which each builder's N no longer
-     fits the kernel.  Each part prints its wall seconds;
+     version and bound, and the layout each builder's rows take at three
+     input sizes (shared, own or global; none refused).  Each part prints
+     its wall seconds;
  16. the entry points, run in this process on phase 8's JPEGs in a working
      directory laid out as they expect: ``cli.make_anchor_list``, then
      ``cli.keras_train`` (yolo_mobilev1 alpha 0.75, b64 bf16, augment on,
@@ -144,7 +147,32 @@ Phases (any failure raises and the script exits non-zero):
      ``predict_image``) and ``cli.keras_eval --quantize int8 --calib_list``
      (``evaluate_map``'s mAP).  ``compat.Helper``: one batch of
      ``set_dataset`` on the card, and ``_process_img(is_training=True)``
-     with a rotation drawn (one rotation launch).
+     with a rotation drawn (one rotation launch);
+ 18. the darknet53 yolo at YOLOv3's 608x608 (N=22,743, past what a block's
+     shared memory holds: the head and NMS kernels' rows in global
+     scratch), seeded: served in bf16 at B=8 through ``predict_batch`` and
+     ``predict_image`` in the 0.7, mid and dense scenes (the head on its
+     global path once per call, against the plain head on the same
+     logits), its rate, fp32 card against the port on the CPU at B=2 as
+     sets; the head kernel and the two-stage NMS kernel on each scene's
+     logits against their plain versions (NMS bit for bit) with times,
+     bounds and scratch bytes, and both at N=72,828 (1088x1088, B=1, past
+     16-bit indices); ``cli.keras_inference`` and one ``cli.keras_eval``
+     batch at ``--image_size 608 608 --output_size 19 19 38 38 76 76``.
+     The stem modes: yolo_mobilev1 (alpha 0.75) in ``default``,
+     ``patches`` and ``nativeconv`` and yolo_mobilev2 in ``default`` and
+     ``patches``, at B=128 bf16 on the mid scene: each mode's input
+     against ``unfold`` of the default letterbox's canvas, its detections
+     against the default's as sets, one head launch a call, imgs/s, b1
+     latency and a kernel profile; then yolo_mobilev1 under
+     ``int8_act_cal`` in ``default`` and ``nativeconv``, calibrated (the
+     3-channel stem int8 with its own range in ``nativeconv``): the head
+     kernel against the plain head on its logits, imgs/s, and each int8
+     conv, the stem among them, with its int8 product card against CPU
+     exactly.  Data-parallel serving:
+     ``make_sharded_runner(make_mesh())`` over a world-size-1 NCCL group at
+     B=128, bit for bit against ``_run_batch``, and its rate (one GPU: no
+     multi-GPU number).
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -152,7 +180,8 @@ and its operations over the card's peak rate for their type (``bound``).
 Greedy NMS counts only the candidates each step has to test.
 
 The next-to-last line is one JSON object describing each kernel (``ms``
-by CUDA events; the head, the rotation and NMS also carry ``device_ms``);
+by CUDA events; the head, the rotation and NMS also carry ``device_ms``;
+the head and NMS also their launches and times on the global path);
 the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
 script imports only the port, which imports nothing of the JAX package.
@@ -928,10 +957,14 @@ def time_head(name, s, preds, hws_, thresh, max_out, iou, device, tag,
         preds, s, hws_, thresh, iou, max_out), kern_iters)
     call_p = time_ms(lambda: TH.fused_decode_nms_reference(
         preds, s, hws_, thresh, iou, max_out), plain_iters)
-    rows = TH._rows(device, bsz, n, s.class_num)
-    blocks = TH._blocks_per_sm(device, n, rows)
+    layout, rows = TH._plan(device, bsz, n, s.class_num)
+    blocks = TH._blocks_per_sm(device, n, rows, layout)
+    where = (scratch_line(TH._kernel_lib().yolo_head_scratch_bytes, bsz, n,
+                          s.class_num, rows)
+             if layout == "global" else "shared memory")
     print(f"head b{bsz} {name:<6} (N={n}, thresh {thresh}, iou {iou}, "
-          f"max_out {max_out}, G={rows}, {blocks} blocks an SM): kernel "
+          f"max_out {max_out}, {layout} layout, G={rows}, {blocks} blocks "
+          f"an SM, {where}): kernel "
           f"{k1:.4f}/{k2:.4f} ms a launch by events, {dev_k:.4f} ms with "
           f"launches queued; plain "
           f"{p1:.4f}/{p2:.4f} ms; whole call {call_k:.4f} ms, plain "
@@ -1300,9 +1333,10 @@ def new_kernel_times(scenes, scene_preds, spec, h_dev, dw_inputs, pred, tag):
         b_ms, by = nms_bound(*scores.shape[:2], spec.class_num, 30, live)
         nms[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                          device_ms=dev_k)
-        rows = TN._rows(boxes.device, *scores.shape)
+        layout, rows = TN._plan(boxes.device, *scores.shape)
         print(f"nms b{BATCH} {name:<6} (N={boxes.shape[1]}, obj_thresh "
-              f"{p.obj_thresh}, G={rows}, {greedy_passes(res)} greedy steps, "
+              f"{p.obj_thresh}, {layout} layout, G={rows}, "
+              f"{greedy_passes(res)} greedy steps, "
               f"{live} live candidate tests, {per_test(dev_k, live)}): kernel "
               f"{k1:.4f}/{k2:.4f} ms a launch by events, {dev_k:.4f} ms with "
               f"launches queued; plain {p1:.4f}/{p2:.4f} ms, bound "
@@ -1570,23 +1604,27 @@ def builder_train(name, alpha, spec, device, ann, tag):
 
 
 def candidate_limits(device, tag):
-    """The most candidates the head kernel takes on this card, and for
-    each builder the in_hw (multiples of 32) at which N stops fitting."""
+    """The most candidates a block's shared memory holds on this card, and
+    for each builder the layout its rows take (shared / own / global) at
+    B=128 at three input sizes, and the first square in_hw (multiples of
+    32) on the global path.  No size is refused."""
     from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.ops.nms_pallas import own_capacity
 
-    limit = TH._max_candidates(device)
-    print(f"head kernel: at most {limit} candidates a launch on this card "
-          f"{tag}")
+    limit = own_capacity(TH._kernel_lib().yolo_head_smem_bytes,
+                         TH._smem_limit(device))
+    print(f"head kernel: at most {limit} candidates in a block's shared "
+          f"memory on this card, more on the global path {tag}")
     for name, _, layers in BUILDERS:
         per_px = 3 * sum(4 ** i for i in range(layers)) / 1024
         side = next(k for k in range(32, 4096, 32)
                     if per_px * k * k > limit)
         shapes = ", ".join(
             f"{h}x{w}: N={int(per_px * h * w)} "
-            f"{'fits' if per_px * h * w <= limit else 'refused'}"
+            f"{TH._plan(device, BATCH, int(per_px * h * w), 20)[0]}"
             for h, w in ((224, 320), (416, 416), (608, 608)))
-        print(f"{name}: {shapes}; the first square in_hw refused is "
-              f"{side}x{side}")
+        print(f"{name}: {shapes}; the first square in_hw on the global "
+              f"path is {side}x{side}")
 
 
 def builders_phase(device, tag, ann, canvases, hws, image):
@@ -1996,11 +2034,11 @@ def match_rate(ref, got) -> tuple:
     return total - un, total
 
 
-def int8_convs_card_vs_cpu(pred, canvases, hws) -> int:
+def int8_convs_card_vs_cpu(pred, canvases, hws) -> list:
     """Run ``pred`` (an int8-activation mode) on the canvases, capturing
     each int8 conv's input: the conv, and its int8 product
     (``torch._int_mm``) on the same quantized operands, card against CPU,
-    exactly.  Returns the number of convs checked."""
+    exactly.  Returns the scopes of the convs checked."""
     import copy
 
     import torch
@@ -2038,7 +2076,7 @@ def int8_convs_card_vs_cpu(pred, canvases, hws) -> int:
                                  "differs from the CPU on the same input")
     if len(captured) != len(products):
         raise AssertionError("int8 convs and products do not pair up")
-    return len(products)
+    return [conv.scope for conv, _, _ in products]
 
 
 def nudged_state(net):
@@ -2151,7 +2189,8 @@ def quantized_serving(device, tag, ann, spec, net, canvases, hws, image):
                 calibrate_from_rows(p, calib)
         set_tol = {}
         if act:
-            n = int8_convs_card_vs_cpu(preds_[0], canvases[part], hws[part])
+            n = len(int8_convs_card_vs_cpu(preds_[0], canvases[part],
+                                           hws[part]))
             print(f"quantized {label}: {n} int8 convs card vs CPU on the "
                   "card's inputs, and their int8 products (_int_mm), "
                   "exactly equal")
@@ -2471,6 +2510,586 @@ def quantized_phase(device, tag, ann, spec, net, canvases, hws, image,
     return head, rot
 
 
+# ---- 18. any candidate count, the stem modes, data-parallel serving ---------
+# the darknet53 yolo at YOLOv3's own 608x608 (N = 22,743: the rows go to the
+# greedy kernels' global path) and at 1088x1088 (N = 72,828, past 16-bit
+# candidate indices)
+BIG_SIDE, HUGE_SIDE = 608, 1088
+BIG_BATCH = 8
+BIG_CPU_BATCH = 2          # fp32, card against the port on the CPU
+# bf16 detections of two programs that round alike but sum in another
+# order (the patches stem's product against cuDNN's conv): matched scores
+# within 4e-3, at most 2 flips per 100 (tests/test_torch_predictor.py)
+BF16_SET_TOL = dict(score_tol=4e-3, max_flip_frac=0.02)
+# a stem input against the default letterbox: at most one level, in at
+# most PIXEL_SHARE of the values (the preprocess tolerance above)
+STEM_LEVELS = 1
+# (builder, alpha, stem modes) of the stem phase, each at B=128 bf16
+STEM_BUILDERS = (("yolo_mobilev1", 0.75, ("default", "patches",
+                                          "nativeconv")),
+                 ("yolo_mobilev2", 0.75, ("default", "patches")))
+
+
+def counts():
+    """(head launches, head global, NMS launches, NMS global)."""
+    from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+
+    return (TH.fused_decode_nms.launches, TH.fused_decode_nms.global_launches,
+            TN.batched_nms_pallas.launches,
+            TN.batched_nms_pallas.global_launches)
+
+
+def zero_counts() -> None:
+    from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+
+    for fn in (TH.fused_decode_nms, TN.batched_nms_pallas):
+        fn.launches = fn.global_launches = 0
+
+
+def scratch_line(lib_fn, bsz, n, classes, rows) -> str:
+    blocks = bsz * -(-classes // rows)
+    per = lib_fn(n, rows)
+    return f"scratch {per} B a block x {blocks} blocks = {per * blocks} B"
+
+
+def time_nms(name, boxes, scores, thresh, max_out, tag):
+    """NMS alone against its plain version (plain, kernel, kernel, plain),
+    on the card alone, and its bound; returns the times as a dict."""
+    from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
+
+    kw = dict(max_out=max_out, iou_thresh=IOU)
+    plain = lambda: TN._select(boxes, scores, stop_below=thresh, **kw)  # noqa: E731
+    kern = lambda: TN._launch(boxes, scores, score_thresh=thresh, **kw)  # noqa: E731
+    k_ms, p_ms, (p1, k1, k2, p2) = alternating(plain, kern, 2, 5)
+    dev_k = device_ms(kern, 5)
+    live = live_tests(lambda lv: TN._select(boxes, scores, stop_below=thresh,
+                                            live=lv, **kw))
+    bsz, n, classes = scores.shape
+    b_ms, by = nms_bound(bsz, n, classes, max_out, live)
+    layout, rows = TN._plan(boxes.device, bsz, n, classes)
+    where = (scratch_line(TN._kernel_lib().nms_scratch_bytes, bsz, n,
+                          classes, rows)
+             if layout == "global" else "shared memory")
+    print(f"nms b{bsz} {name} (N={n}, thresh {thresh}, {layout} layout, "
+          f"G={rows}, {where}): kernel {k1:.4f}/{k2:.4f} ms a launch by events, {dev_k:.4f} ms "
+          f"with launches queued; plain {p1:.4f}/{p2:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({by}, {live} live candidate tests, "
+          f"{per_test(dev_k, live)}) {tag}")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                device_ms=dev_k)
+
+
+def global_path_kernels(device, tag, spec, logits, h_dev, scenes):
+    """The head and NMS kernels on the global path against their plain
+    versions: at N=22,743 on the served yolo's own B=8 logits of each scene
+    (head by ``compare_heads``, NMS bit for bit; the NMS kernel once per
+    two-stage call on the main path), and at N=72,828 (B=1) on random
+    logits.  Returns (NMS launches, NMS global launches, the head's and
+    NMS's times at N=22,743 on the mid scene)."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import decode as TD
+    from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+
+    n = sum(h * w for h, w in spec.out_hws) * spec.nanchors
+    for name, p in scenes:
+        if TH._plan(device, logits[name][0].shape[0], n,
+                    spec.class_num)[0] != "global":
+            raise AssertionError(f"N={n}: not on the global path")
+    head_t, nms_t = {}, {}
+    for name, p in scenes:
+        head_t[name] = time_head(f"yolo{BIG_SIDE} {name}", spec,
+                                 logits[name], h_dev, p.obj_thresh, 30, IOU,
+                                 device, tag, plain_iters=2, kern_iters=5)
+
+    # the two-stage head: decode_outputs -> the NMS kernel, one call a scene
+    decoded = {k: TD.decode_outputs(logits[k], spec, h_dev) for k, _ in scenes}
+    zero_counts()
+    two = {k: TN.batched_nms_pallas(*decoded[k], p.obj_thresh, IOU, 30)
+           for k, p in scenes}
+    torch.cuda.synchronize()
+    _, _, nms_launches, nms_global = counts()
+    print(f"yolo{BIG_SIDE} two-stage: NMS kernel launches {nms_launches} "
+          f"({nms_global} on the global path) in {len(scenes)} calls")
+    if nms_launches != len(scenes) or nms_global != len(scenes):
+        raise AssertionError("the NMS kernel did not run once per two-stage "
+                             "call on the global path")
+    for name, p in scenes:
+        boxes, scores = decoded[name]
+        want = TN.batched_nms_pallas_reference(boxes, scores, p.obj_thresh,
+                                               IOU, 30)
+        diff = n_differing(two[name], want)
+        print(f"yolo{BIG_SIDE} nms kernel vs plain: {name:<6} N={n} kept="
+              f"{int(two[name].valid.sum())} elements_differing={diff}")
+        if diff:
+            raise AssertionError("the NMS kernel differs from its plain "
+                                 "version on the global path")
+        nms_t[name] = time_nms(f"yolo{BIG_SIDE} {name}", boxes, scores,
+                               p.obj_thresh, 30, tag)
+
+    # past 16-bit indices: one image of 1088x1088, rows of many steps
+    huge = builder_spec(3, (HUGE_SIDE, HUGE_SIDE))
+    n_huge = sum(h * w for h, w in huge.out_hws) * huge.nanchors
+    rng = np.random.default_rng(7)
+    preds = [torch.from_numpy((rng.normal(0, 2, (1, h, w, 3, 25)) + np.r_[
+        [0.0] * 4, [1.5] * 21]).astype(np.float32)).to(device)
+        for h, w in huge.out_hws]
+    hw1 = torch.tensor([[900, 1200]], dtype=torch.int32, device=device)
+    got = TH.fused_decode_nms(preds, huge, hw1, 0.5, IOU, 30)
+    want = TH.fused_decode_nms_reference(preds, huge, hw1, 0.5, IOU, 30)
+    err, flip = compare_heads(got, want, 0.5)
+    boxes, scores = TD.decode_outputs(preds, huge, hw1)
+    got_n = TN.batched_nms_pallas(boxes, scores, 0.5, IOU, 30)
+    diff = n_differing(got_n, TN.batched_nms_pallas_reference(
+        boxes, scores, 0.5, IOU, 30))
+    print(f"N={n_huge} (yolo {HUGE_SIDE}x{HUGE_SIDE}, B=1): head kernel "
+          f"vs plain max_abs_err={err:.3g} borderline_flips={flip}, kept "
+          f"{int(got.valid.sum())}; NMS kernel vs plain elements_differing="
+          f"{diff}, kept {int(got_n.valid.sum())}")
+    if diff or n_huge <= 65_535 or not bool(got.valid.any()):
+        raise AssertionError(f"N={n_huge}: the kernels disagree with their "
+                             "plain versions")
+    time_head(f"yolo{HUGE_SIDE} b1", huge, preds, hw1, 0.5, 30, IOU, device,
+              tag, plain_iters=2, kern_iters=5)
+    time_nms(f"yolo{HUGE_SIDE} b1", boxes, scores, 0.5, 30, tag)
+    k_ms, p_ms, b_ms, by, dev_k = head_t["mid"]
+    head_global = dict(n=n, batch=BIG_BATCH, scene="mid", ms=k_ms,
+                       plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                       device_ms=dev_k)
+    return nms_launches, nms_global, head_global, dict(
+        n=n, batch=BIG_BATCH, scene="mid", **nms_t["mid"])
+
+
+def big_yolo_scripts(device, tag, ann, net, spec, scene_thresh):
+    """keras_inference on one JPEG and keras_eval on one batch of 8, the
+    darknet53 yolo at 608x608, as a user runs them; each against the
+    library.  Returns the head launches (and those on the global path)."""
+    import os
+    import re
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.cli import keras_eval as KE
+    from k210_yolo_framework_tpu_torch.cli import keras_inference as KI
+    from k210_yolo_framework_tpu_torch.data.annotations import read_image
+    from k210_yolo_framework_tpu_torch.eval import evaluate_map
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.training import checkpoint as CK
+
+    size = ["--image_size", str(BIG_SIDE), str(BIG_SIDE), "--output_size"] \
+        + [str(BIG_SIDE // st) for st in (32, 16, 8) for _ in (0, 1)]
+    args = ["--train_set", CLI_SET, "--class_num", "20", "--model_def",
+            "yolo", "--device", "cuda"] + size
+    here = os.getcwd()
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(f"{root}/data")
+        np.save(f"{root}/data/{CLI_SET}_img_ann.npy", ann[:BIG_BATCH])
+        np.save(f"{root}/data/{CLI_SET}_anchor.npy", spec.anchors_np())
+        weights = f"{root}/yolo{BIG_SIDE}.npz"
+        CK.save_npz(weights, net)
+        os.chdir(root)
+        try:
+            image = str(ann[0][0])
+            zero_counts()
+            t0 = time.perf_counter()
+            det, text = captured(lambda: KI.main(KI.parse_args(
+                args + ["--bf16", "True", "--obj_thresh", str(scene_thresh),
+                        "--output", f"{root}/det.png", weights, image])))
+            inf_s = time.perf_counter() - t0
+            head, head_global, _, _ = counts()
+            want = Predictor(net, None, spec, obj_thresh=scene_thresh,
+                             iou_thresh=0.3, compute_dtype=torch.bfloat16,
+                             device=device).predict_image(read_image(image))
+            printed = [l for l in text.splitlines()
+                       if re.match(r"^\[-?[\d.]+\t", l)]
+            print(f"yolo{BIG_SIDE}: keras_inference (obj_thresh "
+                  f"{scene_thresh}): {len(printed)} rows, head kernel "
+                  f"launches {head} ({head_global} on the global path); "
+                  f"wall {inf_s:.3f} s {tag}")
+            if head != 1 or head_global != 1 or not printed or \
+                    printed != table_lines(want) or not all(
+                        np.array_equal(a, b) for a, b in zip(det, want)):
+                raise AssertionError("keras_inference at 608x608 differs "
+                                     "from Predictor.predict_image")
+            launches[0] += head
+            launches[1] += head_global
+
+            zero_counts()
+            res, _ = captured(lambda: KE.main(KE.parse_args(
+                [weights] + args + ["--batch_size", str(BIG_BATCH),
+                                    "--limit", str(BIG_BATCH)])))
+            head, head_global, _, _ = counts()
+            ref = evaluate_map(Predictor(net, None, spec, **EVAL,
+                                         compute_dtype=torch.float32,
+                                         device=device),
+                               ann[:BIG_BATCH], spec.class_num,
+                               batch_size=BIG_BATCH)
+            print(f"yolo{BIG_SIDE}: keras_eval (one batch of {BIG_BATCH}, "
+                  f"fp32, obj_thresh 0.01, max_out 100): mAP {res['map']!r}, "
+                  f"evaluate_map {ref['map']!r}; head kernel launches {head} "
+                  f"({head_global} on the global path); "
+                  f"{res['imgs_per_s']:.1f} imgs/s {tag}")
+            if head != 1 or head_global != 1 or res["map"] != ref["map"] \
+                    or not np.isfinite(res["map"]):
+                raise AssertionError("keras_eval at 608x608 differs from "
+                                     "evaluate_map")
+            launches[0] += head
+            launches[1] += head_global
+        finally:
+            os.chdir(here)
+    return tuple(launches)
+
+
+def big_yolo(device, tag, ann, canvases, hws, image):
+    """The darknet53 yolo at 608x608 (N=22,743) served in bf16 at B=8
+    through ``predict_batch`` and ``predict_image`` in the 0.7, mid and
+    dense scenes (the head on its global path once per call), its rate,
+    fp32 card against the port on the CPU at set level, the kernels on the
+    global path, and the two scripts.  Returns ((head launches, on the
+    global path), (NMS launches, on the global path), head and NMS times on
+    the global path)."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.inference import (
+        Predictor,
+        stack_detections,
+    )
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    spec = builder_spec(3, (BIG_SIDE, BIG_SIDE))
+    n = sum(h * w for h, w in spec.out_hws) * spec.nanchors
+    net = build_network("yolo", spec.in_hw, spec.nanchors, spec.class_num,
+                        generator=torch.Generator().manual_seed(0))
+    serve = dict(iou_thresh=IOU, compute_dtype=torch.bfloat16, device=device)
+    scenes = (("sparse", Predictor(net, None, spec, obj_thresh=0.7, **serve)),
+              ("mid", Predictor(net, None, spec, obj_thresh=MID_THRESH,
+                                **serve)),
+              ("dense", Predictor(net, dense_state(net, spec), spec,
+                                  obj_thresh=0.7, **serve)))
+    c8, h8 = canvases[:BIG_BATCH], hws[:BIG_BATCH]
+    zero_counts()
+    served = {k: (p.predict_batch(c8, h8), p.predict_image(image))
+              for k, p in scenes}
+    torch.cuda.synchronize()
+    head, head_global, _, _ = counts()
+    print(f"yolo{BIG_SIDE}: N={n}, serving B={BIG_BATCH} bf16: head kernel "
+          f"launches {head} ({head_global} on the global path) in "
+          f"{2 * len(scenes)} calls; plan "
+          f"{TH._plan(device, BIG_BATCH, n, spec.class_num)}")
+    if head != 2 * len(scenes) or head_global != head:
+        raise AssertionError("the head kernel did not run on the global path "
+                             "once per serving call")
+    c_dev = torch.from_numpy(c8).to(device)
+    h_dev = torch.from_numpy(h8).to(device)
+    img_t = torch.from_numpy(image).to(device)
+    hw1 = torch.tensor([image.shape[:2]], dtype=torch.int32, device=device)
+    logits = {}
+    for name, p in scenes:
+        dets, one = served[name]
+        with torch.inference_mode():
+            inputs = ((p._forward_batch(c_dev, h_dev), h_dev, dets),
+                      (p._forward(p._letterbox_for_stem(
+                          img_t[None], hw1, torch.float32)), hw1, [one]))
+        for what, (preds, hws_, dets_) in zip(("batch", "image"), inputs):
+            want = TH.fused_decode_nms_reference(preds, spec, hws_,
+                                                 p.obj_thresh, IOU, 30)
+            err, flip = compare_heads(p._head(preds, hws_), want,
+                                      p.obj_thresh)
+            n_a, n_b = assert_detections_close(stack_detections(dets_),
+                                               to_np(want))
+            print(f"yolo{BIG_SIDE}: {name:<6} {what}: served {n_a} "
+                  f"detections, plain head {n_b}; same forward "
+                  f"max_abs_err={err:.3g} borderline_flips={flip}")
+            if name != "sparse" and n_a == 0:
+                raise AssertionError(f"yolo{BIG_SIDE} {name}: no detections")
+        logits[name] = inputs[0][0]
+    pred = scenes[0][1]
+    serve_ms = time_ms(lambda: pred._run_batch(c_dev, h_dev), 10)
+    b1_ms = time_ms(lambda: pred._run_batch(c_dev[:1], h_dev[:1]), 10)
+    print(f"yolo{BIG_SIDE}: serve b{BIG_BATCH} bf16 {serve_ms:.3f} ms/batch "
+          f"= {BIG_BATCH * 1e3 / serve_ms:.1f} imgs/s; b1 latency "
+          f"{b1_ms:.3f} ms {tag}")
+
+    small = dict(obj_thresh=0.2, iou_thresh=0.45, compute_dtype=torch.float32)
+    cut = slice(0, BIG_CPU_BATCH)
+    a = Predictor(net, None, spec, device=device, **small).predict_batch(
+        c8[cut], h8[cut])
+    b = Predictor(net, None, spec, device="cpu", **small).predict_batch(
+        c8[cut], h8[cut])
+    n_a, n_b = assert_detections_close(stack_detections(a),
+                                       stack_detections(b))
+    print(f"yolo{BIG_SIDE}: fp32 card vs the port on the CPU "
+          f"({BIG_CPU_BATCH} images, obj_thresh 0.2): {n_a} vs {n_b} "
+          f"detections match (detmatch defaults)")
+    if n_a == 0:
+        raise AssertionError("no detections to hold card against CPU")
+
+    nms, nms_global, head_t, nms_t = global_path_kernels(
+        device, tag, spec, logits, h_dev, scenes)
+    s_head, s_global = big_yolo_scripts(device, tag, ann, net, spec,
+                                        MID_THRESH)
+    return ((head + s_head, head_global + s_global), (nms, nms_global),
+            head_t, nms_t)
+
+
+def unfold_patches(imgs):
+    """[B, H, W, C] -> [B, Ho, 3, Wo, 3, C], the 3x3 stride-2 stem's
+    zero-padded patches, by ``unfold``."""
+    import torch.nn.functional as F
+
+    xp = F.pad(imgs, (0, 0, 1, 1, 1, 1))
+    return xp.unfold(1, 3, 2).unfold(2, 3, 2).permute(0, 1, 4, 2, 5, 3)
+
+
+def stem_modes(device, tag, canvases, hws, image):
+    """Each builder of STEM_BUILDERS served at B=128 bf16 on the mid scene
+    in each of its stem modes: the net's input against ``unfold`` of the
+    default letterbox's canvas, the detections against the default's as
+    sets, one head launch a call, imgs/s, b1 latency and a kernel profile.
+    Returns the head launches."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.inference import (
+        Predictor,
+        stack_detections,
+    )
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import letterbox as LB
+    from k210_yolo_framework_tpu_torch.utils.detmatch import (
+        assert_detections_close,
+    )
+
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    head = 0
+    for name, alpha, modes in STEM_BUILDERS:
+        spec = builder_spec(2)
+        net = build_network(name, spec.in_hw, spec.nanchors, spec.class_num,
+                            alpha=alpha,
+                            generator=torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            canvas = LB.letterbox_image(c_dev, h_dev, spec.in_hw,
+                                        torch.bfloat16).to(torch.uint8)
+            want_patches = unfold_patches(canvas)
+        base = None
+        for mode in modes:
+            p = Predictor(net, None, spec, obj_thresh=MID_THRESH,
+                          iou_thresh=IOU, compute_dtype=torch.bfloat16,
+                          stem_mode=mode, device=device)
+            with torch.inference_mode():
+                x = p._letterbox_for_stem(c_dev, h_dev, torch.bfloat16)
+                ref = want_patches if mode == "patches" else canvas
+                if x.shape != ref.shape:
+                    raise AssertionError(f"{name} {mode}: input "
+                                         f"{tuple(x.shape)}")
+                d = (x.int() - ref.int()).abs()
+                n_diff, d_max = int((d > 0).sum()), int(d.max())
+            print(f"stem {name} {mode:<10}: input {tuple(x.shape)} against "
+                  f"{'unfold of ' if mode == 'patches' else ''}the default "
+                  f"letterbox's canvas: {n_diff} of {d.numel()} values "
+                  f"differ, by at most {d_max} levels")
+            if d_max > STEM_LEVELS or n_diff > PIXEL_SHARE * d.numel():
+                raise AssertionError(f"{name} {mode}: the stem input "
+                                     "departs from the default letterbox")
+            zero_counts()
+            dets = p.predict_batch(canvases, hws)
+            one = p.predict_image(image)
+            torch.cuda.synchronize()
+            launches = counts()[0]
+            head += launches
+            if launches != 2:
+                raise AssertionError(f"{name} {mode}: the head kernel did "
+                                     "not run once per serving call")
+            if base is None:
+                base = (dets, one)
+                n_a = sum(len(d_.scores) for d_ in dets)
+                n_b = n_a
+            else:
+                n_a, n_b = assert_detections_close(
+                    stack_detections(dets), stack_detections(base[0]),
+                    **BF16_SET_TOL)
+                assert_detections_close(stack_detections([one]),
+                                        stack_detections([base[1]]),
+                                        **BF16_SET_TOL)
+            if n_a == 0:
+                raise AssertionError(f"{name} {mode}: no detections")
+            serve_ms = time_ms(lambda: p._run_batch(c_dev, h_dev), 20)
+            b1_ms = time_ms(lambda: p._run_batch(c_dev[:1], h_dev[:1]), 20)
+            n_kernels, dev_ms, by_cat, top = kernel_profile(
+                lambda: p._run_batch(c_dev, h_dev), iters=3)
+            print(f"stem {name} {mode:<10}: {n_a} detections (default "
+                  f"{n_b}); serve b{BATCH} bf16 {serve_ms:.3f} ms/batch = "
+                  f"{BATCH * 1e3 / serve_ms:.1f} imgs/s; b1 latency "
+                  f"{b1_ms:.3f} ms; profile b{BATCH}: {n_kernels:g} "
+                  f"kernels/call, device {dev_ms:.3f} ms/call, conv/matmul "
+                  f"{by_cat['conv/matmul']:.3f} ms, elementwise/other "
+                  f"{by_cat['elementwise/other']:.3f} ms {tag}")
+            for kname, ms, count in top[:4]:
+                print(f"  {ms:8.3f} ms  x{count:<4g} {kname[:100]}")
+    return head
+
+
+def nativeconv_int8_stem(device, tag, ann, canvases, hws):
+    """yolo_mobilev1 alpha 0.75 under ``int8_act_cal`` in the ``default``
+    and ``nativeconv`` stem modes, calibrated: in ``nativeconv`` the
+    3-channel stem computes int8 and holds a calibrated range.  At B=128
+    bf16 on the mid scene: one head launch a call, the head kernel against
+    the plain head on its logits, imgs/s; then fp32 on 8 images, every
+    int8 conv (the stem among them) and its int8 product card against CPU
+    on the card's own inputs, exactly.  Returns the head launches."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.eval import calibrate_from_rows
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+
+    spec = builder_spec(2)
+    net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                        spec.class_num, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    calib = ann[:CALIB_ROWS]
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    head, served = 0, {}
+    for mode in ("default", "nativeconv"):
+        p = Predictor(net, None, spec, obj_thresh=MID_THRESH, iou_thresh=IOU,
+                      compute_dtype=torch.bfloat16, quantize="int8_act_cal",
+                      stem_mode=mode, device=device)
+        calibrate_from_rows(p, calib)
+        stem = p.net.stem.conv
+        if stem.int8_capable != (mode == "nativeconv"):
+            raise AssertionError(f"int8_act_cal {mode}: the stem is "
+                                 f"{'' if stem.int8_capable else 'not '}int8")
+        rng = (f"calibrated stem range [{float(stem.act_min):.6g}, "
+               f"{float(stem.act_max):.6g}]" if stem.int8_capable
+               else "the stem wide")
+        if stem.int8_capable and not stem.act_max > stem.act_min:
+            raise AssertionError("nativeconv: the stem has no calibrated "
+                                 "range")
+        zero_counts()
+        dets = p.predict_batch(canvases, hws)
+        torch.cuda.synchronize()
+        launches = counts()[0]
+        head += launches
+        n_dets = sum(len(d.scores) for d in dets)
+        if launches != 1 or n_dets == 0:
+            raise AssertionError(f"int8_act_cal {mode}: {launches} head "
+                                 f"launches, {n_dets} detections")
+        served[mode] = dets
+        with torch.inference_mode():
+            logits = p._forward_batch(c_dev, h_dev)
+            got = p._head(logits, h_dev)
+        want = TH.fused_decode_nms_reference(logits, spec, h_dev,
+                                             p.obj_thresh, IOU, p.max_out)
+        err, flip = compare_heads(got, want, p.obj_thresh)
+        serve_ms = time_ms(lambda: p._run_batch(c_dev, h_dev), 20)
+        print(f"stem int8_act_cal {mode:<10}: {rng}; {n_dets} detections; "
+              f"head kernel vs plain head on the same logits: max abs err "
+              f"{err:.3g}, {flip} borderline flips; serve b{BATCH} bf16 "
+              f"{serve_ms:.3f} ms/batch = {BATCH * 1e3 / serve_ms:.1f} "
+              f"imgs/s {tag}")
+    m, total = match_rate(served["default"], served["nativeconv"])
+    print(f"stem int8_act_cal nativeconv vs default, mid scene: {m}/{total} "
+          f"boxes matched (IoU >= {MATCH_IOU}, score within {MATCH_SCORE})")
+
+    part = slice(BATCH // 2 - 4, BATCH // 2 + 4)
+    small = dict(obj_thresh=0.2, iou_thresh=0.45, quantize="int8_act_cal",
+                 stem_mode="nativeconv")
+    preds_ = [Predictor(net, None, spec, device=d, **small)
+              for d in (device, "cpu")]
+    for p in preds_:
+        calibrate_from_rows(p, calib)
+    ranges = [(float(p.net.stem.conv.act_min), float(p.net.stem.conv.act_max))
+              for p in preds_]
+    scopes = int8_convs_card_vs_cpu(preds_[0], canvases[part], hws[part])
+    stem_scope = preds_[0].net.stem.conv.scope
+    if stem_scope not in scopes:
+        raise AssertionError(f"nativeconv: the stem {stem_scope} did not "
+                             "run int8")
+    print(f"stem int8_act_cal nativeconv: {len(scopes)} int8 convs, the stem "
+          f"{stem_scope} (K=27) among them, card vs CPU on the card's inputs "
+          f"(fp32, 8 images), and their int8 products (_int_mm), exactly "
+          f"equal; calibrated stem range card {ranges[0]}, CPU {ranges[1]}")
+    return head
+
+
+def data_parallel(device, tag, canvases, hws):
+    """``make_sharded_runner(make_mesh())`` over a world-size-1 NCCL group
+    at B=128 bf16 on the mid scene, bit for bit against ``_run_batch``,
+    with its rate.  The machine has one GPU: no multi-GPU number is taken.
+    Returns the head launches."""
+    import torch
+    import torch.distributed as dist
+
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.parallel import make_mesh
+
+    spec = builder_spec(2)
+    net = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                        spec.class_num, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    pred = Predictor(net, None, spec, obj_thresh=MID_THRESH, iou_thresh=IOU,
+                     compute_dtype=torch.bfloat16, device=device)
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            runner = pred.make_sharded_runner(mesh)
+            zero_counts()
+            got = runner(c_dev, h_dev)
+            torch.cuda.synchronize()
+            launches = counts()[0]
+            want = pred._run_batch(c_dev, h_dev)
+            diff = n_differing(got, want)
+            dp_ms = time_ms(lambda: runner(c_dev, h_dev), 20)
+            local_ms = time_ms(lambda: pred._run_batch(c_dev, h_dev), 20)
+            print(f"data parallel: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                  f"(NCCL, world size 1: this machine has one GPU, so no "
+                  f"multi-GPU rate is taken); runner at B={BATCH} bf16: head "
+                  f"kernel launches {launches}, {int(got.valid.sum())} "
+                  f"detections, elements differing from _run_batch {diff}; "
+                  f"{dp_ms:.3f} ms/batch = {BATCH * 1e3 / dp_ms:.1f} imgs/s "
+                  f"against _run_batch {local_ms:.3f} ms = "
+                  f"{BATCH * 1e3 / local_ms:.1f} imgs/s {tag}")
+            if launches != 1 or diff or not bool(got.valid.any()):
+                raise AssertionError("the sharded runner differs from "
+                                     "_run_batch")
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+def any_n_stems_and_dp_phase(device, tag, ann, canvases, hws, image):
+    """Phase 18.  Returns ((head launches, on the global path), (NMS
+    launches, on the global path), head and NMS times on the global
+    path)."""
+    t0 = time.perf_counter()
+    head, nms, head_t, nms_t = big_yolo(device, tag, ann, canvases, hws,
+                                        image)
+    t1 = time.perf_counter()
+    stem = stem_modes(device, tag, canvases, hws, image)
+    stem += nativeconv_int8_stem(device, tag, ann, canvases, hws)
+    t2 = time.perf_counter()
+    dp = data_parallel(device, tag, canvases, hws)
+    print(f"phase 18: wall seconds: yolo {BIG_SIDE} {t1 - t0:.1f}, stem "
+          f"modes {t2 - t1:.1f}, data parallel "
+          f"{time.perf_counter() - t2:.1f}")
+    return (head[0] + stem + dp, head[1]), nms, head_t, nms_t
+
+
 def main() -> int:
     import torch
 
@@ -2742,6 +3361,10 @@ def run(device) -> int:
                                             canvases, hws, image, weights,
                                             anchors)
         print(f"quantized: wall seconds {time.perf_counter() - t0:.1f}")
+        # ---- 18. any candidate count, the stem modes, data parallel -------
+        (p18_head, p18_head_global), (p18_nms, p18_nms_global), \
+            head_global_t, nms_global_t = any_n_stems_and_dp_phase(
+                device, tag, ann, canvases, hws, image)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
@@ -2749,7 +3372,8 @@ def run(device) -> int:
         "route": "cuda",
         "source": "k210_yolo_framework_tpu_torch/csrc/yolo_head.cu",
         "replaces": "k210_yolo_framework_tpu/ops/yolo_head_pallas.py:140",
-        "launches": launches + q_launches,
+        "launches": launches + q_launches + p18_head,
+        "global_launches": p18_head_global,
         "max_abs_err": max(max_err, slice_err),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2757,6 +3381,7 @@ def run(device) -> int:
         "bound_by": b_by,
         "library_ms": None,
         "device_ms": head_dev["slice"],
+        "global_path": head_global_t,
     }, {
         "name": "rotate3shear",
         "route": "cuda",
@@ -2769,10 +3394,12 @@ def run(device) -> int:
         "route": "cuda",
         "source": "k210_yolo_framework_tpu_torch/csrc/nms.cu",
         "replaces": "k210_yolo_framework_tpu/ops/nms_pallas.py:171",
-        "launches": nms_launches,
+        "launches": nms_launches + p18_nms,
+        "global_launches": p18_nms_global,
         "max_abs_err": nms_err,
         **nms_t["sparse"],
         "library_ms": None,
+        "global_path": nms_global_t,
     }, {
         "name": "dwsep_fused_block",
         "route": "cuda",

@@ -12,8 +12,8 @@
 // ones).  At B=128, C=20 every row of the batch is resident at once (about
 // 20 warps an SM), and the passes are bound by instruction throughput:
 // each test spends its reads, the IoU, the division test and the compaction.
-// With few rows an SM (B=32) the chain's latency bounds them.  The design keeps the chain short and each test
-// cheap:
+// With few rows an SM (B=32) the chain's latency bounds them.  The design
+// keeps the chain short and each test cheap:
 //   * no block barrier inside a row's loop: the argmax is 5 rounds of
 //     __shfl_xor_sync on (value, position) inside the warp;
 //   * each row keeps its live candidates (those that can still win) as a
@@ -45,12 +45,21 @@
 // its index in the argmax's tie order (NaN first, then the larger value,
 // then the lower index).
 //
-// Two layouts of a row in shared memory (footprint: smem_bytes):
-//   * SharedBoxes (G > 1): the image's boxes and areas once per block, and
-//     per row a list of (score, candidate index);
-//   * OwnBoxes (G == 1): the row's scores and boxes compacted together in
-//     place, 5 floats a candidate; the area is computed where it is tested.
-//     It fits the largest N.
+// Three layouts of a row:
+//   * SharedBoxes (G > 1, shared memory, footprint smem_bytes): the image's
+//     boxes and areas once per block, and per row a list of (score,
+//     16-bit candidate index);
+//   * OwnBoxes (G == 1, shared memory): the row's scores and boxes
+//     compacted together in place, 5 floats a candidate; the area is
+//     computed where it is tested.  It fits the most candidates a block's
+//     shared memory can hold (11,622 on an H100);
+//   * GlobalBoxes (any G, global memory): where neither shared layout
+//     fits.  SharedBoxes' layout with 32-bit indices, in a scratch slab of
+//     the block's own (scratch_floats): the boxes and areas once (8 bytes
+//     a candidate fewer than OwnBoxes' 20 per row at G > 1), each row's
+//     list beside them.  A warp reads what other lanes of it wrote only
+//     after a __syncwarp, which orders global memory as it orders shared
+//     memory; the rewrite of the list in place keeps its order as above.
 // Every arithmetic step follows the plain version in the same order; built
 // with -fmad=false the two agree bit for bit.
 
@@ -70,11 +79,38 @@ constexpr int kUnroll = 2;              // chunks of 32 candidates a round
 // boxes within +-kTame: no difference, product or sum of the IoU overflows
 constexpr float kTame = 1e18f;
 
+// Where a block keeps its rows: the three layouts above.
+enum Layout { kOwn, kShared, kGlobal };
+
+// The kernel of a launch, given its instance for each layout: the global
+// path where a scratch slab is given, else the shared layout of `rows`.
+template <typename KernelFn>
+KernelFn pick_kernel(int rows, bool global, KernelFn own, KernelFn shared,
+                     KernelFn in_global) {
+  if (global) return in_global;
+  return rows > 1 ? shared : own;
+}
+
 // Dynamic shared memory of a block of g rows of n candidates.
 __host__ __device__ inline size_t smem_bytes(int n, int g) {
   if (g == 1) return (size_t)5 * n * sizeof(float);
   return (size_t)n * (5 * sizeof(float)
                       + g * (sizeof(float) + sizeof(unsigned short)));
+}
+
+// GlobalBoxes: the stride of a block's arrays, n rounded up to a multiple
+// of 4 so that every slab and its float4 boxes stay 16-byte aligned.
+__host__ __device__ inline size_t global_stride(int n) {
+  return ((size_t)n + 3) & ~(size_t)3;
+}
+
+// GlobalBoxes: floats of one block's scratch slab holding `per_candidate`
+// floats a candidate for the whole block (5: boxes and areas; 1: areas
+// only, where the boxes are read from the input) and a (score, index)
+// list per row.
+__host__ __device__ inline size_t scratch_floats(int n, int g,
+                                                 int per_candidate) {
+  return global_stride(n) * (per_candidate + 2 * (size_t)g);
 }
 
 // NaN-propagating max/min, as jnp.maximum / torch.maximum (fmaxf drops NaN).
@@ -127,14 +163,17 @@ struct Entry {
   int j;
 };
 
-// G > 1: boxes and areas of the image, indexed by candidate; the row's list
-// holds (score, candidate index) at each position.  Before the first pass
-// score[j] holds the row's score of candidate j.
-struct SharedBoxes {
+// G > 1 (and GlobalBoxes): boxes and areas of the image, indexed by
+// candidate; the row's list holds (score, candidate index) at each
+// position.  Before the first pass score[j] holds the row's score of
+// candidate j.
+template <typename Index, bool kInGlobal>
+struct BoxList {
+  static constexpr bool kGlobal = kInGlobal;
   const float4* boxes;
   const float* area;
   float* score;
-  unsigned short* idx;
+  Index* idx;
 
   __device__ Entry staged(int j) const {
     Entry e;
@@ -152,14 +191,18 @@ struct SharedBoxes {
   }
   __device__ void store(int p, const Entry& e) const {
     score[p] = e.s;
-    idx[p] = (unsigned short)e.j;
+    idx[p] = (Index)e.j;
   }
   __device__ float4 box(int p) const { return boxes[idx[p]]; }
 };
 
+using SharedBoxes = BoxList<unsigned short, false>;
+using GlobalBoxes = BoxList<int, true>;
+
 // G == 1: the row's score and box of each list position, compacted
 // together; before the first pass position j holds candidate j.
 struct OwnBoxes {
+  static constexpr bool kGlobal = false;
   float4* boxes;
   float* score;
 
@@ -289,6 +332,8 @@ __device__ void select_row_as(const Row& row, int n, int max_out,
           if (hit) e[u].s = kNeg;
           keep[u] = p < n_live && (keep_all || !hit);
         }
+        // global memory: every lane's reads of the round before any write
+        if (Row::kGlobal) __syncwarp();
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const unsigned ballot = __ballot_sync(kFull, keep[u]);

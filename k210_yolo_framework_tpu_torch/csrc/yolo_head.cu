@@ -30,11 +30,18 @@
 // candidate), which fits the most candidates.  The wrapper picks G
 // (ops/nms_pallas.rows_per_block) against the footprint yolo_head_smem_bytes
 // and the blocks the batch gives: 20 at B=128 (serving), 5 at B=32 (eval),
-// 1 at B=1 on an H100.
+// 1 at B=1 on an H100.  Where not even G == 1 fits (above 11,622
+// candidates on an H100: the darknet53 yolo from 448x448 up), the block
+// decodes into its own slab of a global scratch tensor instead
+// (greedy::GlobalBoxes, yolo_head_scratch_bytes a block), and the same loop
+// runs there; the wrapper picks that path and its G
+// (ops/nms_pallas.greedy_plan).
 //
 // Inputs : preds [B, N, E] fp32 (E = 5 + C: tx ty tw th conf cls...),
 //          geom  [8, N] fp32 (gx, gy, 1/gw, 1/gh, anchor_w, anchor_h, 1, 0),
-//          lbox  [B, 8] fp32 (off_y, off_x, sy, sx, img_h, img_w, 0, 0).
+//          lbox  [B, 8] fp32 (off_y, off_x, sy, sx, img_h, img_w, 0, 0),
+//          scratch: null (shared memory) or yolo_head_scratch_bytes(n, G)
+//          a block, 16-byte aligned (the global path).
 // Outputs: out_scores [B, C, M] and out_boxes [B, C, M, 4] winner buffers;
 //          slot k holds winner k, unfilled slots hold -1e9 and zero boxes.
 //          The caller masks slots below the threshold.
@@ -45,8 +52,11 @@
 namespace {
 
 using greedy::box_area;
+using greedy::kGlobal;
 using greedy::kMaxRows;
 using greedy::kMinWarps;
+using greedy::kOwn;
+using greedy::kShared;
 using greedy::tame_box;
 using greedy::nan_max;
 
@@ -54,17 +64,20 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <bool kShared>
+// Floats a candidate of the block's own in its global slab: box and area.
+constexpr int kGlobalPerCandidate = 5;
+
+template <int kLayout>
 __global__ void __launch_bounds__(32 * kMaxRows)
 yolo_head_kernel(const float* __restrict__ preds,
                  const float* __restrict__ geom,
                  const float* __restrict__ lbox,
                  float* __restrict__ out_scores,
                  float* __restrict__ out_boxes,
+                 float* scratch,   // written and read back: not restrict
                  int n, int classes, int rows, int max_out,
                  float iou_thresh, float score_thresh, int class_softmax) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * rows;
   const int n_rows = min(rows, classes - c0);
@@ -75,9 +88,17 @@ yolo_head_kernel(const float* __restrict__ preds,
   const float sy = lb[2], sx = lb[3];
   const float ih = lb[4], iw = lb[5];
 
-  float4* s_box = smem4;
-  float* s_more = smem + 4 * n;   // areas (shared) or the row's scores (own)
-  float* s_score = kShared ? smem + 5 * n : s_more;
+  // the block's arrays: in shared memory at stride n, or in its own slab
+  // of the scratch tensor at a 16-byte aligned stride
+  const int ns = kLayout == kGlobal ? (int)greedy::global_stride(n) : n;
+  float* smem = kLayout == kGlobal
+      ? scratch + (size_t)(blockIdx.y * gridDim.x + blockIdx.x)
+                      * greedy::scratch_floats(n, rows, kGlobalPerCandidate)
+      : reinterpret_cast<float*>(smem4);
+  float4* s_box = reinterpret_cast<float4*>(smem);
+  float* s_more = smem + 4 * ns;  // areas (shared, global) or the row's
+                                  // scores (own)
+  float* s_score = kLayout == kOwn ? s_more : smem + 5 * ns;
 
   // decode every candidate of image b once, score it for the G classes
   bool is_tame = true;
@@ -96,7 +117,7 @@ yolo_head_kernel(const float* __restrict__ preds,
     const float y1 = (oy + oh * 0.5f) * ih;
     const float x1 = (ox + ow * 0.5f) * iw;
     s_box[j] = make_float4(y0, x0, y1, x1);
-    if (kShared) s_more[j] = box_area(y0, x0, y1, x1);
+    if (kLayout != kOwn) s_more[j] = box_area(y0, x0, y1, x1);
     is_tame &= tame_box(y0, x0, y1, x1);
     const float conf = sigmoid(p[4]);
     if (class_softmax) {
@@ -106,12 +127,14 @@ yolo_head_kernel(const float* __restrict__ preds,
       float sum = expf(p[5] - mx);
       for (int k = 1; k < classes; ++k) sum = sum + expf(p[5 + k] - mx);
       for (int g = 0; g < n_rows; ++g)
-        s_score[g * n + j] = expf(p[5 + c0 + g] - mx) / sum * conf;
+        s_score[g * ns + j] = expf(p[5 + c0 + g] - mx) / sum * conf;
     } else {
       for (int g = 0; g < n_rows; ++g)
-        s_score[g * n + j] = sigmoid(p[5 + c0 + g]) * conf;
+        s_score[g * ns + j] = sigmoid(p[5 + c0 + g]) * conf;
     }
   }
+  // also orders the decode's writes to the global slab before the loops'
+  // reads
   const bool tame = __syncthreads_and(is_tame);
 
   const int g = threadIdx.x >> 5;
@@ -119,11 +142,17 @@ yolo_head_kernel(const float* __restrict__ preds,
   const int c = c0 + g;
   float* os = out_scores + ((size_t)b * classes + c) * max_out;
   float* ob = out_boxes + ((size_t)b * classes + c) * max_out * 4;
-  if (kShared) {
+  if (kLayout == kGlobal) {
+    int* s_idx = reinterpret_cast<int*>(smem + 5 * ns + rows * ns);
+    const greedy::GlobalBoxes row{s_box, s_more, s_score + g * ns,
+                                  s_idx + g * ns};
+    greedy::select_row(row, n, tame, max_out, iou_thresh, score_thresh, os,
+                       ob);
+  } else if (kLayout == kShared) {
     unsigned short* s_idx =
-        reinterpret_cast<unsigned short*>(smem + 5 * n + rows * n);
-    const greedy::SharedBoxes row{s_box, s_more, s_score + g * n,
-                                  s_idx + g * n};
+        reinterpret_cast<unsigned short*>(smem + 5 * ns + rows * ns);
+    const greedy::SharedBoxes row{s_box, s_more, s_score + g * ns,
+                                  s_idx + g * ns};
     greedy::select_row(row, n, tame, max_out, iou_thresh, score_thresh, os,
                        ob);
   } else {
@@ -131,6 +160,13 @@ yolo_head_kernel(const float* __restrict__ preds,
     greedy::select_row(row, n, tame, max_out, iou_thresh, score_thresh, os,
                        ob);
   }
+}
+
+// The kernel of a launch (greedy::pick_kernel).
+decltype(&yolo_head_kernel<kOwn>) pick_kernel(int rows, bool global) {
+  return greedy::pick_kernel(rows, global, yolo_head_kernel<kOwn>,
+                             yolo_head_kernel<kShared>,
+                             yolo_head_kernel<kGlobal>);
 }
 
 }  // namespace
@@ -143,25 +179,30 @@ size_t yolo_head_smem_bytes(int n, int g) { return greedy::smem_bytes(n, g); }
 // The most class rows a block runs (the `rows` of a launch).
 int yolo_head_max_rows() { return kMaxRows; }
 
+// Bytes of global scratch one block of g class rows of n candidates takes
+// on the global path (greedy::GlobalBoxes); a multiple of 16.
+size_t yolo_head_scratch_bytes(int n, int g) {
+  return greedy::scratch_floats(n, g, kGlobalPerCandidate) * sizeof(float);
+}
+
 // The most dynamic shared memory a block may ask for on the current device,
-// the smaller of the two layouts' limits.  Returns the cudaError_t of the
-// queries.
+// the smaller of the two shared layouts' limits.  Returns the cudaError_t of
+// the queries.
 int yolo_head_max_dynamic_smem(int* bytes) {
   int own = 0, shared = 0;
-  int err = max_dynamic_smem(yolo_head_kernel<false>, &own);
-  if (err == 0) err = max_dynamic_smem(yolo_head_kernel<true>, &shared);
+  int err = max_dynamic_smem(yolo_head_kernel<kOwn>, &own);
+  if (err == 0) err = max_dynamic_smem(yolo_head_kernel<kShared>, &shared);
   *bytes = own < shared ? own : shared;
   return err;
 }
 
 // Blocks of `rows` class rows of n candidates that one SM holds at once on
-// the current device (the occupancy calculator's answer).  Returns the
-// cudaError_t of the query.
-int yolo_head_blocks_per_sm(int n, int rows, int* blocks) {
-  const auto kernel =
-      rows > 1 ? yolo_head_kernel<true> : yolo_head_kernel<false>;
+// the current device (the occupancy calculator's answer), on the global
+// path where `global`.  Returns the cudaError_t of the query.
+int yolo_head_blocks_per_sm(int n, int rows, int global, int* blocks) {
+  const auto kernel = pick_kernel(rows, global);
   const int threads = 32 * (rows > kMinWarps ? rows : kMinWarps);
-  const size_t smem = greedy::smem_bytes(n, rows);
+  const size_t smem = global ? 0 : greedy::smem_bytes(n, rows);
   // the calculator holds the size to the kernel's opted-in limit
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -171,26 +212,29 @@ int yolo_head_blocks_per_sm(int n, int rows, int* blocks) {
 }
 
 // Launches the kernel on `stream` with `rows` class rows a block (1 to
-// kMaxRows); returns the cudaError_t of the launch.
+// kMaxRows): in shared memory where `scratch` is null, else on the global
+// path, block (x, y) in the yolo_head_scratch_bytes(n, rows) bytes at
+// scratch + (y * gridDim.x + x) times that.  Returns the cudaError_t of the
+// launch.
 int yolo_head_decode_nms(const float* preds, const float* geom,
                          const float* lbox, float* out_scores,
-                         float* out_boxes, int batch, int n, int classes,
-                         int rows, int max_out, float iou_thresh,
+                         float* out_boxes, float* scratch, int batch, int n,
+                         int classes, int rows, int max_out, float iou_thresh,
                          float score_thresh, int class_softmax, void* stream) {
   if (rows < 1 || rows > kMaxRows) return (int)cudaErrorInvalidValue;
+  const bool global = scratch != nullptr;
   // the default limit (48 KB) counts static and dynamic shared memory
   // together, so opt in to the dynamic size on every launch
-  const size_t smem = greedy::smem_bytes(n, rows);
-  const auto kernel =
-      rows > 1 ? yolo_head_kernel<true> : yolo_head_kernel<false>;
+  const size_t smem = global ? 0 : greedy::smem_bytes(n, rows);
+  const auto kernel = pick_kernel(rows, global);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((classes + rows - 1) / rows, batch);
   const int threads = 32 * (rows > kMinWarps ? rows : kMinWarps);
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      preds, geom, lbox, out_scores, out_boxes, n, classes, rows, max_out,
-      iou_thresh, score_thresh, class_softmax);
+      preds, geom, lbox, out_scores, out_boxes, scratch, n, classes, rows,
+      max_out, iou_thresh, score_thresh, class_softmax);
   return (int)cudaGetLastError();
 }
 

@@ -33,9 +33,12 @@ import torch
 from torch import nn
 
 from k210_yolo_framework_tpu_torch.config import YoloSpec
-from k210_yolo_framework_tpu_torch.inference import Predictor, folded_logits
+from k210_yolo_framework_tpu_torch.inference import (
+    Predictor,
+    folded_logits,
+    stem_input,
+)
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
-from k210_yolo_framework_tpu_torch.ops import letterbox as LB
 from k210_yolo_framework_tpu_torch.ops.decode import (
     decode_outputs,
     num_candidates,
@@ -92,6 +95,7 @@ class ServingProgram(nn.Module):
         self.thresholds = (predictor.obj_thresh, predictor.iou_thresh,
                            predictor.max_out)
         self.class_softmax = predictor.class_softmax
+        self.stem_mode = predictor.stem_mode
         # the full candidate set by default, as the live head: a smaller
         # top_k can cut the pool a dense low-threshold scene feeds NMS
         self.top_k = num_candidates(self.spec) if top_k is None else top_k
@@ -102,8 +106,8 @@ class ServingProgram(nn.Module):
             self.register_buffer(f"scale{i}", scale)
 
     def forward(self, canvases: torch.Tensor, img_hws: torch.Tensor):
-        imgs = LB.letterbox_image(canvases, img_hws, self.spec.in_hw,
-                                  self.compute_dtype).to(torch.uint8)
+        imgs = stem_input(canvases, img_hws, self.spec.in_hw,
+                          self.compute_dtype, self.stem_mode)
         weights = {name: getattr(self, f"q{i}").to(torch.float32)
                    * getattr(self, f"scale{i}")
                    for i, name in enumerate(self.qnames)}

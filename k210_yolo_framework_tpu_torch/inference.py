@@ -17,6 +17,14 @@ scales and dequantized inside each call; ``'int8_act'``,
 ``'int8_act_sym'`` and ``'int8_act_cal'`` run the dense convs int8 x int8
 -> int32 (``models.layers.Int8Act``: dynamic affine, dynamic symmetric and
 calibrated static activation ranges; :meth:`Predictor.calibrate`).
+
+``stem_mode`` selects the JAX package's serving stem variant
+(``models.layers.ConvBN.stem_mode``): in ``'patches'`` stage 1 emits the
+stem conv's im2col patches instead of the canvas
+(``ops/letterbox.letterbox_stem_patches``) and the stem contracts them;
+``'nativeconv'`` quantizes the stem too under the int8-activation modes.
+:meth:`Predictor.make_sharded_runner` serves a batch over a data-parallel
+``parallel.make_mesh`` mesh, one shard a process.
 """
 
 from __future__ import annotations
@@ -28,7 +36,12 @@ import numpy as np
 import torch
 
 from k210_yolo_framework_tpu_torch.config import YoloSpec
-from k210_yolo_framework_tpu_torch.models.layers import Conv, Int8Act, name_convs
+from k210_yolo_framework_tpu_torch.models.layers import (
+    STEM_MODES,
+    Conv,
+    Int8Act,
+    name_convs,
+)
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
 from k210_yolo_framework_tpu_torch.ops import letterbox as LB
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
@@ -37,7 +50,7 @@ from k210_yolo_framework_tpu_torch.quantize import QTensor, quantize_state
 
 __all__ = ["Detections", "Predictor", "QUANTIZE_MODES", "VOC_LABELS",
            "draw_detections", "folded_logits", "net_call",
-           "stack_detections"]
+           "stack_detections", "stem_input"]
 
 QUANTIZE_MODES = (None, "int8", "int8_act", "int8_act_sym", "int8_act_cal")
 
@@ -88,13 +101,38 @@ def net_call(net: YoloNet, weights: Mapping[str, torch.Tensor],
                                       strict=False)
 
 
+def _takes_patches(stem: torch.nn.Module) -> bool:
+    """Whether ``stem``'s conv is the one ``letterbox_stem_patches`` emits
+    patches for: 3x3, stride 2, padded by 1 on every side."""
+    conv = next(m for m in stem.modules() if isinstance(m, Conv))
+    return (tuple(conv.weight.shape[2:]) == (3, 3)
+            and conv.strides == (2, 2) and conv.pads == ((1, 1), (1, 1)))
+
+
+def stem_input(canvases_u8: torch.Tensor, img_hws: torch.Tensor,
+               in_hw: Tuple[int, int], dtype: torch.dtype,
+               stem_mode: str = "default") -> torch.Tensor:
+    """Canvases [B, H, W, 3] -> the net's uint8 input under ``stem_mode``:
+    the letterboxed images [B, h, w, 3], or in ``'patches'`` the stem's
+    im2col patches [B, Ho, 3, Wo, 3, 3] (the stems that take patches are
+    3x3, stride 2, padded by 1).  Either is exact as uint8: the values are
+    truncated integers.  ``dtype`` is that of the resample products."""
+    if stem_mode == "patches":
+        out = LB.letterbox_stem_patches(canvases_u8, img_hws, in_hw,
+                                        dtype=dtype)
+    else:
+        out = LB.letterbox_image(canvases_u8, img_hws, in_hw, dtype)
+    return out.to(torch.uint8)
+
+
 def folded_logits(net: YoloNet, weights: Mapping[str, torch.Tensor],
                   imgs_u8: torch.Tensor, dtype) -> List[torch.Tensor]:
-    """Letterboxed uint8 [B, h, w, 3] -> per-layer fp32 head logits, each
-    image's 1/max folded in after the stem conv (``dtype``: the net's
-    compute dtype or an ``Int8Act``)."""
-    inv_scale = 1.0 / torch.clamp_min(
-        torch.amax(imgs_u8, dim=(1, 2, 3)).to(torch.float32), 1e-12)
+    """Letterboxed uint8 [B, h, w, 3] (or the stem's patches of them,
+    whose max is the image's: every pixel lies in some patch) -> per-layer
+    fp32 head logits, each image's 1/max folded in after the stem conv
+    (``dtype``: the net's compute dtype or an ``Int8Act``)."""
+    inv_scale = 1.0 / torch.clamp_min(torch.amax(
+        imgs_u8, dim=tuple(range(1, imgs_u8.ndim))).to(torch.float32), 1e-12)
     preds = net_call(net, weights, imgs_u8, input_scale=inv_scale,
                      dtype=dtype)
     return [p.to(torch.float32) for p in preds]
@@ -110,14 +148,18 @@ class Predictor:
     and of every conv; BN, activations and the head stay fp32.  It may be
     an ``Int8Act``, which implies its quantize mode (a conflicting
     ``quantize`` raises).  ``quantize`` is one of ``QUANTIZE_MODES`` (see
-    the module docstring).  ``device`` is required: a CUDA device that is
-    not there raises, and nothing falls back to the CPU."""
+    the module docstring).  ``stem_mode`` is one of ``layers.STEM_MODES``,
+    set on the Predictor's copy of the net: ``'patches'`` needs a builder
+    with a stride-2 stem and ``quantize`` None or ``'int8'``.  ``device`` is
+    required: a CUDA device that is not there raises, and nothing falls
+    back to the CPU."""
 
     def __init__(self, net: YoloNet, state: Optional[Mapping[str, torch.Tensor]],
                  spec: YoloSpec, obj_thresh: float = 0.7,
                  iou_thresh: float = 0.3, class_softmax: bool = False,
                  max_out: int = 30, compute_dtype=None,
-                 quantize: Optional[str] = None, *, device):
+                 quantize: Optional[str] = None, stem_mode: str = "default",
+                 *, device):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Predictor(device={str(device)!r}): no CUDA "
@@ -144,10 +186,29 @@ class Predictor:
                                     static=quantize == "int8_act_cal")
         else:
             self.int8_act = None
+        if stem_mode not in STEM_MODES:
+            raise ValueError(f"unknown stem_mode {stem_mode!r}")
+        if stem_mode != "default":
+            if not hasattr(net, "stem_mode"):
+                raise ValueError(
+                    f"stem_mode={stem_mode!r} unsupported by "
+                    f"{type(net).__name__}")
+            if stem_mode == "patches" and not _takes_patches(net.stem):
+                raise ValueError(
+                    f"stem_mode='patches' needs a builder with a stride-2 "
+                    f"stem (yolo_mobilev1/yolo_mobilev2); "
+                    f"{type(net).__name__}'s stride-1 stem would "
+                    f"inflate pixel traffic ~9x")
+            if stem_mode == "patches" and quantize not in (None, "int8"):
+                raise ValueError(
+                    "stem_mode='patches' supports quantize=None or 'int8'")
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.quantize = quantize
         net = copy.deepcopy(net)
+        # on the copy: the caller's net keeps its own stem
+        net.stem_mode = stem_mode
+        self.stem_mode = stem_mode
         if state is not None:
             net.load_state_dict(state)
         net.eval().requires_grad_(False)
@@ -255,11 +316,19 @@ class Predictor:
 
     # ---- single image -----------------------------------------------------
 
+    def _letterbox_for_stem(self, canvases_u8: torch.Tensor,
+                            img_hws: torch.Tensor,
+                            dtype: torch.dtype) -> torch.Tensor:
+        """Canvases -> the net's uint8 input under the Predictor's
+        ``stem_mode`` (``stem_input``)."""
+        return stem_input(canvases_u8, img_hws, self.spec.in_hw, dtype,
+                          self.stem_mode)
+
     @torch.inference_mode()
     def _run_single(self, img_u8: torch.Tensor,
                     img_hw: torch.Tensor) -> NmsResult:
-        img = LB.letterbox_image(img_u8[None], img_hw[None], self.spec.in_hw,
-                                 torch.float32).to(torch.uint8)
+        img = self._letterbox_for_stem(img_u8[None], img_hw[None],
+                                       torch.float32)
         return self._head(self._forward(img), img_hw[None])
 
     def predict_image(self, img: np.ndarray) -> Detections:
@@ -277,15 +346,79 @@ class Predictor:
                        img_hws: torch.Tensor) -> List[torch.Tensor]:
         """Canvases [B, H, W, 3] uint8 (image top-left, zeros elsewhere) ->
         per-layer fp32 head logits."""
-        # uint8 store: exact, the values are truncated integers
-        imgs = LB.letterbox_image(canvases_u8, img_hws, self.spec.in_hw,
-                                  self.compute_dtype).to(torch.uint8)
-        return self._forward(imgs)
+        return self._forward(self._letterbox_for_stem(
+            canvases_u8, img_hws, self.compute_dtype))
 
     @torch.inference_mode()
     def _run_batch(self, canvases_u8: torch.Tensor,
                    img_hws: torch.Tensor) -> NmsResult:
         return self._head(self._forward_batch(canvases_u8, img_hws), img_hws)
+
+    # ---- data-parallel serving over a device mesh ---------------------------
+
+    def make_sharded_runner(self, mesh):
+        """Serving over a pure data-parallel ``parallel.make_mesh`` mesh,
+        one process a device, each holding this Predictor.  Returns
+        ``run(canvases [B, H, W, 3], img_hws [B, 2]) -> NmsResult`` on this
+        Predictor's device, which every rank calls with the whole batch (as
+        JAX's one controller is given it), B divisible by the data axis's
+        size dp.  Each rank copies only its contiguous B / dp shard to its
+        device and runs the whole serving program on it (``_run_batch``,
+        head kernel included, in every quantize mode); the fixed-shape
+        result fields are all-gathered over the data axis, so every rank
+        returns the whole batch's result.  The parameters are replicated:
+        rank 0 of the data axis broadcasts its weights (and calibrated
+        ranges) to the others here.  A mesh with a model or space axis
+        raises ``NotImplementedError``."""
+        import torch.distributed as dist
+
+        from k210_yolo_framework_tpu_torch.parallel.mesh import (
+            DATA_AXIS,
+            MODEL_AXIS,
+            SPACE_AXIS,
+            axis_size,
+        )
+
+        self._require_calibrated()
+        if axis_size(mesh, MODEL_AXIS) != 1 or axis_size(mesh, SPACE_AXIS) != 1:
+            raise NotImplementedError(
+                "make_sharded_runner serves a pure data-parallel mesh (mp = "
+                "sp = 1); the model and space axes are not ported yet "
+                "(ROADMAP queue 1 item 3)")
+        group = mesh.get_group(DATA_AXIS)
+        dp = axis_size(mesh, DATA_AXIS)
+        rank = mesh.get_local_rank(DATA_AXIS)
+        src = dist.get_global_rank(group, 0)
+        held = list(self.net.parameters()) + list(self.net.buffers())
+        held += [t for v in self.qweights.values() for t in v]
+        with torch.no_grad():
+            for t in held:
+                dist.broadcast(t, src=src, group=group)
+
+        def gather(t: torch.Tensor) -> torch.Tensor:
+            # as uint8: gloo has no bool all-gather
+            part = t.to(torch.uint8) if t.dtype == torch.bool else t
+            parts = [torch.empty_like(part) for _ in range(dp)]
+            dist.all_gather(parts, part.contiguous(), group=group)
+            out = torch.cat(parts)
+            return out.to(torch.bool) if t.dtype == torch.bool else out
+
+        def run(canvases, img_hws) -> NmsResult:
+            bsz = canvases.shape[0]
+            if bsz % dp:
+                raise ValueError(f"batch {bsz} does not divide by the data "
+                                 f"axis's size {dp}")
+            part = slice(rank * bsz // dp, (rank + 1) * bsz // dp)
+            c = torch.as_tensor(np.ascontiguousarray(canvases[part])
+                                if isinstance(canvases, np.ndarray)
+                                else canvases[part]).to(self.device)
+            h = torch.as_tensor(np.asarray(img_hws[part])
+                                if isinstance(img_hws, np.ndarray)
+                                else img_hws[part],
+                                dtype=torch.int32).to(self.device)
+            return NmsResult(*(gather(t) for t in self._run_batch(c, h)))
+
+        return run
 
     def predict_batch(self, canvases: np.ndarray,
                       img_hws: np.ndarray) -> List[Detections]:

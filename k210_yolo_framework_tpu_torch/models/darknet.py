@@ -31,14 +31,15 @@ _DARKNET53_STAGES = ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
 class TinyYoloBody(nn.Module):
     """Tiny YOLOv3 body: conv/pool ladder, the stride-1 pool before
     ``conv_6``; returns (stride-16 tap ``conv_4``, stride-32 trunk
-    ``conv_7``)."""
+    ``conv_7``).  ``stem_mode``: ``conv_0``'s."""
 
-    def __init__(self):
+    def __init__(self, stem_mode: str = "default"):
         super().__init__()
         c = 3
         for i, f in enumerate(_TINY_FILTERS):
             kernel = (1, 1) if i == 7 else (3, 3)
-            setattr(self, f"conv_{i}", DarknetConvBN(c, f, kernel))
+            setattr(self, f"conv_{i}", DarknetConvBN(
+                c, f, kernel, stem_mode=stem_mode if i == 0 else "default"))
             c = f
         self.tap16_channels = _TINY_FILTERS[4]
         self.out_channels = _TINY_FILTERS[7]
@@ -86,11 +87,11 @@ class _ResBlockBody(nn.Module):
 class Darknet53(nn.Module):
     """The 52-conv darknet body; returns the (stride-8, stride-16,
     stride-32) taps, the outputs of ``stage_3``, ``stage_4`` and
-    ``stage_5``."""
+    ``stage_5``.  ``stem_mode``: the stem's."""
 
-    def __init__(self):
+    def __init__(self, stem_mode: str = "default"):
         super().__init__()
-        self.stem = DarknetConvBN(3, 32, (3, 3))
+        self.stem = DarknetConvBN(3, 32, (3, 3), stem_mode=stem_mode)
         c = 32
         for i, (f, n) in enumerate(_DARKNET53_STAGES, start=1):
             setattr(self, f"stage_{i}", _ResBlockBody(c, f, n))

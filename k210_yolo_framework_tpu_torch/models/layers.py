@@ -23,7 +23,8 @@ checkpoint mechanically.
 serving-only int8-activation modes): then every bias-free dense conv but
 the stem computes int8 x int8 -> int32 (``Conv.forward_int8``), and the
 stem, the depthwise convs and the biased head convs stay in the sentinel's
-``out_dtype``.
+``out_dtype``.  A stem in the ``"nativeconv"`` stem mode computes int8 too,
+as the JAX dispatch gives it (``ConvBN.stem_mode``).
 """
 
 from __future__ import annotations
@@ -36,11 +37,15 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN", "Int8Act",
+           "STEM_MODES",
            "darknet_head_conv", "leaky_relu", "max_pool_same", "name_convs",
            "exact_div", "relu", "relu6", "smooth_max_pool_same",
            "smooth_witness", "split_dtype", "upsample2x"]
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+# the JAX package's serving stem variants (``ConvBN.stem_mode``)
+STEM_MODES = ("default", "patches", "nativeconv")
 
 _BN_EPS = 1e-3  # keras BatchNormalization's default, as the reference uses
 
@@ -241,10 +246,15 @@ class Conv(nn.Module):
         self.strides = tuple(strides)
         self.pads = tuple(tuple(p) for p in pads)
         self.groups = groups
-        # the JAX dispatch: the stem (cin <= 4), depthwise and biased convs
-        # stay wide under Int8Act
-        self.int8_capable = groups == 1 and not use_bias and cin > 4
+        self.int8_capable = self.int8_rule("default")
         self.scope = "conv"     # the module path, for error messages
+
+    def int8_rule(self, stem_mode: str) -> bool:
+        """Whether this conv computes int8 under Int8Act in ``stem_mode``:
+        the JAX dispatch keeps depthwise and biased convs wide, and a stem
+        (4 or fewer input channels) too unless it is ``"nativeconv"``."""
+        return self.groups == 1 and self.bias is None and (
+            self.weight.shape[1] > 4 or stem_mode == "nativeconv")
 
     def _conv2d(self, x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -260,6 +270,25 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(dtype)
         return self._conv2d(x.to(dtype), self.weight.to(dtype), bias)
+
+    def forward_patches(self, x: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+        """The conv over its im2col patches ``x`` [B, Ho, kh, Wo, kw, C]
+        (``ops/letterbox.letterbox_stem_patches``, the padding already in
+        them), the JAX ``_StemPatchesConv``: (kh, kw, C) contracted against
+        the OIHW ``weight`` in ``dtype``; an NCHW view out."""
+        cout, cin, kh, kw = self.weight.shape
+        if self.bias is not None or self.groups != 1 or x.ndim != 6 \
+                or (x.shape[2], x.shape[4], x.shape[5]) != (kh, kw, cin):
+            raise ValueError(
+                f"{self.scope}: the patches conv takes [N, Ho, {kh}, Wo, "
+                f"{kw}, {cin}] patches into a dense bias-free conv, got "
+                f"{tuple(x.shape)}")
+        b, ho, _, wo, _, _ = x.shape
+        cols = x.to(dtype).permute(0, 1, 3, 2, 4, 5).reshape(
+            b * ho * wo, kh * kw * cin)
+        k2 = self.weight.to(dtype).permute(0, 2, 3, 1).reshape(cout, -1)
+        return (cols @ k2.t()).reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
 
     def act_ranges(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(act_min, act_max), made at zero on ``device`` if absent."""
@@ -426,14 +455,31 @@ class ConvBN(nn.Module):
     ``explicit_pad``: ((top, bottom), (left, right)) zero padding before a
     VALID conv, how the reference writes every stride-2 conv; otherwise
     stride-1 convs are SAME and others VALID.  ``bn_momentum`` is the
-    BatchNorm's (the JAX ``ConvBN.bn_momentum``, default 0.99)."""
+    BatchNorm's (the JAX ``ConvBN.bn_momentum``, default 0.99).
+
+    ``stem_mode`` (one of ``STEM_MODES``, settable) is the JAX package's
+    serving stem variant:
+
+    * ``"default"``: the conv on the image (cuDNN through ``F.conv2d``);
+    * ``"patches"``: the input is already the conv's im2col patches from
+      ``ops/letterbox.letterbox_stem_patches``, padding included
+      (``Conv.forward_patches``), float dtypes only;
+    * ``"nativeconv"``: the same conv as ``"default"``, but under Int8Act a
+      stem of 4 or fewer input channels computes int8 like every other
+      dense conv (the JAX dispatch skips its wide-stem branch in this mode),
+      and holds an activation range in the calibrated mode.
+
+    JAX's own ``"default"`` stem (``_StemConv``, im2col and a matmul) and
+    its trace-time choice of ``nn.Conv`` are TPU dispatch workarounds: the
+    same function in another summation order, which ``F.conv2d`` computes.
+    """
 
     def __init__(self, cin: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1),
                  explicit_pad: Optional[Pads] = None,
                  act: Optional[Callable] = None, depthwise: bool = False,
-                 bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99, stem_mode: str = "default"):
         super().__init__()
         if explicit_pad is not None:
             pads = explicit_pad
@@ -446,6 +492,18 @@ class ConvBN(nn.Module):
                          groups=cin if depthwise else 1)
         self.bn = BatchNorm(cout, bn_momentum)
         self.act = act
+        self.stem_mode = stem_mode
+
+    @property
+    def stem_mode(self) -> str:
+        return self._stem_mode
+
+    @stem_mode.setter
+    def stem_mode(self, mode: str) -> None:
+        if mode not in STEM_MODES:
+            raise ValueError(f"unknown stem_mode {mode!r}")
+        self._stem_mode = mode
+        self.conv.int8_capable = self.conv.int8_rule(mode)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
                 post_conv_scale: Optional[torch.Tensor] = None
@@ -457,7 +515,12 @@ class ConvBN(nn.Module):
                 "Int8Act is a serving-only compute mode; build the training "
                 "net with a float dtype (train with bf16/fp32, serve with "
                 "quantize='int8_act')")
-        if int8_act is not None and self.conv.int8_capable:
+        if self.stem_mode == "patches":
+            if int8_act is not None:
+                raise ValueError("stem_mode='patches' has no int8-activation "
+                                 "path")
+            x = self.conv.forward_patches(x, dtype)
+        elif int8_act is not None and self.conv.int8_capable:
             x = self.conv.forward_int8(x, int8_act)
         else:
             x = self.conv(x, dtype)
@@ -476,16 +539,26 @@ class ConvBN(nn.Module):
 
 class DarknetConvBN(nn.Module):
     """``DarknetConv2D_BN_Leaky``: no bias, BN, LeakyReLU 0.1; the stride-2
-    variant pads top/left only."""
+    variant pads top/left only.  ``stem_mode`` as ``ConvBN``'s (these stems
+    are stride 1: ``"patches"`` is refused by the Predictor)."""
 
     def __init__(self, cin: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
-                 strides: Tuple[int, int] = (1, 1)):
+                 strides: Tuple[int, int] = (1, 1),
+                 stem_mode: str = "default"):
         super().__init__()
         explicit = ((1, 0), (1, 0)) if tuple(strides) == (2, 2) else None
         self.dark_conv_bn = ConvBN(cin, features, kernel, strides,
                                    explicit_pad=explicit,
-                                   act=leaky_relu(0.1))
+                                   act=leaky_relu(0.1), stem_mode=stem_mode)
+
+    @property
+    def stem_mode(self) -> str:
+        return self.dark_conv_bn.stem_mode
+
+    @stem_mode.setter
+    def stem_mode(self, mode: str) -> None:
+        self.dark_conv_bn.stem_mode = mode
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
                 post_conv_scale: Optional[torch.Tensor] = None

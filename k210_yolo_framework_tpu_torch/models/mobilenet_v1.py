@@ -50,15 +50,16 @@ class _DWBlock(nn.Module):
 
 
 class MobileNetV1(nn.Module):
-    """K210-modified MobileNetV1; ``alpha`` is the reference's DEPTHMUL."""
+    """K210-modified MobileNetV1; ``alpha`` is the reference's DEPTHMUL;
+    ``stem_mode`` the stem's (``layers.ConvBN.stem_mode``)."""
 
-    def __init__(self, alpha: float = 1.0):
+    def __init__(self, alpha: float = 1.0, stem_mode: str = "default"):
         super().__init__()
         a = alpha
         c = int(32 * a)
         self.stem = ConvBN(3, c, (3, 3), (2, 2),
                            explicit_pad=((1, 1), (1, 1)),
-                           act=leaky_relu(0.3))
+                           act=leaky_relu(0.3), stem_mode=stem_mode)
         block1 = int((40 if a == 1.0 else 64) * a)
         self.block_1 = _DWBlock(c, block1, (1, 1))
         c = block1
@@ -70,8 +71,9 @@ class MobileNetV1(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
                 input_scale: Optional[torch.Tensor] = None):
-        """x: NCHW.  ``input_scale`` [B]: per-image normalisation folded in
-        after the stem conv."""
+        """x: NCHW, or the stem's patches in the ``"patches"`` stem mode.
+        ``input_scale`` [B]: per-image normalisation folded in after the
+        stem conv."""
         x = self.stem(x, dtype, input_scale)
         x = self.block_1(x, dtype)
         tap16 = None

@@ -96,14 +96,15 @@ class _InvertedResBlock(nn.Module):
 
 
 class MobileNetV2(nn.Module):
-    """K210-modified MobileNetV2; ``alpha`` is the reference's DEPTHMUL."""
+    """K210-modified MobileNetV2; ``alpha`` is the reference's DEPTHMUL;
+    ``stem_mode`` the stem's (``layers.ConvBN.stem_mode``)."""
 
-    def __init__(self, alpha: float = 1.0):
+    def __init__(self, alpha: float = 1.0, stem_mode: str = "default"):
         super().__init__()
         a = alpha
         self.stem = ConvBN(3, 32, (3, 3), (2, 2),
                            explicit_pad=((1, 1), (1, 1)), act=relu6,
-                           bn_momentum=BN_MOMENTUM)
+                           bn_momentum=BN_MOMENTUM, stem_mode=stem_mode)
         c = 32
         for bid, (f, s, e) in enumerate(_BLOCKS):
             cap = {1: 48, 2: 124}.get(bid) if a > 0.6 else None

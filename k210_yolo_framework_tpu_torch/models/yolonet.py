@@ -62,7 +62,9 @@ class _TwoScaleHead(nn.Module):
 
 
 class YoloNet(nn.Module):
-    """A built detector: NHWC images in, per-layer head outputs out."""
+    """A built detector: NHWC images in, per-layer head outputs out.  Each
+    builder takes ``stem_mode`` (``layers.ConvBN.stem_mode``, default
+    ``"default"``) for its stem; ``net.stem_mode`` reads and sets it."""
 
     n_out_layers = 2
 
@@ -77,12 +79,29 @@ class YoloNet(nn.Module):
                input_scale: Optional[torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError
 
+    @property
+    def stem(self) -> nn.Module:
+        """The first conv, the one that sees the image."""
+        return self.backbone.stem
+
+    @property
+    def stem_mode(self) -> str:
+        """The stem's ``layers.ConvBN.stem_mode``; settable."""
+        return self.stem.stem_mode
+
+    @stem_mode.setter
+    def stem_mode(self, mode: str) -> None:
+        self.stem.stem_mode = mode
+
     def forward_raw(self, x: torch.Tensor,
                     input_scale: Optional[torch.Tensor] = None,
                     dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
         """x [B, H, W, 3] (any real dtype; cast to ``dtype`` by the stem
-        conv) -> per layer [B, h, w, a * (5 + C)] in ``dtype``."""
-        heads = self._heads(x.permute(0, 3, 1, 2), dtype, input_scale)
+        conv), or in the ``"patches"`` stem mode the stem's patches [B, Ho,
+        kh, Wo, kw, 3] -> per layer [B, h, w, a * (5 + C)] in ``dtype``."""
+        if self.stem_mode != "patches":
+            x = x.permute(0, 3, 1, 2)
+        heads = self._heads(x, dtype, input_scale)
         return [h.permute(0, 2, 3, 1) for h in heads]
 
     def reshape_outputs(self, outputs: List[torch.Tensor]
@@ -122,9 +141,9 @@ class YoloMobileV1(_TwoScaleNet):
     """yolo_mobilev1: y1 width 128 if alpha > 0.8 else 192, y2 width 128."""
 
     def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
-                 alpha: float = 0.75):
+                 alpha: float = 0.75, stem_mode: str = "default"):
         super().__init__(anchor_num, class_num, in_hw,
-                         MobileNetV1(alpha=alpha),
+                         MobileNetV1(alpha=alpha, stem_mode=stem_mode),
                          128 if alpha > 0.8 else 192, 128)
 
 
@@ -132,10 +151,10 @@ class YoloMobileV2(_TwoScaleNet):
     """yolo_mobilev2: both head widths 128 if alpha > 0.7 else 192."""
 
     def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
-                 alpha: float = 1.0):
+                 alpha: float = 1.0, stem_mode: str = "default"):
         w = 128 if alpha > 0.7 else 192
         super().__init__(anchor_num, class_num, in_hw,
-                         MobileNetV2(alpha=alpha), w, w)
+                         MobileNetV2(alpha=alpha, stem_mode=stem_mode), w, w)
 
 
 class TinyYolo(_TwoScaleNet):
@@ -143,9 +162,13 @@ class TinyYolo(_TwoScaleNet):
     builders' uniform signature)."""
 
     def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
-                 alpha: float = 1.0):
-        super().__init__(anchor_num, class_num, in_hw, TinyYoloBody(),
-                         512, 256)
+                 alpha: float = 1.0, stem_mode: str = "default"):
+        super().__init__(anchor_num, class_num, in_hw,
+                         TinyYoloBody(stem_mode=stem_mode), 512, 256)
+
+    @property
+    def stem(self) -> nn.Module:
+        return self.backbone.conv_0
 
 
 class Yolo(YoloNet):
@@ -156,10 +179,10 @@ class Yolo(YoloNet):
     n_out_layers = 3
 
     def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
-                 alpha: float = 1.0):
+                 alpha: float = 1.0, stem_mode: str = "default"):
         super().__init__(anchor_num, class_num, in_hw)
         out = anchor_num * (class_num + 5)
-        self.backbone = Darknet53()
+        self.backbone = Darknet53(stem_mode=stem_mode)
         c8, c16, c32 = self.backbone.tap_channels
         self.last_512 = LastLayers(c32, 512)
         self.y1_out = darknet_head_conv(1024, out)

@@ -14,10 +14,11 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["letterbox_params", "weight_mat", "letterbox_image",
-           "letterbox_boxes", "correct_boxes", "normalize_image",
-           "normalize_images"]
+           "letterbox_stem_patches", "letterbox_boxes", "correct_boxes",
+           "normalize_image", "normalize_images"]
 
 
 @functools.lru_cache(maxsize=16)
@@ -93,6 +94,54 @@ def letterbox_image(canvases: torch.Tensor, img_hws: torch.Tensor,
     out = torch.einsum("bhwc,bhi,bwj->bijc", canvases.to(dtype), w_h, w_w)
     out = torch.clamp(torch.trunc(out.to(torch.float32)), 0.0, 255.0)
     return out.to(dtype).contiguous()
+
+
+def _tap_columns(w: torch.Tensor, n_in: int, n_out: int, k: int, s: int,
+                 p: int) -> torch.Tensor:
+    """[B, src, n_in] resample weights -> [B, src, n_out * k]: column
+    (i, dy) is the canvas column ``s * i + dy - p``, or zeros where that tap
+    lands in the conv's zero padding."""
+    wp = F.pad(w, (p, max(0, s * (n_out - 1) + k - p - n_in)))
+    taps = [wp[:, :, dy::s][:, :, :n_out] for dy in range(k)]
+    return torch.stack(taps, dim=-1).reshape(w.shape[0], w.shape[1],
+                                             n_out * k)
+
+
+def letterbox_stem_patches(canvases: torch.Tensor, img_hws: torch.Tensor,
+                           in_hw: Tuple[int, int], *,
+                           kernel: Tuple[int, int] = (3, 3),
+                           stride: Tuple[int, int] = (2, 2),
+                           pad: Tuple[int, int] = (1, 1),
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """Letterbox a batch of canvases and emit the stem conv's im2col
+    patches directly: [B, Ho, kh, Wo, kw, C] of ``dtype``, where
+    ``out[b, i, dy, j, dx, c]`` is the zero-padded letterboxed canvas
+    ``letterbox_image(...)[b]`` at ``(sh * i + dy - ph, sw * j + dx - pw,
+    c)``.  The two resample matrices of ``letterbox_image`` get their
+    columns re-indexed (``_tap_columns``), so the canvas is never made.
+
+    The contraction runs over the canvas rows first, then its columns: the
+    order ``letterbox_image``'s einsum takes at the served shapes, so each
+    tap equals the canvas pixel bit for bit there.  (Left to torch's
+    einsum with opt_einsum, this equation's three operands would take the
+    other order at 240x320 canvases, and some taps would land a level off,
+    many of them in bf16.)"""
+    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, pad
+    ho = (in_hw[0] + 2 * ph - kh) // sh + 1
+    wo = (in_hw[1] + 2 * pw - kw) // sw + 1
+    scale, translation = letterbox_params(img_hws, in_hw)
+    adj = 0.5 * (1.0 - scale)
+    ty, tx = translation[:, 1] + adj, translation[:, 0] + adj
+    w_h = _tap_columns(weight_mat(canvases.shape[1], in_hw[0], scale, ty),
+                       in_hw[0], ho, kh, sh, ph).to(dtype)
+    w_w = _tap_columns(weight_mat(canvases.shape[2], in_hw[1], scale, tx),
+                       in_hw[1], wo, kw, sw, pw).to(dtype)
+    rows = torch.einsum("bhwc,bhp->bwcp", canvases.to(dtype), w_h)
+    out = torch.einsum("bwcp,bwq->bpqc", rows, w_w)
+    out = torch.clamp(torch.trunc(out.to(torch.float32)), 0.0, 255.0)
+    return out.to(dtype).reshape(canvases.shape[0], ho, kh, wo, kw,
+                                 canvases.shape[-1])
 
 
 def letterbox_boxes(boxes: torch.Tensor, img_hws: torch.Tensor,

@@ -27,7 +27,9 @@ The lane padding of the TPU version (``so`` slots rounded up to 128) has no
 meaning here: the buffers are exactly ``max_out`` wide.  The CUDA kernels
 ``csrc/nms.cu`` and ``csrc/yolo_head.cu`` run the same steps
 (``csrc/greedy_select.cuh``), one warp per row and G rows of one image a
-block; ``rows_per_block`` picks G for both.
+block; ``greedy_plan`` picks the layout of the rows and G for both:
+``shared`` (G > 1) or ``own`` (G == 1) in a block's shared memory, and
+``global`` (a scratch tensor, any N) where neither fits.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult, finish_winners
 
 __all__ = ["batched_nms_pallas", "batched_nms_pallas_reference",
-           "greedy_select_loop", "rows_per_block"]
+           "global_rows", "greedy_plan", "greedy_select_loop",
+           "own_capacity", "rows_per_block"]
 
 _NEG = -1e9
 
@@ -64,6 +67,33 @@ def rows_per_block(batch: int, classes: int, sms: int, footprint,
         if best_cost is None or cost <= best_cost:
             best, best_cost = g, cost
     return best
+
+
+def global_rows(batch: int, classes: int, sms: int, max_rows: int) -> int:
+    """G on the global path: ``rows_per_block`` with every G fitting (the
+    rows cost no shared memory there)."""
+    return rows_per_block(batch, classes, sms, lambda _: 0, 0, max_rows)
+
+
+def greedy_plan(batch: int, classes: int, sms: int, footprint, limit: int,
+                max_rows: int) -> tuple:
+    """(layout, G) of a launch of the greedy kernels: ``("shared", G)``
+    for G > 1 or ``("own", 1)``, the G of ``rows_per_block`` where some G's
+    shared-memory ``footprint(G)`` fits ``limit``; else ``("global",
+    global_rows(...))``, the rows in global scratch.  ``footprint(1)`` is
+    the ``own`` layout's, so the global path starts where one row's
+    candidates no longer fit a block (above 11,622 on an H100)."""
+    g = rows_per_block(batch, classes, sms, footprint, limit, max_rows)
+    if g:
+        return ("shared" if g > 1 else "own"), g
+    return "global", global_rows(batch, classes, sms, max_rows)
+
+
+def own_capacity(footprint, limit: int) -> int:
+    """The most candidates whose one-row ``own`` layout
+    (``footprint(n, 1)`` bytes) fits ``limit``: ``greedy_plan`` takes the
+    global path above it."""
+    return _build.largest_fitting(lambda n: footprint(n, 1), limit)
 
 
 def greedy_select_loop(scores: torch.Tensor, y0: torch.Tensor,
@@ -155,6 +185,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("nms")
     lib.nms_select.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.nms_select.restype = ctypes.c_int
@@ -162,8 +193,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.nms_error_string.restype = ctypes.c_char_p
     lib.nms_max_dynamic_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nms_max_dynamic_smem.restype = ctypes.c_int
-    lib.nms_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.nms_smem_bytes.restype = ctypes.c_size_t
+    for fn in (lib.nms_smem_bytes, lib.nms_scratch_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_size_t
     lib.nms_max_rows.argtypes = []
     lib.nms_max_rows.restype = ctypes.c_int
     return lib
@@ -188,29 +220,23 @@ def _smem_limit(device: torch.device) -> int:
 
 
 @functools.cache
-def _max_candidates(device: torch.device) -> int:
-    """Most candidates a block holds on ``device``: the layout of one row a
-    block (its scores and boxes compacted together) fits the most."""
+def _plan(device: torch.device, bsz: int, n: int, classes: int) -> tuple:
+    """(layout, G) for a launch of this shape (``greedy_plan``)."""
     lib = _kernel_lib()
-    return _build.largest_fitting(lambda n: lib.nms_smem_bytes(n, 1),
-                                  _smem_limit(device))
-
-
-@functools.cache
-def _rows(device: torch.device, bsz: int, n: int, classes: int) -> int:
-    """G for a launch of this shape (``rows_per_block``)."""
-    lib = _kernel_lib()
-    return rows_per_block(
+    return greedy_plan(
         bsz, classes, torch.cuda.get_device_properties(device)
         .multi_processor_count, lambda g: lib.nms_smem_bytes(n, g),
         _smem_limit(device), lib.nms_max_rows())
 
 
 def _launch(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
-            iou_thresh: float, score_thresh: float, rows: int | None = None):
-    """Run ``csrc/nms.cu`` on the current stream, ``rows`` class rows a
-    block (default: ``_rows``); returns the winner buffers [B, C, M] and
-    [B, C, M, 4]."""
+            iou_thresh: float, score_thresh: float, rows: int | None = None,
+            layout: str | None = None):
+    """Run ``csrc/nms.cu`` on the current stream; returns the winner
+    buffers [B, C, M] and [B, C, M, 4].  ``rows`` class rows a block and
+    their ``layout`` default to ``_plan``'s; a forced ``rows`` must fit
+    shared memory unless ``layout`` is ``"global"``, which runs the global
+    path at any N (default G: ``global_rows``)."""
     bsz, n, classes = scores.shape
     for name, t in (("boxes", boxes), ("scores", scores)):
         if t.device != scores.device or t.dtype != torch.float32 \
@@ -223,11 +249,8 @@ def _launch(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
     if boxes.data_ptr() % 16:
         raise ValueError("boxes: the kernel reads each box as one 16-byte "
                          "vector and needs a 16-byte aligned tensor")
-    if n > _max_candidates(scores.device):
-        raise ValueError(f"{n} candidates do not fit one block's shared "
-                         f"memory; the kernel takes at most "
-                         f"{_max_candidates(scores.device)} on "
-                         f"{scores.device}")
+    if layout not in (None, "global"):
+        raise ValueError(f"layout {layout!r}: None (planned) or 'global'")
     out_scores = torch.empty((bsz, classes, max_out), dtype=torch.float32,
                              device=scores.device)
     out_boxes = torch.empty((bsz, classes, max_out, 4), dtype=torch.float32,
@@ -235,21 +258,36 @@ def _launch(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int,
     if bsz == 0 or classes == 0 or max_out == 0:
         return out_scores, out_boxes
     lib = _kernel_lib()
-    if rows is None:
-        rows = _rows(scores.device, bsz, n, classes)
+    if layout == "global":
+        if rows is None:
+            rows = global_rows(bsz, classes, torch.cuda.get_device_properties(
+                scores.device).multi_processor_count, lib.nms_max_rows())
+        elif not 1 <= rows <= lib.nms_max_rows():
+            raise ValueError(f"{rows} class rows a block: 1 to "
+                             f"{lib.nms_max_rows()}")
+    elif rows is None:
+        layout, rows = _plan(scores.device, bsz, n, classes)
     elif not 1 <= rows <= lib.nms_max_rows() or \
             lib.nms_smem_bytes(n, rows) > _smem_limit(scores.device):
         raise ValueError(f"{rows} class rows a block of {n} candidates do "
                          f"not fit one block's shared memory (1 to "
                          f"{lib.nms_max_rows()} rows)")
+    scratch = None
+    if layout == "global":
+        blocks = bsz * -(-classes // rows)
+        scratch = torch.empty(blocks * lib.nms_scratch_bytes(n, rows) // 4,
+                              dtype=torch.float32, device=scores.device)
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         err = lib.nms_select(boxes.data_ptr(), scores.data_ptr(),
                              out_scores.data_ptr(), out_boxes.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(),
                              bsz, n, classes, rows, max_out, iou_thresh,
                              score_thresh, stream)
     _check(lib, err, "kernel launch")
     batched_nms_pallas.launches += 1
+    if scratch is not None:
+        batched_nms_pallas.global_launches += 1
     return out_scores, out_boxes
 
 
@@ -259,7 +297,8 @@ def batched_nms_pallas(boxes: torch.Tensor, scores: torch.Tensor,
     """boxes [B, N, 4] yxyx, scores [B, N, C] -> NmsResult [B, C * max_out].
 
     CPU tensors go through ``batched_nms_pallas_reference``; CUDA tensors
-    through the kernel, counted in ``batched_nms_pallas.launches``."""
+    through the kernel at any N, counted in ``batched_nms_pallas.launches``
+    (and those on the global path also in ``.global_launches``)."""
     device = scores.device
     if device.type == "cpu":
         return batched_nms_pallas_reference(boxes, scores, score_thresh,
@@ -274,3 +313,4 @@ def batched_nms_pallas(boxes: torch.Tensor, scores: torch.Tensor,
 
 
 batched_nms_pallas.launches = 0
+batched_nms_pallas.global_launches = 0

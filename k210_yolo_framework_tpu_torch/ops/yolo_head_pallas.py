@@ -5,9 +5,10 @@ Counterpart of ``k210_yolo_framework_tpu/ops/yolo_head_pallas.py``.
 ``fused_decode_nms`` dispatches by the device of its input: on the CPU it
 runs ``fused_decode_nms_reference`` (plain torch, whole batch at once); on a
 CUDA device it launches the hand-written kernel ``csrc/yolo_head.cu`` (one
-thread block per image and group of class rows, one warp per row; G from
-``ops/nms_pallas.rows_per_block``) or raises.  There is no fallback from
-the kernel to the plain version.
+thread block per image and group of class rows, one warp per row; the rows'
+layout and G from ``ops/nms_pallas.greedy_plan``: in shared memory, or, for
+more candidates than a block holds, in a global scratch tensor) or raises.
+There is no fallback from the kernel to the plain version.
 
 Reference math: decode as ``ops/decode.py`` of the JAX package (sigmoid xy +
 grid offset, exp wh * anchor), ``correct_box`` letterbox inverse with ROUND
@@ -29,8 +30,9 @@ from k210_yolo_framework_tpu_torch.ops import _build
 from k210_yolo_framework_tpu_torch.ops.letterbox import _const
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult, finish_winners
 from k210_yolo_framework_tpu_torch.ops.nms_pallas import (
+    global_rows,
+    greedy_plan,
     greedy_select_loop,
-    rows_per_block,
 )
 
 __all__ = ["candidate_geometry", "letterbox_inverse_params",
@@ -167,7 +169,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("yolo_head")
     lib.yolo_head_decode_nms.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.yolo_head_decode_nms.restype = ctypes.c_int
@@ -175,12 +177,13 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.yolo_head_error_string.restype = ctypes.c_char_p
     lib.yolo_head_max_dynamic_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.yolo_head_max_dynamic_smem.restype = ctypes.c_int
-    lib.yolo_head_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.yolo_head_smem_bytes.restype = ctypes.c_size_t
+    for fn in (lib.yolo_head_smem_bytes, lib.yolo_head_scratch_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_size_t
     lib.yolo_head_max_rows.argtypes = []
     lib.yolo_head_max_rows.restype = ctypes.c_int
-    lib.yolo_head_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.POINTER(ctypes.c_int)]
+    lib.yolo_head_blocks_per_sm.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.yolo_head_blocks_per_sm.restype = ctypes.c_int
     return lib
 
@@ -204,44 +207,41 @@ def _smem_limit(device: torch.device) -> int:
     return nbytes.value
 
 
-@functools.cache
-def _max_candidates(device: torch.device) -> int:
-    """Most candidates a block holds on ``device``: the layout of one row a
-    block (its scores and boxes compacted together, 5 floats each) fits the
-    most."""
-    lib = _kernel_lib()
-    return _build.largest_fitting(lambda n: lib.yolo_head_smem_bytes(n, 1),
-                                  _smem_limit(device))
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
-def _rows(device: torch.device, bsz: int, n: int, classes: int) -> int:
-    """G for a launch of this shape (``rows_per_block``)."""
+def _plan(device: torch.device, bsz: int, n: int, classes: int) -> tuple:
+    """(layout, G) for a launch of this shape (``greedy_plan``)."""
     lib = _kernel_lib()
-    return rows_per_block(
-        bsz, classes, torch.cuda.get_device_properties(device)
-        .multi_processor_count, lambda g: lib.yolo_head_smem_bytes(n, g),
-        _smem_limit(device), lib.yolo_head_max_rows())
+    return greedy_plan(bsz, classes, _sms(device),
+                       lambda g: lib.yolo_head_smem_bytes(n, g),
+                       _smem_limit(device), lib.yolo_head_max_rows())
 
 
-def _blocks_per_sm(device: torch.device, n: int, rows: int) -> int:
-    """Blocks of ``rows`` class rows of n candidates one SM of ``device``
-    holds at once (CUDA's occupancy calculator)."""
+def _blocks_per_sm(device: torch.device, n: int, rows: int,
+                   layout: str) -> int:
+    """Blocks of ``rows`` class rows of n candidates in ``layout`` one SM
+    of ``device`` holds at once (CUDA's occupancy calculator)."""
     lib = _kernel_lib()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _check(lib, lib.yolo_head_blocks_per_sm(n, rows, ctypes.byref(blocks)),
-               "occupancy query")
+        _check(lib, lib.yolo_head_blocks_per_sm(
+            n, rows, int(layout == "global"), ctypes.byref(blocks)),
+            "occupancy query")
     return blocks.value
 
 
 def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
             classes: int, max_out: int, iou_thresh: float,
             score_thresh: float, class_softmax: bool,
-            rows: int | None = None):
-    """Run ``csrc/yolo_head.cu`` on the current stream, ``rows`` class rows
-    a block (default: ``_rows``); returns the winner buffers [B, C, M] and
-    [B, C, M, 4]."""
+            rows: int | None = None, layout: str | None = None):
+    """Run ``csrc/yolo_head.cu`` on the current stream; returns the winner
+    buffers [B, C, M] and [B, C, M, 4].  ``rows`` class rows a block and
+    their ``layout`` default to ``_plan``'s; a forced ``rows`` must fit
+    shared memory unless ``layout`` is ``"global"``, which runs the global
+    path at any N (default G: ``global_rows``)."""
     bsz, n, e = p.shape
     for name, t in (("logits", p), ("geometry", geom), ("lbox", lbox)):
         if t.device != p.device or t.dtype != torch.float32 \
@@ -252,10 +252,8 @@ def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
         raise ValueError(f"shape mismatch: logits {tuple(p.shape)}, geometry "
                          f"{tuple(geom.shape)}, lbox {tuple(lbox.shape)}, "
                          f"classes {classes}")
-    if n > _max_candidates(p.device):
-        raise ValueError(f"{n} candidates do not fit one block's shared "
-                         f"memory; the kernel takes at most "
-                         f"{_max_candidates(p.device)} on {p.device}")
+    if layout not in (None, "global"):
+        raise ValueError(f"layout {layout!r}: None (planned) or 'global'")
     out_scores = torch.empty((bsz, classes, max_out), dtype=torch.float32,
                              device=p.device)
     out_boxes = torch.empty((bsz, classes, max_out, 4), dtype=torch.float32,
@@ -263,22 +261,37 @@ def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
     if bsz == 0 or classes == 0 or max_out == 0:
         return out_scores, out_boxes
     lib = _kernel_lib()
-    if rows is None:
-        rows = _rows(p.device, bsz, n, classes)
-    elif not 1 <= rows <= lib.yolo_head_max_rows() or \
+    max_rows = lib.yolo_head_max_rows()
+    if layout == "global":
+        if rows is None:
+            rows = global_rows(bsz, classes, _sms(p.device), max_rows)
+        elif not 1 <= rows <= max_rows:
+            raise ValueError(f"{rows} class rows a block: 1 to {max_rows}")
+    elif rows is None:
+        layout, rows = _plan(p.device, bsz, n, classes)
+    elif not 1 <= rows <= max_rows or \
             lib.yolo_head_smem_bytes(n, rows) > _smem_limit(p.device):
         raise ValueError(f"{rows} class rows a block of {n} candidates do "
                          f"not fit one block's shared memory (1 to "
-                         f"{lib.yolo_head_max_rows()} rows)")
+                         f"{max_rows} rows)")
+    scratch = None
+    if layout == "global":
+        blocks = bsz * -(-classes // rows)
+        scratch = torch.empty(
+            blocks * lib.yolo_head_scratch_bytes(n, rows) // 4,
+            dtype=torch.float32, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.yolo_head_decode_nms(
             p.data_ptr(), geom.data_ptr(), lbox.data_ptr(),
             out_scores.data_ptr(), out_boxes.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             bsz, n, classes, rows, max_out, iou_thresh, score_thresh,
             int(class_softmax), stream)
     _check(lib, err, "kernel launch")
     fused_decode_nms.launches += 1
+    if scratch is not None:
+        fused_decode_nms.global_launches += 1
     return out_scores, out_boxes
 
 
@@ -289,7 +302,8 @@ def fused_decode_nms(preds: Sequence[torch.Tensor], spec: YoloSpec,
     """preds: per layer [B, h, w, a, 5+C] raw logits; img_hws [B, 2] (h, w).
 
     CPU tensors go through ``fused_decode_nms_reference``; CUDA tensors
-    through the kernel, counted in ``fused_decode_nms.launches``."""
+    through the kernel at any N, counted in ``fused_decode_nms.launches``
+    (and those on the global path also in ``.global_launches``)."""
     device = preds[0].device
     if device.type == "cpu":
         return fused_decode_nms_reference(preds, spec, img_hws, score_thresh,
@@ -306,3 +320,4 @@ def fused_decode_nms(preds: Sequence[torch.Tensor], spec: YoloSpec,
 
 
 fused_decode_nms.launches = 0
+fused_decode_nms.global_launches = 0

@@ -68,6 +68,15 @@ def _preds(spec, bsz, seed, shift=0.0):
     return out
 
 
+def _own_capacity(dev) -> int:
+    """The most candidates both greedy kernels hold in shared memory."""
+    return min(
+        TN.own_capacity(TH._kernel_lib().yolo_head_smem_bytes,
+                        TH._smem_limit(dev)),
+        TN.own_capacity(TN._kernel_lib().nms_smem_bytes,
+                        TN._smem_limit(dev)))
+
+
 def _close(got, want, thresh):
     g = [t.cpu().numpy() for t in got]
     w = [t.cpu().numpy() for t in want]
@@ -134,7 +143,7 @@ def test_wrapper_rejects_bad_inputs(dev):
     for n, g in ((1, 1), (1050, 1), (1050, 2), (1050, 20), (4410, 5),
                  (11618, 1), (8937, 1), (3, 32)):
         assert lib.yolo_head_smem_bytes(n, g) == _greedy_footprint(n, g)
-    limit = TH._max_candidates(dev)
+    limit = TN.own_capacity(lib.yolo_head_smem_bytes, TH._smem_limit(dev))
     assert _greedy_footprint(limit, 1) <= TH._smem_limit(dev) \
         < _greedy_footprint(limit + 1, 1)
     optin = getattr(torch.cuda.get_device_properties(dev),
@@ -146,13 +155,23 @@ def test_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="shared memory"):
         TH._launch(p, geom, lbox, rows=33, **kw)
     big = torch.zeros((1, limit + 1, 25), device=dev)
+    # a forced G must fit shared memory; the planned path takes any N
     with pytest.raises(ValueError, match="shared memory"):
         TH._launch(big, torch.zeros((8, limit + 1), device=dev),
-                   lbox[:1].contiguous(), **kw)
-    # the largest accepted candidate count launches
+                   lbox[:1].contiguous(), rows=1, **kw)
+    # the largest candidate count a block holds stays in shared memory, one
+    # more goes to the global path
+    assert TH._plan(dev, 1, limit, 20) == ("own", 1)
+    assert TH._plan(dev, 1, limit + 1, 20)[0] == "global"
+    before = TH.fused_decode_nms.global_launches
     TH._launch(big[:, :limit].contiguous(), torch.zeros((8, limit), device=dev),
                lbox[:1].contiguous(), **kw)
+    TH._launch(big, torch.zeros((8, limit + 1), device=dev),
+               lbox[:1].contiguous(), **kw)
     torch.cuda.synchronize()
+    assert TH.fused_decode_nms.global_launches == before + 1
+    with pytest.raises(ValueError, match="layout"):
+        TH._launch(p, geom, lbox, layout="shared", **kw)
 
 
 def test_predictor_on_card_uses_the_kernel(dev):
@@ -459,7 +478,7 @@ def test_nms_wrapper_rejects_bad_inputs(dev):
     for n, g in ((1, 1), (1050, 1), (1050, 2), (1050, 20), (4410, 5),
                  (11618, 1), (8937, 1), (3, 32)):
         assert lib.nms_smem_bytes(n, g) == _greedy_footprint(n, g)
-    limit = TN._max_candidates(dev)
+    limit = TN.own_capacity(lib.nms_smem_bytes, TN._smem_limit(dev))
     assert _greedy_footprint(limit, 1) <= TN._smem_limit(dev) \
         < _greedy_footprint(limit + 1, 1)
     optin = getattr(torch.cuda.get_device_properties(dev),
@@ -469,12 +488,26 @@ def test_nms_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="shared memory"):
         TN._launch(boxes, scores, rows=0, **kw)
     big = torch.zeros((1, limit + 1, 20), device=dev)
+    # a forced G must fit shared memory; the planned path takes any N
     with pytest.raises(ValueError, match="shared memory"):
-        TN._launch(torch.zeros((1, limit + 1, 4), device=dev), big, **kw)
-    # the largest accepted candidate count launches
+        TN._launch(torch.zeros((1, limit + 1, 4), device=dev), big, rows=1,
+                   **kw)
+    assert TN._plan(dev, 1, limit, 20) == ("own", 1)
+    assert TN._plan(dev, 1, limit + 1, 20)[0] == "global"
+    before = TN.batched_nms_pallas.global_launches
     TN._launch(torch.zeros((1, limit, 4), device=dev), big[:, :limit]
                .contiguous(), **kw)
+    TN._launch(torch.zeros((1, limit + 1, 4), device=dev), big, **kw)
     torch.cuda.synchronize()
+    assert TN.batched_nms_pallas.global_launches == before + 1
+
+
+def _scratch_bytes(n, g, per_candidate):
+    """Global scratch of one block by its definition
+    (``csrc/greedy_select.cuh:scratch_floats``): n rounded up to 4, times
+    the block's own floats a candidate (head 5: box and area; NMS 1: the
+    area) and each row's (score, 32-bit index)."""
+    return 4 * (-(-n // 4) * 4) * (per_candidate + 2 * g)
 
 
 def _greedy_footprint(n, g):
@@ -522,7 +555,7 @@ def _greedy_inputs(case, dev, seed=6):
     rng = np.random.default_rng(seed)
     classes = spec.class_num
     if case == "largest_n":
-        n = min(TH._max_candidates(dev), TN._max_candidates(dev))
+        n = _own_capacity(dev)
         p = rng.normal(0, 2, (bsz, n, 5 + classes)).astype(np.float32)
         geom = np.concatenate([rng.uniform(0, 20, (2, n)),
                                rng.uniform(0.02, 0.2, (2, n)),
@@ -572,17 +605,19 @@ def _check_rows(case, res, classes, max_out):
         assert v.any()
 
 
+@pytest.mark.parametrize("layout", [None, "global"])
 @pytest.mark.parametrize("case", sorted(GREEDY_CASES))
-def test_head_kernel_greedy_cases(dev, case):
+def test_head_kernel_greedy_cases(dev, case, layout):
     """The head kernel against its plain version (``_close``) on the cases
-    the warp-per-row loop must get right."""
+    the warp-per-row loop must get right, in the planned layout and on the
+    global path."""
     bsz, thresh, max_out, rows = GREEDY_CASES[case]
     p, geom, lbox, classes = _greedy_inputs(case, dev)
     kw = dict(classes=classes, max_out=max_out, iou_thresh=0.3)
     before = TH.fused_decode_nms.launches
     got = finish_winners(*TH._launch(p, geom, lbox, score_thresh=thresh,
-                                     class_softmax=False, rows=rows, **kw),
-                         thresh)
+                                     class_softmax=False, rows=rows,
+                                     layout=layout, **kw), thresh)
     torch.cuda.synchronize()
     assert TH.fused_decode_nms.launches == before + 1
     w_s, *w_box = TH._decode_and_select(p, geom, lbox, class_softmax=False,
@@ -592,8 +627,9 @@ def test_head_kernel_greedy_cases(dev, case):
     _check_rows(case, got, classes, max_out)
 
 
+@pytest.mark.parametrize("layout", [None, "global"])
 @pytest.mark.parametrize("case", sorted(GREEDY_CASES))
-def test_nms_kernel_greedy_cases_bit_for_bit(dev, case):
+def test_nms_kernel_greedy_cases_bit_for_bit(dev, case, layout):
     """NMS alone against its plain version, bit for bit, on the same cases,
     the head's candidates decoded; at the negative thresholds most scores
     are -inf or -3e9 (suppression can raise them to -1e9)."""
@@ -614,7 +650,7 @@ def test_nms_kernel_greedy_cases_bit_for_bit(dev, case):
     before = TN.batched_nms_pallas.launches
     got = finish_winners(*TN._launch(boxes, scores, max_out=max_out,
                                      iou_thresh=0.45, score_thresh=thresh,
-                                     rows=rows), thresh)
+                                     rows=rows, layout=layout), thresh)
     torch.cuda.synchronize()
     assert TN.batched_nms_pallas.launches == before + 1
     want = TN.batched_nms_pallas_reference(boxes, scores, thresh, 0.45,
@@ -622,6 +658,75 @@ def test_nms_kernel_greedy_cases_bit_for_bit(dev, case):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     _check_rows(case, got, classes, max_out)
+
+
+def _yolo_spec_at(side):
+    """The three-scale spec at side x side (N = 3 * 21 * (side / 32)^2)."""
+    anchors = _three_scale_spec().anchors
+    return YoloSpec.create((side, side), tuple(
+        (side // st, side // st) for st in (32, 16, 8)), 20, anchors)
+
+
+@pytest.mark.parametrize("what,bsz", [
+    ("limit_plus_1", 2), ("yolo608", 2), ("yolo1088", 1)])
+def test_greedy_kernels_take_any_candidate_count(dev, what, bsz):
+    """Above the most candidates a block holds, both kernels run on the
+    global path and agree with their plain versions (the head by
+    ``_close``, NMS bit for bit): one more than the limit, the darknet53
+    yolo at 608x608 (N=22,743) and at 1088x1088 (N=72,828, above 16-bit
+    indices); scores shifted so that rows run many steps."""
+    limit = _own_capacity(dev)
+    rng = np.random.default_rng(11)
+    if what == "limit_plus_1":
+        n, spec = limit + 1, voc_spec()
+        geom = torch.from_numpy(np.concatenate([
+            rng.uniform(0, 20, (2, n)), rng.uniform(0.02, 0.2, (2, n)),
+            rng.uniform(0.05, 0.9, (2, n)), np.ones((1, n)),
+            np.zeros((1, n))]).astype(np.float32)).to(dev)
+    else:
+        spec = _yolo_spec_at(608 if what == "yolo608" else 1088)
+        n = sum(h * w for h, w in spec.out_hws) * spec.nanchors
+        geom = TH._geometry_on(spec, dev)
+    assert n > limit and n == {"yolo608": 22_743, "yolo1088": 72_828}.get(
+        what, n)
+    p = torch.from_numpy(rng.normal(0, 2, (bsz, n, 25)).astype(np.float32))
+    p[..., 4:] += 1.5
+    p = p.to(dev)
+    hws = torch.from_numpy(rng.integers(100, 1200, (bsz, 2)).astype(
+        np.int32)).to(dev)
+    lbox = TH.letterbox_inverse_params(hws, spec.in_hw).contiguous()
+    kw = dict(classes=20, max_out=30, iou_thresh=0.3)
+    assert TH._plan(dev, bsz, n, 20)[0] == "global"
+    before = TH.fused_decode_nms.global_launches
+    got = finish_winners(*TH._launch(p, geom, lbox, score_thresh=0.5,
+                                     class_softmax=False, **kw), 0.5)
+    torch.cuda.synchronize()
+    assert TH.fused_decode_nms.global_launches == before + 1
+    w_s, *w_box = TH._decode_and_select(p, geom, lbox, class_softmax=False,
+                                        stop_below=0.5, **kw)
+    _close(got, finish_winners(w_s, torch.stack(w_box, dim=-1), 0.5), 0.5)
+    assert got.valid.reshape(bsz, 20, 30).all()
+
+    *corners, scores = TH._decode(p, geom, lbox, classes=20,
+                                  class_softmax=False)
+    boxes = torch.cat(corners, dim=1).transpose(1, 2).contiguous()
+    scores = scores.transpose(1, 2).contiguous()
+    before = TN.batched_nms_pallas.global_launches
+    got = TN.batched_nms_pallas(boxes, scores, 0.5, 0.45, 30)
+    torch.cuda.synchronize()
+    assert TN.batched_nms_pallas.global_launches == before + 1
+    want = TN.batched_nms_pallas_reference(boxes, scores, 0.5, 0.45, 30)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert got.valid.any()
+
+
+def test_scratch_footprints_follow_their_definition(dev):
+    for n, g in ((1, 1), (1050, 20), (11623, 1), (22743, 2), (72828, 32)):
+        assert TH._kernel_lib().yolo_head_scratch_bytes(n, g) == \
+            _scratch_bytes(n, g, 5)
+        assert TN._kernel_lib().nms_scratch_bytes(n, g) == \
+            _scratch_bytes(n, g, 1)
 
 
 def _dwsep_args(shape, dtype, dev, seed=8):

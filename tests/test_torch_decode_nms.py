@@ -270,8 +270,52 @@ def test_rows_per_block_matches_a_scan(limit):
         assert pick(128, footprint=lambda g: _greedy_footprint(1050, g)) == 20
         assert pick(32, footprint=lambda g: _greedy_footprint(1050, g)) == 5
         assert pick(1, footprint=lambda g: _greedy_footprint(1050, g)) == 1
-        assert _build.largest_fitting(lambda n: _greedy_footprint(n, 1),
-                                      limit) >= 11618
+        assert TNP.own_capacity(_greedy_footprint, limit) >= 11618
+
+
+H100_SMEM = 232_448     # an H100's opt-in shared memory a block, in bytes
+
+
+@pytest.mark.parametrize("n", [1050, 4410, 11622, 11623, 22743, 72828])
+def test_greedy_plan_follows_the_footprint(n):
+    """The wrappers' choice of layout against the footprint arithmetic, on
+    an H100 (132 SMs, 227 KB a block): the rows stay in shared memory while
+    one G's footprint fits (G > 1 shares the boxes, G == 1 keeps 20 bytes a
+    candidate, which fits up to 11,622), and go to global scratch above,
+    where every G fits and ``rows_per_block`` picks among all of them.
+    Today's shapes keep their layout: N=1,050 at G=20 (B=128) and 5 (B=32),
+    N=4,410 at G=5."""
+    for batch in (128, 32, 8, 1):
+        plan = TNP.greedy_plan(batch, 20, 132,
+                               lambda g: _greedy_footprint(n, g), H100_SMEM,
+                               32)
+        if 20 * n > H100_SMEM:
+            # every G fits on the global path
+            want = ("global", TNP.rows_per_block(batch, 20, 132, lambda g: 0,
+                                                 0, 32))
+        elif n * (20 + 6 * 2) > H100_SMEM or batch * 20 <= 132:
+            want = ("own", 1)
+        else:
+            want = ("shared", TNP.rows_per_block(
+                batch, 20, 132, lambda g: _greedy_footprint(n, g), H100_SMEM,
+                32))
+        assert plan == want, (batch, n)
+    on_global = n > 11_622
+    assert TNP.own_capacity(_greedy_footprint, H100_SMEM) == 11_622
+    assert (TNP.greedy_plan(128, 20, 132, lambda g: _greedy_footprint(n, g),
+                            H100_SMEM, 32)[0] == "global") == on_global
+    if n == 1050:
+        assert TNP.greedy_plan(128, 20, 132, lambda g: _greedy_footprint(
+            n, g), H100_SMEM, 32) == ("shared", 20)
+        assert TNP.greedy_plan(32, 20, 132, lambda g: _greedy_footprint(
+            n, g), H100_SMEM, 32) == ("shared", 5)
+    if n == 4410:
+        assert TNP.greedy_plan(128, 20, 132, lambda g: _greedy_footprint(
+            n, g), H100_SMEM, 32) == ("shared", 5)
+    if on_global:
+        # the global G at the batches phase 18 serves
+        assert [TNP.global_rows(b, 20, 132, 32) for b in (128, 8, 1)] == [
+            20, 2, 1]
 
 
 def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
