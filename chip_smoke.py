@@ -5,7 +5,7 @@ then the three other builders served and trained (phase 15), the
 command-line entry points (phase 16), quantized serving, the export and
 the ``Helper`` facade (phase 17), and the darknet53 yolo at 608x608 with
 the greedy kernels' global path, the stem modes and data-parallel serving
-(phase 18).
+(phase 18), and data-parallel training (phase 19).
 
     python3 chip_smoke.py
 
@@ -172,7 +172,18 @@ Phases (any failure raises and the script exits non-zero):
      exactly.  Data-parallel serving:
      ``make_sharded_runner(make_mesh())`` over a world-size-1 NCCL group at
      B=128, bit for bit against ``_run_batch``, and its rate (one GPU: no
-     multi-GPU number).
+     multi-GPU number);
+ 19. training on the data axis over a world-size-1 NCCL group (one GPU:
+     no multi-GPU number): ``fit(mesh=make_mesh())`` against ``fit``, 3
+     steps of yolo_mobilev1 (alpha 0.75) at B=128 in bf16 with augment on
+     and 1 validation step, same weights, generator and host batches,
+     cuDNN deterministic: parameters, BN running statistics, Adam moments
+     and logged scalars bit for bit (or, with the differing tensors
+     printed, within 10x a batch-permutation control), one rotation launch
+     a step; the mesh step against the plain step on one preprocessed
+     batch (CUDA events, plain, mesh, mesh, plain) with a kernel profile
+     of each and the NCCL share; ``cli.keras_train --mesh auto`` in
+     process for 2 steps (one rotation launch a step, its checkpoint).
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -288,6 +299,7 @@ def device_ms(fn, iters: int, cycles: int = 1 << 24) -> float:
 
 
 KERNEL_CATEGORIES = (
+    ("nccl", ("nccl",)),
     ("head kernel", ("yolo_head",)),
     ("rotate kernel", ("rotate_kernel",)),
     ("conv/matmul", ("conv2d", "convolve", "depthwise", "gemm",
@@ -320,7 +332,7 @@ def kernel_profile(fn, iters: int):
         count, us = per_name.get(ev.name, (0, 0.0))
         per_name[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
     by_cat = {"head kernel": 0.0, "rotate kernel": 0.0, "conv/matmul": 0.0,
-              "elementwise/other": 0.0, "memcpy/memset": 0.0}
+              "nccl": 0.0, "elementwise/other": 0.0, "memcpy/memset": 0.0}
     n_kernels = 0
     for name, (count, us) in per_name.items():
         low = name.lower()
@@ -3090,6 +3102,268 @@ def any_n_stems_and_dp_phase(device, tag, ann, canvases, hws, image):
     return (head[0] + stem + dp, head[1]), nms, head_t, nms_t
 
 
+MESH_STEPS = 3     # fit's train steps in phase 19, with and without a mesh
+MESH_TIMED = 10    # mesh and plain step timings, each (plain, mesh x2, plain)
+
+
+def host_collectives(fn, iters: int) -> list:
+    """The host side of ``fn``'s collectives under torch.profiler: each
+    CPU event whose name holds "allreduce" or "all_reduce", as (name,
+    calls per call of fn, host ms per call of fn, its total including what
+    it calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(ev.key, ev.count / iters, ev.cpu_time_total / 1e3 / iters)
+            for ev in prof.key_averages()
+            if any(k in ev.key.lower() for k in ("allreduce", "all_reduce"))]
+
+
+def state_differences(a, b) -> list:
+    """What differs, bit for bit, between two TrainStates of the same net:
+    the state dict's tensors (parameters, BN running statistics), each
+    parameter's Adam state (moments and step), the masks, the step."""
+    import torch
+
+    sa, sb = a.net.state_dict(), b.net.state_dict()
+    diff = [f"net {k}" for k in sa if not torch.equal(sa[k], sb[k])]
+    pb = dict(b.net.named_parameters())
+    for name, p in a.net.named_parameters():
+        mine, theirs = a.optimizer.state[p], b.optimizer.state[pb[name]]
+        if sorted(mine) != sorted(theirs):
+            diff.append(f"adam {name}: {sorted(mine)} vs {sorted(theirs)}")
+            continue
+        diff += [f"adam {name} {k}" for k in mine
+                 if not torch.equal(mine[k], theirs[k])]
+    diff += [f"mask {k}" for k in a.masks
+             if not torch.equal(a.masks[k], b.masks[k])]
+    if a.step != b.step:
+        diff.append(f"step {a.step} vs {b.step}")
+    return diff
+
+
+def rel_l1(a, b) -> float:
+    """The worst parameter's sum|a - b| / sum|b| over two nets
+    (tests/test_parallel_equivalence.py's statistic)."""
+    pb = dict(b.named_parameters())
+    return max(float((p.detach() - pb[n].detach()).abs().sum()
+                     / (pb[n].detach().abs().sum() + 1e-12))
+               for n, p in a.named_parameters())
+
+
+def mesh_training(device, tag, ann):
+    """Phase 19: ``fit(mesh=make_mesh())`` over a world-size-1 NCCL group
+    against ``fit`` without a mesh, 3 steps of yolo_mobilev1 (alpha 0.75)
+    at B=128 in bf16 with augment on and 1 validation step, from the same
+    weights, generator and host batches, with cuDNN on deterministic
+    algorithms for both: parameters, BN running statistics, Adam moments
+    and logged scalars bit for bit (else the differing tensors are printed
+    and the two are held to 10x a batch-permutation control), one rotation
+    launch a step; the mesh step against the plain step on one
+    preprocessed batch (CUDA events, plain, mesh, mesh, plain) and a
+    kernel profile of the mesh step with its NCCL share; then
+    ``cli.keras_train --mesh auto`` in this process for 2 steps.  The
+    machine has one GPU: no multi-GPU rate is taken.  Returns the rotation
+    launches of the mesh runs."""
+    import copy
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from k210_yolo_framework_tpu_torch import voc_spec
+    from k210_yolo_framework_tpu_torch.cli import keras_train as KT
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.data.annotations import (
+        split_train_test,
+    )
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+    from k210_yolo_framework_tpu_torch.parallel import init_world, make_mesh
+    from k210_yolo_framework_tpu_torch.training import checkpoint as CK
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    t_phase = time.perf_counter()
+    spec = voc_spec()
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, max_epochs=1, augment=True)
+    train_ann, test_ann = split_train_test(ann, 0.5)
+    # decoded once: both runs take the same host batches
+    it = iter(PL.DataPipeline(train_ann, TRAIN_BATCH, seed=0))
+    batches = [next(it) for _ in range(MESH_STEPS)]
+    it.close()
+    it = iter(PL.DataPipeline(test_ann, TRAIN_BATCH, seed=1))
+    test = next(it)
+    it.close()
+    net0 = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                         spec.class_num, alpha=0.75,
+                         generator=torch.Generator().manual_seed(0))
+    pp_train = PL.make_preprocess_fn(spec, True, torch.bfloat16)
+    pp_test = PL.make_preprocess_fn(spec, False, torch.bfloat16)
+
+    def run(mesh):
+        scalars, lines = [], []
+        state = TT.fit(copy.deepcopy(net0), spec, cfg, iter(batches),
+                       iter([test]), pp_train, pp_test, MESH_STEPS, 1,
+                       device=device,
+                       generator=torch.Generator().manual_seed(cfg.rand_seed),
+                       compute_dtype=torch.bfloat16, log_fn=lines.append,
+                       scalar_logger=lambda s, d: scalars.append((s, d)),
+                       mesh=mesh)
+        torch.cuda.synchronize()
+        return state, scalars, lines[-1].split("img/s)")[-1].strip()
+
+    def permutation_control(plain_state):
+        """rel_l1 of the plain trajectory against the same steps on each
+        step's preprocessed batch with its halves swapped."""
+        gen = torch.Generator().manual_seed(cfg.rand_seed)
+        state = TT.create_train_state(copy.deepcopy(net0), cfg, device)
+        step = TT.make_train_step(spec, cfg, torch.bfloat16)
+        swap = torch.cat([torch.arange(TRAIN_BATCH // 2, TRAIN_BATCH),
+                          torch.arange(TRAIN_BATCH // 2)]).to(device)
+        for hb in batches:
+            with torch.no_grad():
+                images, labels = pp_train(*hb.to(device), gen)
+            state, _ = step(state, images[swap], [l[swap] for l in labels])
+        return rel_l1(state.net, plain_state.net)
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        plain, p_scalars, p_val = run(None)
+        with tempfile.TemporaryDirectory() as tmp:
+            init_world("cuda", f"file://{tmp}/init", 0, 1)
+            try:
+                mesh = make_mesh()
+                TR.rotate_3shear.launches = 0
+                meshed, m_scalars, m_val = run(mesh)
+                launches = TR.rotate_3shear.launches
+                diff = state_differences(meshed, plain)
+                same_logs = m_scalars == p_scalars and m_val == p_val
+                n_adam = sum(len(v) for v in meshed.optimizer.state.values())
+                print(f"mesh training: fit(mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}) "
+                      f"over NCCL (world size 1: this machine has one GPU, "
+                      f"so no multi-GPU rate is taken) against fit, "
+                      f"{MESH_STEPS} steps b{TRAIN_BATCH} bf16 augment on: "
+                      f"rotate kernel launches {launches}; "
+                      f"{len(meshed.net.state_dict())} state tensors and "
+                      f"{n_adam} Adam entries, differing {len(diff)}; "
+                      f"logged scalars equal {m_scalars == p_scalars}, "
+                      f"validation '{m_val}' vs '{p_val}'")
+                if launches != MESH_STEPS:
+                    raise AssertionError("the rotate kernel did not run once "
+                                         "per mesh train step")
+                if not all(np.isfinite(v) for _, d in m_scalars
+                           for v in d.values()):
+                    raise AssertionError(f"mesh scalars: {m_scalars}")
+                if diff or not same_logs:
+                    print(f"mesh training: not bit for bit; differing: "
+                          f"{diff[:12]}")
+                    err, ctl = (rel_l1(meshed.net, plain.net),
+                                permutation_control(plain))
+                    print(f"mesh training: parameters rel_l1 {err:.3g} "
+                          f"against the permutation control's {ctl:.3g}")
+                    if not err < 10 * max(ctl, 1e-6):
+                        raise AssertionError("the mesh fit departs from fit "
+                                             "beyond 10x the control")
+                else:
+                    print("mesh training: bit for bit equal to fit "
+                          "(parameters, BN statistics, Adam moments and "
+                          "steps, logged scalars, validation)")
+
+                # the step alone on one preprocessed batch
+                hb = batches[0].to(device)
+                with torch.no_grad():
+                    images, labels = pp_train(
+                        *hb, generator=torch.Generator().manual_seed(3))
+                plain_step = TT.make_train_step(spec, cfg, torch.bfloat16)
+                mesh_step = TT.make_train_step(spec, cfg, torch.bfloat16,
+                                               mesh=mesh)
+                st = meshed
+                p1, m1, m2, p2 = (
+                    time_ms(lambda: plain_step(st, images, labels), MESH_TIMED),
+                    time_ms(lambda: mesh_step(st, images, labels), MESH_TIMED),
+                    time_ms(lambda: mesh_step(st, images, labels), MESH_TIMED),
+                    time_ms(lambda: plain_step(st, images, labels), MESH_TIMED))
+                print(f"mesh training: train step b{TRAIN_BATCH} bf16 on one "
+                      f"preprocessed batch: mesh {m1:.3f}/{m2:.3f} ms, plain "
+                      f"{p1:.3f}/{p2:.3f} ms (mesh - plain "
+                      f"{(m1 + m2 - p1 - p2) / 2:+.3f} ms; cuDNN deterministic) {tag}")
+                for label, fn, wall in (
+                        ("mesh", lambda: mesh_step(st, images, labels),
+                         (m1 + m2) / 2),
+                        ("plain", lambda: plain_step(st, images, labels),
+                         (p1 + p2) / 2)):
+                    n_k, dev_ms, by_cat, top = kernel_profile(fn, iters=3)
+                    if n_k == 0:
+                        print(f"profile {label} step: the profiler recorded "
+                              f"no device events; device time not measured "
+                              f"{tag}")
+                        continue
+                    cats = ", ".join(f"{k} {v:.3f} ms"
+                                     for k, v in by_cat.items())
+                    print(f"profile {label} step b{TRAIN_BATCH} bf16: "
+                          f"{n_k:g} kernels/step, device {dev_ms:.3f} ms of "
+                          f"{wall:.3f} ms timed (busy share "
+                          f"{dev_ms / wall:.3f}); NCCL share of device time "
+                          f"{by_cat['nccl'] / dev_ms:.4f}; {cats} {tag}")
+                    for name, ms, count in top[:4]:
+                        print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
+                # where the mesh step's host time goes: its collectives
+                for name, calls, ms in host_collectives(
+                        lambda: mesh_step(st, images, labels), iters=3):
+                    print(f"host collectives of the mesh step: {name} "
+                          f"x{calls:g} a step, {ms:.3f} ms of host time a "
+                          f"step (callees included) {tag}")
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+
+    # the entry point: keras_train --mesh auto joins its own world (one
+    # process: one visible card) and trains 2 steps
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(f"{root}/data")
+        np.save(f"{root}/data/{CLI_SET}_img_ann.npy", ann)
+        np.save(f"{root}/data/{CLI_SET}_anchor.npy", np.asarray(spec.anchors))
+        os.chdir(root)
+        try:
+            TR.rotate_3shear.launches = 0
+            t0 = time.perf_counter()
+            run_dir, text = captured(lambda: KT.main(KT.parse_args(
+                CLI_NET + ["--mesh", "auto", "--batch_size", "64",
+                           "--vaildation_split", "0.5", "--max_nrof_epochs",
+                           "1", "--log_dir", "logm"])))
+            torch.cuda.synchronize()
+            cli_launches = TR.rotate_3shear.launches
+            steps = [json.loads(line)["step"] for line in
+                     (run_dir / "scalars.jsonl").read_text().splitlines()]
+            state = TT.create_train_state(copy.deepcopy(net0), cfg, device)
+            resumed = CK.restore_state(str(run_dir / "ckpt"), state).step
+            print(f"mesh training: keras_train --mesh auto (b64 bf16): "
+                  f"rotate kernel launches {cli_launches}, scalars at steps "
+                  f"{steps}, ckpt at step {resumed}; wall "
+                  f"{time.perf_counter() - t0:.1f} s {tag}")
+            if "over 1 processes (nccl)" not in text or steps != [1, 2] \
+                    or resumed != 2 or cli_launches != 2:
+                raise AssertionError("keras_train --mesh auto did not train "
+                                     "2 steps over NCCL")
+        finally:
+            os.chdir(here)
+    print(f"phase 19: wall seconds {time.perf_counter() - t_phase:.1f}")
+    return launches + cli_launches
+
+
 def main() -> int:
     import torch
 
@@ -3365,6 +3639,8 @@ def run(device) -> int:
         (p18_head, p18_head_global), (p18_nms, p18_nms_global), \
             head_global_t, nms_global_t = any_n_stems_and_dp_phase(
                 device, tag, ann, canvases, hws, image)
+        # ---- 19. training on the data axis --------------------------------
+        p19_rot = mesh_training(device, tag, ann)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
@@ -3388,7 +3664,7 @@ def run(device) -> int:
         "source": "k210_yolo_framework_tpu_torch/csrc/rotate3shear.cu",
         "replaces": "k210_yolo_framework_tpu/ops/rotate_pallas.py:113",
         **rot,
-        "launches": rot["launches"] + q_rot,
+        "launches": rot["launches"] + q_rot + p19_rot,
     }, {
         "name": "nms_select",
         "route": "cuda",

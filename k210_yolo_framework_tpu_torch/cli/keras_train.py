@@ -13,38 +13,168 @@ with ``--profile True`` a trace of step 3 in ``profile/``.  ``--pre_ckpt``
 takes anything ``training.checkpoint.load_variables`` reads; a ``ckpt/``
 directory also resumes the optimizer and the step count.  SIGINT / SIGTERM
 end training at a step boundary and the run is saved.
+
+``--mesh dp[,mp[,sp]] | auto`` trains data-parallel, one process a device
+(``training.train.fit(mesh=)``: the global batch's step, BatchNorm on the
+global batch's statistics).  Under torchrun each process joins the world
+from its environment:
+
+    torchrun --nproc_per_node 4 \
+        -m k210_yolo_framework_tpu_torch.cli.keras_train --mesh auto ...
+
+Run plainly, the script starts the ranks itself: ``--mesh auto`` one a
+visible card (one process where there is one card), ``--mesh N`` N
+processes (``--device cpu``: gloo ranks on the CPU, ``auto`` one).  A
+CUDA mesh is NCCL (nothing falls back to gloo or to the CPU), the batch
+must divide by dp, and mp or sp above 1 raise ``NotImplementedError``.
+Only rank 0 writes the run's files and prints; every rank reads
+``--pre_ckpt``, and rank 0's state is the one replicated.
 """
 
 import argparse
+import contextlib
 import json
+import os
 import sys
+import tempfile
 from datetime import datetime
 from pathlib import Path
+
+
+def mesh_dims(text: str) -> list:
+    """``--mesh``'s 'dp[,mp[,sp]]' as [dp, mp, sp] (1 for an axis not
+    given), or [] for 'auto' / none; more than three axes exit with the
+    JAX script's text, mp or sp above 1 raise ``NotImplementedError``."""
+    dims = [int(x) for x in text.split(",")] \
+        if text and text != "auto" else []
+    if len(dims) > 3:
+        raise SystemExit(f"--mesh {text!r}: format is 'dp,mp[,sp]' "
+                         "or 'auto' (at most 3 axes)")
+    dims = dims + [1] * (3 - len(dims)) if dims else []
+    if dims and (dims[1] > 1 or dims[2] > 1):
+        raise NotImplementedError(
+            f"--mesh {text!r}: training needs a pure data-parallel mesh (mp "
+            "= sp = 1); the model and space axes are not ported yet "
+            "(ROADMAP queue 1 item 3)")
+    return dims
+
+
+def _check_divisible(batch_size: int, dp: int, text: str) -> None:
+    if batch_size % dp:
+        raise SystemExit(f"--batch_size {batch_size} does not divide by the "
+                         f"data axis's size {dp} (--mesh {text!r})")
+
+
+def _run_dir(args) -> Path:
+    return Path(args.log_dir) / datetime.now().strftime("%Y%m%d-%H%M%S")
 
 
 def main(args) -> Path:
     """Train, save, and return the run's directory."""
     import torch
+    import torch.distributed as dist
+
+    from k210_yolo_framework_tpu_torch.training import train as T
+
+    if not args.mesh:
+        return _train(args, T.checked_device(args.device), _run_dir(args))
+    dims = mesh_dims(args.mesh)
+    device = T.checked_device(args.device)
+    if dist.is_initialized():          # the caller's world
+        return _train(args, device, None, joined=True)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:     # torchrun
+        return _rank_main(None, None, None, args, None)
+    if dims:
+        world = dims[0]
+    else:
+        world = torch.cuda.device_count() if device.type == "cuda" else 1
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise SystemExit(f"--mesh {args.mesh!r}: {world} processes, one a "
+                         f"card, but {torch.cuda.device_count()} visible")
+    _check_divisible(args.batch_size, world, args.mesh)
+    run_dir = _run_dir(args)
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn = (f"file://{tmp}/init", args, run_dir)
+        if world == 1:
+            _rank_main(0, 1, *spawn)
+        else:
+            import torch.multiprocessing as mp
+
+            mp.spawn(_rank_main, args=(world, *spawn), nprocs=world)
+    return run_dir
+
+
+def _rank_main(rank, world, init_method, args, run_dir) -> Path:
+    """One rank of a ``--mesh`` run: join the world (from torchrun's
+    environment where ``rank`` is None), train, leave."""
+    import torch
+    import torch.distributed as dist
+
+    from k210_yolo_framework_tpu_torch.parallel import init_world
+
+    if rank is None:
+        device = init_world(args.device)
+    else:
+        device = init_world(args.device, init_method, rank, world)
+        if device.type == "cpu" and world > 1:
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        return _train(args, device, run_dir, joined=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device, run_dir, joined: bool = False) -> Path:
+    """The run on ``device``; ``joined``: on a ``--mesh`` over the process
+    group this process has joined (``run_dir`` None: rank 0's)."""
+    import torch
+    import torch.distributed as dist
 
     from k210_yolo_framework_tpu_torch.cli import str2bool
     from k210_yolo_framework_tpu_torch.config import TrainConfig, YoloSpec
     from k210_yolo_framework_tpu_torch.data import annotations as ANN
     from k210_yolo_framework_tpu_torch.data import pipeline as PL
     from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.parallel import make_mesh
     from k210_yolo_framework_tpu_torch.training import checkpoint as CK
     from k210_yolo_framework_tpu_torch.training import train as T
     from k210_yolo_framework_tpu_torch.utils import INFO
     from k210_yolo_framework_tpu_torch.utils.tboard import SummaryWriter
 
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh!r}: multi-GPU training is not ported "
-            "(ROADMAP.md, queue 1: multi-GPU)")
-    device = T.checked_device(args.device)
+    mesh = None
+    rank0 = True
+    if joined:
+        dims = mesh_dims(args.mesh)
+        if device.type == "cuda" and dist.get_backend() != "nccl":
+            raise RuntimeError(f"--mesh on {device}: the process group is "
+                               f"{dist.get_backend()}, not NCCL")
+        mesh = make_mesh(*(dims or [None]), device_type=device.type)
+        dp = mesh.shape[0]
+        _check_divisible(args.batch_size, dp, args.mesh)
+        rank0 = dist.get_rank() == 0
+        if run_dir is None:            # rank 0 names the run
+            name = [str(_run_dir(args))]
+            if dist.get_world_size() > 1:
+                dist.broadcast_object_list(name, src=0)
+            run_dir = Path(name[0])
+        print_ = print if rank0 else (lambda *_a, **_k: None)
+        print_(INFO, f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                     f"over {dist.get_world_size()} processes "
+                     f"({dist.get_backend()})")
+    else:
+        print_ = print
 
-    log_dir = Path(args.log_dir) / datetime.now().strftime("%Y%m%d-%H%M%S")
-    log_dir.mkdir(parents=True, exist_ok=True)
-    CK.write_args_txt(vars(args), str(log_dir / "args.txt"))
+    def written() -> None:
+        """Rank 0 has written a file of the run: the others wait for it."""
+        if mesh is not None:
+            dist.barrier()
+
+    log_dir = run_dir
+    if rank0:
+        log_dir.mkdir(parents=True, exist_ok=True)
+        CK.write_args_txt(vars(args), str(log_dir / "args.txt"))
+    written()
 
     spec = YoloSpec.from_files(
         f"data/{args.train_set}_anchor.npy",
@@ -96,55 +226,65 @@ def main(args) -> Path:
         else:
             net.load_state_dict(CK.load_variables(args.pre_ckpt,
                                                   args.model_def, net))
-        print(INFO, f"Load CKPT {args.pre_ckpt} (step {state.step})")
+        print_(INFO, f"Load CKPT {args.pre_ckpt} (step {state.step})")
 
     pp_train = PL.make_preprocess_fn(spec, is_training=cfg.augment,
                                      dtype=dtype)
     pp_test = PL.make_preprocess_fn(spec, is_training=False, dtype=dtype)
 
-    # per-step scalars: jsonl + a TensorBoard event file
-    with open(log_dir / "scalars.jsonl", "a") as scalar_log:
-        tb = SummaryWriter(str(log_dir))
+    # per-step scalars: jsonl + a TensorBoard event file, from rank 0
+    with contextlib.ExitStack() as stack:
+        scalar_logger = None
+        if rank0:
+            scalar_log = stack.enter_context(
+                open(log_dir / "scalars.jsonl", "a"))
+            tb = SummaryWriter(str(log_dir))
+            stack.callback(tb.close)
 
-        def scalar_logger(step, logs):
-            scalar_log.write(json.dumps({"step": step, **logs}) + "\n")
-            scalar_log.flush()  # the tail survives a killed run
-            tb.add_scalars(list(logs.items()), step)
+            def scalar_logger(step, logs):
+                scalar_log.write(json.dumps({"step": step, **logs}) + "\n")
+                scalar_log.flush()  # the tail survives a killed run
+                tb.add_scalars(list(logs.items()), step)
 
-        try:
-            state = T.fit(
-                net, spec, cfg,
-                iter(train_pipe), iter(test_pipe) if test_pipe else None,
-                pp_train, pp_test,
-                train_pipe.epoch_step,
-                test_pipe.epoch_step if test_pipe else 0,
-                device=device, compute_dtype=dtype,
-                scalar_logger=scalar_logger, state=state,
-                profile_dir=(str(log_dir / "profile")
-                             if str2bool(args.profile) else ""))
-        finally:
-            tb.close()
+        state = T.fit(
+            net, spec, cfg,
+            iter(train_pipe), iter(test_pipe) if test_pipe else None,
+            pp_train, pp_test,
+            train_pipe.epoch_step,
+            test_pipe.epoch_step if test_pipe else 0,
+            device=device, compute_dtype=dtype,
+            scalar_logger=scalar_logger, state=state,
+            profile_dir=(str(log_dir / "profile")
+                         if str2bool(args.profile) else ""),
+            mesh=mesh)
+    written()
 
     if args.bn_recalibrate > 0:
-        print(INFO, f"recalibrating BN statistics over {args.bn_recalibrate} "
-                    "batches")
+        print_(INFO, f"recalibrating BN statistics over "
+                     f"{args.bn_recalibrate} batches")
         T.recalibrate_batch_stats(net, iter(train_pipe), pp_test,
                                   num_batches=args.bn_recalibrate,
-                                  device=device, compute_dtype=dtype)
+                                  device=device, compute_dtype=dtype,
+                                  mesh=mesh)
 
     stem = log_dir / ("yolo_prune_model" if cfg.is_prune else "yolo_model")
-    written = [f"{stem}.npz"]
-    CK.save_npz(written[0], net)
+    weights = [f"{stem}.npz"]
     try:
         import h5py  # noqa: F401
     except ImportError:
         pass
     else:
-        written.append(f"{stem}.h5")
-        CK.save_h5(written[1], net)
-    CK.save_state(str(log_dir / "ckpt"), state)
-    print(INFO, f"Save Model as {' and '.join(written)}; train state in "
-                f"{log_dir / 'ckpt'}")
+        weights.append(f"{stem}.h5")
+    if rank0:
+        CK.save_npz(weights[0], net)
+        if len(weights) > 1:
+            CK.save_h5(weights[1], net)
+    written()
+    if rank0:
+        CK.save_state(str(log_dir / "ckpt"), state)
+    written()
+    print_(INFO, f"Save Model as {' and '.join(weights)}; train state in "
+                 f"{log_dir / 'ckpt'}")
     return log_dir
 
 
@@ -186,7 +326,9 @@ def parse_args(argv):
                         help="after training, replace BatchNorm EMA stats "
                              "with arithmetic means over N train batches")
     parser.add_argument("--mesh", type=str, default="",
-                        help="not ported: multi-GPU training raises")
+                        help="'dp[,mp[,sp]]' or 'auto': data-parallel "
+                             "training, one process a device (mp or sp "
+                             "above 1 raise: not ported yet)")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["float32", "bfloat16"],
                         help="conv-stack compute dtype (params and loss "

@@ -82,11 +82,40 @@ def make_preprocess_fn(spec: YoloSpec, is_training: bool,
     ``params``, see ``ops/augment.py``) -> per-image /max -> label encode.
     ``dtype`` (default float32) is the pixel dtype of letterbox, augment
     and normalise; pass bfloat16 when the net computes in bf16.  Box and
-    label math stays fp32."""
+    label math stays fp32.
+
+    With ``slots=(lo, hi)`` (a data-parallel rank's share, see
+    ``parallel.slot_range``) the four arrays are the whole global batch, on
+    the host, and the result is slots ``[lo, hi)`` of the global batch's
+    result on ``device`` (default: where the arrays are).  Training draws
+    the global batch's augment (the same generator calls as without
+    ``slots``, so every rank's generator stays in step), and only the
+    slots' source images (``augment.slot_draws``) are copied to
+    ``device``, letterboxed and augmented with the slots' draws; without
+    augment the sources are the contiguous rows ``[lo, hi)``."""
     dtype = dtype or torch.float32
 
+    def rank_share(batch, generator, params, slots, device):
+        lo, hi = slots
+        if is_training:
+            if params is None:
+                params = A.draw_params(len(batch[1]), spec.in_hw,
+                                       generator=generator)
+            src, params = A.slot_draws(params, lo, hi)
+        else:
+            src = torch.arange(lo, hi)
+        picked = (torch.as_tensor(a[src.to(a.device)] if torch.is_tensor(a)
+                                  else np.asarray(a)[src.numpy()])
+                  for a in batch)
+        return tuple(t if device is None else t.to(device)
+                     for t in picked), params
+
     def preprocess(canvases, img_hws, boxes, valid, generator=None,
-                   params=None):
+                   params=None, slots=None, device=None):
+        if slots is not None:
+            (canvases, img_hws, boxes, valid), params = rank_share(
+                (canvases, img_hws, boxes, valid), generator, params, slots,
+                device)
         imgs = LB.letterbox_image(canvases, img_hws, spec.in_hw, dtype)
         boxes = LB.letterbox_boxes(boxes.to(torch.float32), img_hws,
                                    spec.in_hw)

@@ -372,22 +372,12 @@ class Predictor:
         raises ``NotImplementedError``."""
         import torch.distributed as dist
 
-        from k210_yolo_framework_tpu_torch.parallel.mesh import (
-            DATA_AXIS,
-            MODEL_AXIS,
-            SPACE_AXIS,
-            axis_size,
-        )
+        from k210_yolo_framework_tpu_torch.parallel import mesh as PM
 
         self._require_calibrated()
-        if axis_size(mesh, MODEL_AXIS) != 1 or axis_size(mesh, SPACE_AXIS) != 1:
-            raise NotImplementedError(
-                "make_sharded_runner serves a pure data-parallel mesh (mp = "
-                "sp = 1); the model and space axes are not ported yet "
-                "(ROADMAP queue 1 item 3)")
-        group = mesh.get_group(DATA_AXIS)
-        dp = axis_size(mesh, DATA_AXIS)
-        rank = mesh.get_local_rank(DATA_AXIS)
+        PM.require_data_parallel(mesh, "make_sharded_runner")
+        group = PM.data_group(mesh)
+        dp = dist.get_world_size(group)
         src = dist.get_global_rank(group, 0)
         held = list(self.net.parameters()) + list(self.net.buffers())
         held += [t for v in self.qweights.values() for t in v]
@@ -404,11 +394,7 @@ class Predictor:
             return out.to(torch.bool) if t.dtype == torch.bool else out
 
         def run(canvases, img_hws) -> NmsResult:
-            bsz = canvases.shape[0]
-            if bsz % dp:
-                raise ValueError(f"batch {bsz} does not divide by the data "
-                                 f"axis's size {dp}")
-            part = slice(rank * bsz // dp, (rank + 1) * bsz // dp)
+            part = slice(*PM.slot_range(canvases.shape[0], mesh))
             c = torch.as_tensor(np.ascontiguousarray(canvases[part])
                                 if isinstance(canvases, np.ndarray)
                                 else canvases[part]).to(self.device)

@@ -19,6 +19,10 @@ Parameter names follow the flax scopes (``conv.weight`` for ``conv/kernel``,
 ``bn.weight`` for ``bn/scale``), so ``training/checkpoint.py`` maps a native
 checkpoint mechanically.
 
+With a data-parallel process group set on the net (:func:`set_data_group`,
+done by the train step on a mesh), train-mode BatchNorm normalises with the
+statistics of the whole global batch, as JAX's one GSPMD program does.
+
 ``dtype`` may also be the :class:`Int8Act` sentinel (the JAX package's
 serving-only int8-activation modes): then every bias-free dense conv but
 the stem computes int8 x int8 -> int32 (``Conv.forward_int8``), and the
@@ -33,14 +37,16 @@ import copy
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN", "Int8Act",
            "STEM_MODES",
            "darknet_head_conv", "leaky_relu", "max_pool_same", "name_convs",
-           "exact_div", "relu", "relu6", "smooth_max_pool_same",
-           "smooth_witness", "split_dtype", "upsample2x"]
+           "exact_div", "relu", "relu6", "set_data_group",
+           "smooth_max_pool_same", "smooth_witness", "split_dtype",
+           "upsample2x"]
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -409,6 +415,25 @@ def name_convs(net: nn.Module) -> nn.Module:
     return net
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over a process group whose backward sums the incoming gradient
+    over the same group: every rank's output is used by every rank's
+    loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over channels in fp32, in flax's order:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
@@ -419,11 +444,19 @@ class BatchNorm(nn.Module):
     ``r = m * r + (1 - m) * batch`` with m = ``momentum`` (flax's
     default 0.99; MobileNetV2 uses 0.999).  ``F.batch_norm`` would store
     the unbiased variance, so the statistics are written out here.  In eval
-    mode the running statistics normalise."""
+    mode the running statistics normalise.
+
+    With ``data_group`` set (a process group over ranks holding equal
+    shards of one batch), the batch is the global one: each rank's
+    ``E[x]`` and ``E[x^2]``, weighted by its share 1 / dp, are summed over
+    the group by a sum whose backward sums the gradient too, so the
+    statistics, the running ones and the gradients are the whole batch's.
+    At dp = 1 that is this arithmetic exactly (a product by 1.0)."""
 
     def __init__(self, features: int, momentum: float = 0.99):
         super().__init__()
         self.momentum = momentum
+        self.data_group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -433,8 +466,13 @@ class BatchNorm(nn.Module):
         x = x.to(torch.float32)
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                                  0.0)
+            sq = (x * x).mean(dim=(0, 2, 3))
+            if self.data_group is not None:
+                share = 1.0 / dist.get_world_size(self.data_group)
+                mean, sq = _AllReduceSum.apply(
+                    torch.stack([mean, sq]) * share,
+                    self.data_group).unbind(0)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -447,6 +485,15 @@ class BatchNorm(nn.Module):
         if torch.is_grad_enabled():
             return y * mul[:, None, None] + self.bias[:, None, None]
         return y.mul_(mul[:, None, None]).add_(self.bias[:, None, None])
+
+
+def set_data_group(net: nn.Module, group) -> nn.Module:
+    """Set (a process group) or clear (None) the data-parallel group of
+    every :class:`BatchNorm` in ``net``; returns ``net``."""
+    for mod in net.modules():
+        if isinstance(mod, BatchNorm):
+            mod.data_group = group
+    return net
 
 
 class ConvBN(nn.Module):

@@ -18,7 +18,11 @@ handed in ready-made as :class:`AugmentParams`: torch cannot replay
 ``mode="stratified"`` (default) splits a random permutation of the batch
 into ceil(B/3) flip, floor(B/3) rotate and floor(B/3) translate slots, in
 that order, and returns the batch in permuted order; ``mode="iid"`` (and any
-batch under 3) draws a branch per image.  The rotation is the hand-written
+batch under 3) draws a branch per image.  On a data-parallel mesh a rank
+holds slots ``[lo, hi)`` of the global batch: :func:`slot_draws` gives the
+source images of those slots (``perm[lo:hi]``, from anywhere in the batch)
+and the slots' own draws, so every rank augments its share of the global
+batch's draws.  The rotation is the hand-written
 kernel of ``ops/rotate_pallas.py``, which accumulates in fp32 whatever the
 image dtype; flip and translate run in the image dtype, as in the JAX
 package.
@@ -38,8 +42,8 @@ from k210_yolo_framework_tpu_torch.ops.rotate_pallas import (
 )
 
 __all__ = ["MAX_ROT_DEG", "MAX_TRANSLATE", "AugmentParams", "draw_params",
-           "augment_batch", "augment_image_and_boxes", "translate_bilinear",
-           "affine_boxes"]
+           "slot_draws", "augment_batch", "augment_image_and_boxes",
+           "translate_bilinear", "affine_boxes"]
 
 MAX_TRANSLATE = 0.1    # reference: Affine(translate_percent=+-0.1)
 FLIP, ROTATE, TRANSLATE = 0, 1, 2
@@ -89,6 +93,17 @@ def draw_params(b: int, img_hw: Tuple[int, int], mode: str = "stratified",
     tx = uniform(-MAX_TRANSLATE, MAX_TRANSLATE) * w
     ty = uniform(-MAX_TRANSLATE, MAX_TRANSLATE) * h
     return AugmentParams(perm, branch, do_flip, theta, tx, ty)
+
+
+def slot_draws(params: AugmentParams, lo: int, hi: int
+               ) -> Tuple[torch.Tensor, AugmentParams]:
+    """The slots ``[lo, hi)`` of a global batch's draws: (the source images
+    of those slots, ``params.perm[lo:hi]``; the slots' own draws with an
+    identity perm).  :func:`augment_batch` of the sources with those draws
+    is slots ``[lo, hi)`` of the global batch's augment."""
+    n = hi - lo
+    own = AugmentParams(torch.arange(n), *(t[lo:hi] for t in params[1:]))
+    return params.perm[lo:hi], own
 
 
 def _matrices(p: AugmentParams, img_hw: Tuple[int, int]) -> torch.Tensor:

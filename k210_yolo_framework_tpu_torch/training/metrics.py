@@ -4,7 +4,9 @@ Counterpart of ``k210_yolo_framework_tpu/training/metrics.py``: TP/FP/FN of
 the confidence channel per output layer, thresholded, accumulated across
 steps; results divide with div_no_nan.  The prediction is thresholded after
 ``sigmoid`` of its fp32 cast (the JAX package's default; its
-``compat_logits`` quirk is not ported).
+``compat_logits`` quirk is not ported).  On a data-parallel mesh each
+rank's increments are summed over the data axis, so every rank's counters
+are the global batch's.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["init_pr_state", "update_pr_state", "pr_results",
            "pr_results_per_layer"]
@@ -26,9 +29,10 @@ def init_pr_state(n_layers: int = 1, device=None) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def update_pr_state(state: Dict[str, torch.Tensor],
                     y_trues: Sequence[torch.Tensor],
-                    y_preds: Sequence[torch.Tensor], thresh: float = 0.7
-                    ) -> Dict[str, torch.Tensor]:
-    """A new state with one batch's per-layer counts added."""
+                    y_preds: Sequence[torch.Tensor], thresh: float = 0.7,
+                    group=None) -> Dict[str, torch.Tensor]:
+    """A new state with one batch's per-layer counts added; with ``group``
+    (a data-parallel process group) the counts of every rank's shard."""
     tps, fps, fns = [], [], []
     for yt, yp in zip(y_trues, y_preds):
         pred_conf = torch.sigmoid(yp[..., 4].to(torch.float32))
@@ -37,9 +41,11 @@ def update_pr_state(state: Dict[str, torch.Tensor],
         tps.append(torch.sum((t & p).to(torch.float32)))
         fps.append(torch.sum((~t & p).to(torch.float32)))
         fns.append(torch.sum((t & ~p).to(torch.float32)))
-    return {"tp": state["tp"] + torch.stack(tps),
-            "fp": state["fp"] + torch.stack(fps),
-            "fn": state["fn"] + torch.stack(fns)}
+    counts = torch.stack([torch.stack(tps), torch.stack(fps),
+                          torch.stack(fns)])
+    if group is not None:
+        dist.all_reduce(counts, group=group)
+    return {k: state[k] + counts[i] for i, k in enumerate(("tp", "fp", "fn"))}
 
 
 def _div_no_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,11 @@ computed exactly in float64 with round-to-odd, so that the card and the CPU
 give the same threshold bit for bit.  ``torch.quantile`` is not used: its
 ``lerp`` rounds differently, and one ulp flips a weight that sits on the
 threshold, since the mask keeps ``|w| >= thr``.
+
+On a data-parallel mesh every rank holds the same weights (the gradients
+are averaged over the data axis and the state replicated), so each rank's
+``update_masks`` gives the same masks: they are replicated, as in JAX,
+with no collective of their own.
 """
 
 from __future__ import annotations

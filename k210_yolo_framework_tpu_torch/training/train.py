@@ -16,6 +16,19 @@ returns the same state object.  Logged scalars stay on the device until the
 ``cfg.is_prune`` the state also holds magnitude masks over the conv kernels
 (``training/pruning.py``): after each Adam update the masks are recomputed
 when the schedule is due and multiplied into the weights.
+
+On a pure data-parallel mesh (``parallel.make_mesh``, one process a
+device) the steps and ``fit`` take ``mesh=`` and compute what JAX's one
+GSPMD program over the sharded batch computes: each rank holds the batch
+slots of ``parallel.slot_range``; BatchNorm normalises with the global
+batch's statistics (``models.layers.set_data_group``); each rank's loss
+keeps its own B / dp as normaliser, and the gradients (with the l2
+penalty's, added once a rank) are summed over the data axis and divided by
+dp, which is the gradient of the global loss; the logged losses are the
+mean over ranks and the P/R counters the sum.  The parameters, BN
+statistics, Adam moments, masks and step count start as rank 0's
+(:func:`shard_state`) and stay identical on every rank.  A mesh with a
+model or space axis raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,10 +40,15 @@ from pathlib import Path
 from typing import Callable, Dict, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from k210_yolo_framework_tpu_torch.config import TrainConfig, YoloSpec
-from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
+from k210_yolo_framework_tpu_torch.models.layers import (
+    BatchNorm,
+    set_data_group,
+)
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
+from k210_yolo_framework_tpu_torch.parallel import mesh as PM
 from k210_yolo_framework_tpu_torch.training import loss as L
 from k210_yolo_framework_tpu_torch.training import metrics as M
 from k210_yolo_framework_tpu_torch.training import pruning as P
@@ -39,7 +57,8 @@ __all__ = ["keras_adam_schedule", "make_optimizer", "adam_update",
            "TrainState", "create_train_state", "make_train_step",
            "make_eval_step",
            "make_fused_train_step", "make_fused_eval_step", "fit",
-           "recalibrate_batch_stats", "checked_device", "prune_step"]
+           "recalibrate_batch_stats", "checked_device", "prune_step",
+           "shard_state"]
 
 
 def keras_adam_schedule(init_lr: float, decay: float) -> Callable:
@@ -121,6 +140,64 @@ def prune_step(state: TrainState, cfg: TrainConfig, prune_end: int) -> None:
     P.apply_masks(params, state.masks)
 
 
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """Replicate rank 0's state over the mesh's data axis, in place: rank 0
+    of the data axis broadcasts the parameters, BN statistics, Adam
+    moments and step counts, pruning masks, P/R counters and the step
+    count.  Returns ``state``."""
+    PM.require_data_parallel(mesh, "shard_state")
+    group = PM.data_group(mesh)
+    src = dist.get_global_rank(group, 0)
+    net, opt = state.net, state.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    # the step count, and each parameter's Adam step (-1: no moments yet)
+    meta = torch.tensor(
+        [state.step] + [float(opt.state[p]["step"]) if p in opt.state
+                        else -1.0 for p in params],
+        dtype=torch.float64, device=params[0].device)
+    dist.broadcast(meta, src=src, group=group)
+    meta = meta.tolist()
+    state.step = int(meta[0])
+    moments = []
+    for p, adam_step in zip(params, meta[1:]):
+        if adam_step < 0:
+            opt.state.pop(p, None)
+            continue
+        held = opt.state[p]
+        for k in ("exp_avg", "exp_avg_sq"):
+            if k not in held:
+                held[k] = torch.zeros_like(p,
+                                           memory_format=torch.preserve_format)
+            moments.append(held[k])
+        held["step"] = torch.tensor(adam_step, dtype=torch.float32)
+    tensors = (list(net.parameters()) + list(net.buffers()) + moments
+               + list(state.masks.values()) + list(state.pr.values()))
+    with torch.no_grad():
+        for t in tensors:
+            dist.broadcast(t, src=src, group=group)
+    if state.masks:
+        state.sparsity = P.sparsity_of(state.masks)
+    return state
+
+
+def _mean_grads(params, group) -> None:
+    """Each parameter's ``.grad`` replaced by its mean over ``group``, in
+    one collective."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = PM.mean_over_data(torch.cat([g.reshape(-1) for g in grads]),
+                             group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view(g.shape))
+
+
+def _data_axis(mesh, what: str):
+    """The data group of a pure data-parallel mesh, or None without one."""
+    if mesh is None:
+        return None
+    PM.require_data_parallel(mesh, what)
+    return PM.data_group(mesh)
+
+
 def _layer_logs(logs: dict, prefix: str, layer_losses, pr) -> dict:
     p_l, r_l = M.pr_results_per_layer(pr)
     for l, ll in enumerate(layer_losses):
@@ -130,17 +207,35 @@ def _layer_logs(logs: dict, prefix: str, layer_losses, pr) -> dict:
     return logs
 
 
-def _losses(net, spec, cfg, images, labels, dtype):
-    outs = net(images, dtype=dtype)
+def _losses(net, spec, cfg, images, labels, dtype, group=None):
+    """(outputs, per-layer losses, their sum); with ``group`` BatchNorm
+    takes the global batch's statistics.  The normaliser is this batch's
+    (a rank's shard's) size."""
+    set_data_group(net, group)
+    try:
+        outs = net(images, dtype=dtype)
+    finally:
+        set_data_group(net, None)
     layer_losses = L.yolo_loss_layers(
         labels, outs, spec, images.shape[0], cfg.obj_thresh, cfg.iou_thresh,
         cfg.obj_weight, cfg.noobj_weight, cfg.wh_weight)
     return outs, layer_losses, sum(layer_losses[1:], layer_losses[0])
 
 
+def _mean_losses(main, layer_losses, group):
+    """The logged losses: the mean over ``group`` of each rank's (main,
+    per-layer), in one collective; unchanged without a group."""
+    if group is None:
+        return main.detach(), [ll.detach() for ll in layer_losses]
+    both = PM.mean_over_data(
+        torch.stack([main.detach()] + [ll.detach() for ll in layer_losses]),
+        group)
+    return both[0], list(both[1:])
+
+
 def make_train_step(spec: YoloSpec, cfg: TrainConfig,
                     compute_dtype: torch.dtype = torch.float32,
-                    train_epoch_step: Optional[int] = None):
+                    train_epoch_step: Optional[int] = None, mesh=None):
     """(state, images [B, H, W, 3], labels per layer) -> (state, logs).
     ``compute_dtype`` is the convs' dtype (the JAX net's ``dtype``); the
     parameters stay fp32.  After the step every parameter's ``.grad`` holds
@@ -148,7 +243,10 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
     ``cfg.is_prune``, ``train_epoch_step`` (steps an epoch) is required:
     the schedule ends after ``prune_end_epoch`` epochs; the masks follow
     the update (:func:`prune_step`) and ``logs["sparsity"]`` is their share
-    of zeros."""
+    of zeros.  With ``mesh`` (pure data parallelism) each rank is given its
+    slots of the global batch and the step is the global batch's (module
+    docstring); the state must be replicated (:func:`shard_state`)."""
+    group = _data_axis(mesh, "the train step")
     if cfg.is_prune and train_epoch_step is None:
         raise ValueError("pruning needs train_epoch_step: the schedule ends "
                          "after prune_end_epoch epochs")
@@ -161,9 +259,13 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
         net, opt = state.net, state.optimizer
         net.train()
         outs, layer_losses, main = _losses(net, spec, cfg, images, labels,
-                                           compute_dtype)
+                                           compute_dtype, group)
         opt.zero_grad(set_to_none=True)
         (main + L.l2_penalty(net)).backward()
+        if group is not None:
+            # each rank's sum already holds every rank's share through the
+            # BN statistics' backward: the mean is the global gradient
+            _mean_grads(net.parameters(), group)
         lr = schedule(state.step)
         adam_update(opt, lr)
         if cfg.is_prune:
@@ -171,9 +273,10 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
 
         state.pr = M.update_pr_state(state.pr, labels,
                                      [o.detach() for o in outs],
-                                     cfg.obj_thresh)
+                                     cfg.obj_thresh, group)
         p, r = M.pr_results(state.pr)
-        logs = {"loss": main.detach(), "p": p, "r": r, "lr": lr}
+        main, layer_losses = _mean_losses(main, layer_losses, group)
+        logs = {"loss": main, "p": p, "r": r, "lr": lr}
         _layer_logs(logs, "", layer_losses, state.pr)
         if cfg.is_prune:
             logs["sparsity"] = state.sparsity
@@ -184,9 +287,12 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
 
 
 def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32, mesh=None):
     """(net, pr, images, labels) -> (pr, logs) with BatchNorm on its
-    running statistics; the net's train/eval mode is restored after."""
+    running statistics; the net's train/eval mode is restored after.  With
+    ``mesh`` each rank is given its slots of the test batch; ``val_loss``
+    is the mean over ranks and the counters the sum."""
+    group = _data_axis(mesh, "the eval step")
 
     @torch.no_grad()
     def step(net: YoloNet, pr, images, labels):
@@ -197,7 +303,8 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
                                                labels, compute_dtype)
         finally:
             net.train(was_training)
-        pr = M.update_pr_state(pr, labels, outs, cfg.obj_thresh)
+        pr = M.update_pr_state(pr, labels, outs, cfg.obj_thresh, group)
+        loss, layer_losses = _mean_losses(loss, layer_losses, group)
         p, r = M.pr_results(pr)
         logs = {"val_loss": loss, "val_p": p, "val_r": r}
         return pr, _layer_logs(logs, "val_", layer_losses, pr)
@@ -205,35 +312,56 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
     return step
 
 
+def _device_of(net) -> torch.device:
+    return next(net.parameters()).device
+
+
 def make_fused_train_step(spec: YoloSpec, cfg: TrainConfig, preprocess,
                           compute_dtype: torch.dtype = torch.float32,
-                          train_epoch_step: Optional[int] = None):
+                          train_epoch_step: Optional[int] = None,
+                          mesh=None):
     """Preprocess (letterbox, augment, /max, encode; no gradients) then
     the train step:
 
     (state, canvases u8, img_hws, boxes, valid, generator=None,
-     params=None) -> (state, logs)."""
-    step = make_train_step(spec, cfg, compute_dtype, train_epoch_step)
+     params=None) -> (state, logs).
+
+    With ``mesh`` every rank is given the whole global batch on the host
+    (a ``HostBatch``, as JAX's one controller is) and the global batch's
+    draws (``generator`` in step on every rank, or ``params``); it
+    preprocesses its slots (``make_preprocess_fn``'s ``slots``), copying
+    only their source images to its device, then takes the sharded
+    step."""
+    step = make_train_step(spec, cfg, compute_dtype, train_epoch_step, mesh)
 
     def fused(state, canvases, img_hws, boxes, valid, generator=None,
               params=None):
+        shard = {} if mesh is None else dict(
+            slots=PM.slot_range(len(img_hws), mesh),
+            device=_device_of(state.net))
         with torch.no_grad():
             images, labels = preprocess(canvases, img_hws, boxes, valid,
-                                        generator, params)
+                                        generator, params, **shard)
         return step(state, images, labels)
 
     return fused
 
 
 def make_fused_eval_step(spec: YoloSpec, cfg: TrainConfig, preprocess,
-                         compute_dtype: torch.dtype = torch.float32):
+                         compute_dtype: torch.dtype = torch.float32,
+                         mesh=None):
     """Eval preprocess then the eval step:
-    (net, pr, canvases, img_hws, boxes, valid) -> (pr, logs)."""
-    step = make_eval_step(spec, cfg, compute_dtype)
+    (net, pr, canvases, img_hws, boxes, valid) -> (pr, logs).  With
+    ``mesh`` every rank is given the whole test batch on the host and takes
+    its contiguous slots."""
+    step = make_eval_step(spec, cfg, compute_dtype, mesh)
 
     def fused(net, pr, canvases, img_hws, boxes, valid):
+        shard = {} if mesh is None else dict(
+            slots=PM.slot_range(len(img_hws), mesh), device=_device_of(net))
         with torch.no_grad():
-            images, labels = preprocess(canvases, img_hws, boxes, valid)
+            images, labels = preprocess(canvases, img_hws, boxes, valid,
+                                        **shard)
         return step(net, pr, images, labels)
 
     return fused
@@ -289,7 +417,8 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
         log_fn: Callable[[str], None] = print,
         scalar_logger=None,
         state: Optional[TrainState] = None,
-        profile_dir: str = "", profile_step: int = 3) -> TrainState:
+        profile_dir: str = "", profile_step: int = 3,
+        mesh=None) -> TrainState:
     """The epoch loop: a loss/p/r line every 10 steps, one validation pass
     per epoch, and SIGINT / SIGTERM stop at a step boundary with the state
     whole.  ``train_batches`` / ``test_batches`` yield ``HostBatch``es;
@@ -298,19 +427,46 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
     that makes the run's step count ``profile_step`` runs under
     ``torch.profiler`` (CUDA activity too on a CUDA device) and its Chrome
     trace is written there; a profiler that cannot start is logged and the
-    step runs unprofiled.  Returns the final state."""
+    step runs unprofiled.  Returns the final state.
+
+    With ``mesh`` (pure data parallelism, one process a device, ``device``
+    this rank's) every rank runs this loop over the same batches and the
+    same generator: the state is replicated from rank 0
+    (:func:`shard_state`), each step is the sharded one, and the log lines,
+    ``scalar_logger`` and the profiler run on rank 0 only.  A stop signal
+    on any rank stops every rank after the same step (the flag is agreed
+    over a gloo group each step, a host collective)."""
     device = checked_device(device)
+    group = _data_axis(mesh, "fit")
+    if group is not None and PM.data_rank(mesh) != 0:
+        log_fn, scalar_logger, profile_dir = (lambda _line: None), None, ""
     if state is None:
         state = create_train_state(net, cfg, device)
+    if group is not None:
+        shard_state(state, mesh)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.rand_seed)
     train_step = make_fused_train_step(spec, cfg, preprocess_train,
-                                       compute_dtype, train_epoch_step)
+                                       compute_dtype, train_epoch_step, mesh)
     eval_step = make_fused_eval_step(spec, cfg, preprocess_test,
-                                     compute_dtype)
+                                     compute_dtype, mesh)
     n_layers = state.net.n_out_layers
     pending_logs = []
     stop_requested = {"flag": False}
+    stop_group, made = PM.host_group(mesh) if group is not None \
+        else (None, False)
+
+    def stopping() -> bool:
+        """The stop flag, raised on any rank (MAX over the gloo group)."""
+        if stop_group is None:
+            return stop_requested["flag"]
+        flag = torch.tensor([int(stop_requested["flag"])])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=stop_group)
+        return bool(flag.item())
+
+    def on_device(hb):
+        # on a mesh the step copies only its slots' sources
+        return hb if group is not None else hb.to(device)
 
     def _request_stop(_sig, _frm):
         stop_requested["flag"] = True
@@ -333,7 +489,7 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
                 if profile_dir and state.step + 1 == profile_step:
                     prof = _start_profiler(device, log_fn)
                 try:
-                    hb = next(train_batches).to(device)
+                    hb = on_device(next(train_batches))
                     state, logs = train_step(state, *hb, generator)
                 finally:
                     if prof is not None:
@@ -352,7 +508,7 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
                            f"{float(logs['loss']):.4f} p "
                            f"{float(logs['p']):.4f} r {float(logs['r']):.4f} "
                            f"{per_layer}")
-                if stop_requested["flag"]:
+                if stopping():
                     raise KeyboardInterrupt
             dt = time.time() - t0
             rate = train_epoch_step * cfg.batch_size / max(dt, 1e-9)
@@ -361,7 +517,7 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
                 pr = M.init_pr_state(n_layers, device)
                 vloss_sum, vlogs = 0.0, {}
                 for _ in range(test_epoch_step):
-                    hb = next(test_batches).to(device)
+                    hb = on_device(next(test_batches))
                     pr, vlogs = eval_step(state.net, pr, *hb)
                     vloss_sum += float(vlogs["val_loss"])
                 log_fn(f"epoch {epoch + 1} done in {dt:.1f}s ({rate:.0f} "
@@ -371,7 +527,7 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
             else:
                 log_fn(f"epoch {epoch + 1} done in {dt:.1f}s ({rate:.0f} "
                        f"img/s) loss {float(logs['loss']):.4f}")
-            if stop_requested["flag"]:
+            if stopping():
                 raise KeyboardInterrupt
     except KeyboardInterrupt:
         log_fn("interrupted: returning the state of the last whole step")
@@ -379,6 +535,8 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
         _flush_scalars(scalar_logger, pending_logs)
         for sig, prev in prev_handlers:
             signal.signal(sig, prev)
+        if made:
+            dist.destroy_process_group(stop_group)
     return state
 
 
@@ -386,8 +544,8 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
 def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
                             num_batches: int = 50, *, device,
                             generator: Optional[torch.Generator] = None,
-                            compute_dtype: torch.dtype = torch.float32
-                            ) -> YoloNet:
+                            compute_dtype: torch.dtype = torch.float32,
+                            mesh=None) -> YoloNet:
     """Replace every BatchNorm's EMA statistics with the arithmetic mean of
     its exact per-batch moments over ``num_batches`` preprocessed batches
     (the SWA ``update_bn`` recipe), in place; the net's train/eval mode and
@@ -398,8 +556,12 @@ def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
     ``BatchNorm.momentum`` is set to 0 for the forwards, so each leaves its
     batch moments in the running statistics exactly, whatever its own m.
     ``batches`` yield ``HostBatch``es; ``preprocess`` is
-    ``make_preprocess_fn``'s, drawing its augment from ``generator``."""
+    ``make_preprocess_fn``'s, drawing its augment from ``generator``.  With
+    ``mesh`` (pure data parallelism) every rank is given the same batches,
+    preprocesses its slots, and each batch's moments are the global
+    batch's."""
     device = checked_device(device)
+    group = _data_axis(mesh, "recalibrate_batch_stats")
     bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
     ema = {bn: (bn.running_mean.clone(), bn.running_var.clone(), bn.momentum)
            for bn in bns}
@@ -410,9 +572,16 @@ def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
     try:
         for bn in bns:
             bn.momentum = 0.0
+        set_data_group(net, group)
         for _ in range(num_batches):
-            hb = next(batches).to(device)
-            images, _ = preprocess(*hb, generator)
+            hb = next(batches)
+            if group is None:
+                images, _ = preprocess(*hb.to(device), generator)
+            else:
+                images, _ = preprocess(
+                    *hb, generator,
+                    slots=PM.slot_range(len(hb.img_hws), mesh),
+                    device=device)
             net(images, dtype=compute_dtype)
             for bn in bns:
                 sums[bn][0].add_(bn.running_mean)
@@ -426,6 +595,7 @@ def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
     finally:
         for bn, (_, _, momentum) in ema.items():
             bn.momentum = momentum
+        set_data_group(net, None)
         net.train(was_training)
     for bn, (mean, var) in sums.items():
         bn.running_mean.copy_(mean / num_batches)

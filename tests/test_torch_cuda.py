@@ -1125,3 +1125,73 @@ def test_exported_serving_program_on_card(dev, tmp_path):
         n, _ = assert_detections_close(
             NmsResult(*(t.cpu().numpy() for t in got)), live)
         assert n > 0
+
+
+def test_mesh_fused_step_over_nccl_equals_the_plain_step(dev, tmp_path):
+    """The sharded fused step over a world-size-1 NCCL group (augment on:
+    the rotation kernel) against the plain fused step, 2 steps from the
+    same weights and draws, cuDNN deterministic: parameters, BN
+    statistics, Adam state and logs bit for bit, one rotation launch a
+    step."""
+    import torch.distributed as dist
+
+    from k210_yolo_framework_tpu_torch.data.pipeline import (
+        HostBatch,
+        make_preprocess_fn,
+    )
+    from k210_yolo_framework_tpu_torch.ops.codec import pad_boxes
+    from k210_yolo_framework_tpu_torch.parallel import init_world, make_mesh
+
+    spec = YoloSpec.create((64, 96), ((2, 3), (4, 6)), 3,
+                           np.asarray(VOC_ANCHORS))
+    cfg = TrainConfig(batch_size=6, augment=True)
+    rng = np.random.default_rng(8)
+    hws = np.array([[80, 120], [64, 96], [40, 120]] * 2, np.int32)
+    canvases = rng.integers(0, 256, (6, 80, 120, 3)).astype(np.uint8)
+    boxes, valid = zip(*(pad_boxes(np.array([[1, 0.5, 0.5, 0.3, 0.4]]))
+                         for _ in range(6)))
+    host = HostBatch(canvases, hws, np.stack(boxes).astype(np.float32),
+                     np.stack(valid))
+    gen = torch.Generator().manual_seed(4)
+    draws = [TA.draw_params(6, spec.in_hw, generator=gen) for _ in range(2)]
+    pp = make_preprocess_fn(spec, True)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        def train(mesh):
+            net = build_network("yolo_mobilev1", spec.in_hw, 3, 3,
+                                alpha=0.25,
+                                generator=torch.Generator().manual_seed(0))
+            state = TT.create_train_state(net, cfg, dev)
+            if mesh is not None:
+                TT.shard_state(state, mesh)
+            step = TT.make_fused_train_step(spec, cfg, pp, mesh=mesh)
+            batch = host if mesh is not None else host.to(dev)
+            logs = []
+            for p in draws:
+                state, lg = step(state, *batch, params=p)
+                logs.append({k: float(v) for k, v in lg.items()})
+            return state, logs
+
+        plain, plain_logs = train(None)
+        init_world(dev, f"file://{tmp_path}/init", 0, 1)
+        try:
+            TR.rotate_3shear.launches = 0
+            meshed, mesh_logs = train(make_mesh())
+            assert TR.rotate_3shear.launches == 2
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    assert mesh_logs == plain_logs
+    for (name, a), b in zip(plain.net.state_dict().items(),
+                            meshed.net.state_dict().values()):
+        assert torch.equal(a, b), name
+    for p, q in zip(plain.net.parameters(), meshed.net.parameters()):
+        sa, sb = plain.optimizer.state[p], meshed.optimizer.state[q]
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k

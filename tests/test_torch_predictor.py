@@ -200,8 +200,10 @@ def _chip_smoke_imports():
 
 def test_port_imports_without_jax():
     """Every module of the port (the native loader's bindings and the
-    command-line entry points among them), and every module chip_smoke.py
-    imports, imports in a fresh interpreter in which importing jax, flax,
+    command-line entry points among them), every module chip_smoke.py
+    imports, and the modules the tests' spawned gloo ranks run
+    (``tests/torch_parallel_worker.py``, ``torch_parallel_train_worker.py``)
+    import in a fresh interpreter in which importing jax, flax,
     optax, orbax, h5py or matplotlib fails (the card's machine has no flax
     and no h5py: the port imports h5py and matplotlib where it uses them).
     None ends up in sys.modules, and no module of the JAX package
@@ -228,6 +230,8 @@ for mod in ("native", "models.mobilenet_v2", "models.darknet", "port",
 for name in names:
     importlib.import_module(name)
 exec(sys.argv[1])   # chip_smoke.py's import statements
+sys.path.insert(0, "tests")
+import torch_parallel_worker, torch_parallel_train_worker  # spawned ranks
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "h5py",
                                     "matplotlib"))

@@ -94,16 +94,17 @@ def run(rank: int, world: int, init_file: str, job_file: str,
 
 
 def spawn_world(world: int, job: dict, tmp: Path,
-                timeout: float = 300.0) -> list:
-    """Run ``run`` on ``world`` gloo ranks; returns each rank's record.
-    Raises (and ends the ranks) if they have not finished in ``timeout``
-    seconds."""
+                timeout: float = 300.0, target=run) -> list:
+    """Run ``target`` (default ``run``; any function of the same arguments
+    that writes ``<out_dir>/rank<r>.pkl``) on ``world`` gloo ranks; returns
+    each rank's record.  Raises (and ends the ranks) if they have not
+    finished in ``timeout`` seconds."""
     import torch.multiprocessing as mp
 
     job_file = tmp / "job.pkl"
     job_file.write_bytes(pickle.dumps(job))
-    ctx = mp.spawn(run, args=(world, str(tmp / "init"), str(job_file),
-                              str(tmp)), nprocs=world, join=False)
+    ctx = mp.spawn(target, args=(world, str(tmp / "init"), str(job_file),
+                                 str(tmp)), nprocs=world, join=False)
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):      # raises if a rank failed
         if time.monotonic() > deadline:
