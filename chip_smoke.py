@@ -5,7 +5,8 @@ then the three other builders served and trained (phase 15), the
 command-line entry points (phase 16), quantized serving, the export and
 the ``Helper`` facade (phase 17), and the darknet53 yolo at 608x608 with
 the greedy kernels' global path, the stem modes and data-parallel serving
-(phase 18), and data-parallel training (phase 19).
+(phase 18), data-parallel training (phase 19), and serving and training on
+the model and space axes (phase 20).
 
     python3 chip_smoke.py
 
@@ -183,7 +184,21 @@ Phases (any failure raises and the script exits non-zero):
      a step; the mesh step against the plain step on one preprocessed
      batch (CUDA events, plain, mesh, mesh, plain) with a kernel profile
      of each and the NCCL share; ``cli.keras_train --mesh auto`` in
-     process for 2 steps (one rotation launch a step, its checkpoint).
+     process for 2 steps (one rotation launch a step, its checkpoint);
+ 20. the model and space axes (channel tensor parallelism and H-row
+     spatial partitioning), yolo_mobilev1 (alpha 0.75, seeded) at 224x320
+     on tp2, sp2 (2 processes) and tp2*sp2 (4 processes).  NCCL refuses
+     two ranks on one card, so each world is joined by gloo with the
+     tensors on CUDA.  Each rank: ``make_sharded_runner`` in fp32 at B=32
+     against ``_run_batch`` on the card (at most 0.5% unmatched either way,
+     matched scores within 1e-3) and in bf16 at B=128 on the mid scene at
+     set level (1%, 0.02; the flip rate printed), one head launch a call;
+     3 ``make_train_step`` steps in fp32 at B=32 against the plain step
+     (step-1 loss rtol 1e-5, parameters within 10x a batch-permutation
+     control taken on the card) and one fused bf16 step at B=128 with
+     augment on (one rotation launch); its serve and step ms (gloo on one
+     card: not a scaling number) and its collectives a step.  Then
+     ``keras_train --mesh 1,2`` must refuse the one-card machine.
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -3364,6 +3379,302 @@ def mesh_training(device, tag, ann):
     return launches + cli_launches
 
 
+# ---- 20. the model and space axes ---------------------------------------
+# NCCL refuses two ranks on one card, so each world is 2 or 4 processes on
+# the one GPU joined by gloo, with the tensors on CUDA.  gloo on one card is
+# no scaling number: its collectives stage through the host.
+TPSP_WORLDS = ((1, 2, 1), (1, 1, 2), (1, 2, 2))
+TPSP_SERVE_B = 32          # fp32 serving against _run_batch
+TPSP_STEPS = 3             # fp32 train steps against the plain step
+TPSP_TIMED = 3             # calls timed a rank, each
+
+
+def tpsp_name(dims) -> str:
+    return "*".join(f"{a}{n}" for a, n in zip(("dp", "tp", "sp"), dims)
+                    if n > 1)
+
+
+def set_level(got, want):
+    """(unmatched of want in got, of want, unmatched of got in want, of
+    got, the largest matched score difference):
+    test_sharded_serving.py:93-105's statistic."""
+    from k210_yolo_framework_tpu_torch.utils.detmatch import match_stats
+
+    un_ab, n_a, ds_ab = match_stats(want, got)
+    un_ba, n_b, ds_ba = match_stats(got, want)
+    return un_ab, n_a, un_ba, n_b, max(ds_ab, ds_ba)
+
+
+def within_half_percent(un_ab, n_a, un_ba, n_b) -> bool:
+    return (n_a > 0 and un_ab <= max(1, int(np.ceil(0.005 * n_a)))
+            and un_ba <= max(1, int(np.ceil(0.005 * n_b))))
+
+
+def counted_collectives(fn) -> dict:
+    """The collectives of one call of ``fn`` in this process, by name."""
+    import torch.distributed as dist
+
+    seen = {}
+    originals = {k: getattr(dist, k) for k in
+                 ("all_gather", "all_reduce", "broadcast")}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            seen[name] = seen.get(name, 0) + 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    for k in originals:
+        setattr(dist, k, counting(k))
+    try:
+        fn()
+    finally:
+        for k, f in originals.items():
+            setattr(dist, k, f)
+    return seen
+
+
+def tpsp_rank(rank, world, init_file, dims, ann, out_dir):
+    """One rank of a phase-20 world: gloo over CUDA tensors on card 0."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the plain step and its control repeat exactly (as in phase 19)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        seen = tpsp_work(dims, ann)
+        Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
+    finally:
+        dist.destroy_process_group()
+
+
+def tpsp_work(dims, ann) -> dict:
+    """Serve and train on the (dp, mp, sp) mesh ``dims``: the runner in
+    fp32 at B=32 and in bf16 at B=128 (mid scene) against ``_run_batch``
+    on the card; 3 fp32 train steps at B=32 against the plain step and a
+    batch-permutation control; one fused bf16 step at B=128 with augment
+    on (its rotation launches counted on the first call, the second
+    timed); per-rank times and kernel launches.  cuDNN takes deterministic
+    algorithms, so the plain step and its control repeat exactly."""
+    import copy
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch import voc_spec
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
+    from k210_yolo_framework_tpu_torch.parallel import make_mesh
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    device = torch.device("cuda", 0)
+    spec = voc_spec()
+    mesh = make_mesh(*dims, device_type="cuda")
+    net0 = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
+                         spec.class_num, alpha=0.75,
+                         generator=torch.Generator().manual_seed(0))
+    canvases, hws, _ = scene_inputs()
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    seen = {"serve": {}}
+
+    def host(res):
+        return NmsResult(*(t.cpu().numpy() for t in res))
+
+    for label, dtype, bsz in (("fp32", torch.float32, TPSP_SERVE_B),
+                              ("bf16", torch.bfloat16, BATCH)):
+        pred = Predictor(net0, None, spec, obj_thresh=MID_THRESH,
+                         iou_thresh=IOU, compute_dtype=dtype, device=device)
+        runner = pred.make_sharded_runner(mesh)
+        TH.fused_decode_nms.launches = 0
+        got = runner(c_dev[:bsz], h_dev[:bsz])
+        torch.cuda.synchronize()
+        launches = TH.fused_decode_nms.launches
+        want = pred._run_batch(c_dev[:bsz], h_dev[:bsz])
+        ms = time_ms(lambda: runner(c_dev[:bsz], h_dev[:bsz]), TPSP_TIMED,
+                     warmup=1)
+        seen["serve"][label] = dict(
+            launches=launches, ms=ms, stats=set_level(host(got), host(want)),
+            valid_equal=bool(torch.equal(got.valid, want.valid)))
+        del pred, runner
+
+    # train: 3 fp32 steps at B=32 on one preprocessed batch
+    cfg = TrainConfig(batch_size=TPSP_SERVE_B, augment=True)
+    it = iter(PL.DataPipeline(ann, BATCH, seed=0))
+    hb = next(it)
+    it.close()
+    pp32 = PL.make_preprocess_fn(spec, True, torch.float32)
+    small = PL.HostBatch(*(a[:TPSP_SERVE_B] for a in hb)).to(device)
+    with torch.no_grad():
+        images, labels = pp32(*small,
+                              generator=torch.Generator().manual_seed(3))
+    swap = torch.cat([torch.arange(TPSP_SERVE_B // 2, TPSP_SERVE_B),
+                      torch.arange(TPSP_SERVE_B // 2)]).to(device)
+
+    def steps(m, order=None):
+        state = TT.create_train_state(copy.deepcopy(net0), cfg, device)
+        if m is not None:
+            TT.shard_state(state, m)
+        step = TT.make_train_step(spec, cfg, mesh=m)
+        x, y = images, labels
+        if order is not None:
+            x, y = images[order], [lab[order] for lab in labels]
+        losses = []
+        for _ in range(TPSP_STEPS):
+            state, logs = step(state, x, y)
+            losses.append(float(logs["loss"]))
+        return state, losses, step
+
+    plain, p_losses, _ = steps(None)
+    control, _, _ = steps(None, swap)
+    meshed, m_losses, mesh_step = steps(mesh)
+    seen["train"] = dict(
+        losses=m_losses, plain_losses=p_losses,
+        err=rel_l1(meshed.net, plain.net),
+        control=rel_l1(control.net, plain.net),
+        step_ms=time_ms(lambda: mesh_step(meshed, images, labels),
+                        TPSP_TIMED, warmup=1),
+        collectives=counted_collectives(
+            lambda: mesh_step(meshed, images, labels)))
+    del plain, control, meshed
+
+    # one fused step at B=128 in bf16 with augment on: the rotation kernel
+    cfg128 = TrainConfig(batch_size=BATCH, augment=True)
+    state = TT.create_train_state(copy.deepcopy(net0), cfg128, device)
+    TT.shard_state(state, mesh)
+    fused = TT.make_fused_train_step(
+        spec, cfg128, PL.make_preprocess_fn(spec, True, torch.bfloat16),
+        torch.bfloat16, mesh=mesh)
+    TR.rotate_3shear.launches = 0
+    state, logs = fused(state, *hb, torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    launches = TR.rotate_3shear.launches
+    t0 = time.perf_counter()
+    fused(state, *hb, torch.Generator().manual_seed(6))
+    torch.cuda.synchronize()
+    seen["fused"] = dict(launches=launches,
+                         ms=(time.perf_counter() - t0) * 1e3,
+                         loss=float(logs["loss"]),
+                         finite=all(bool(torch.isfinite(v).all())
+                                    for v in logs.values()
+                                    if torch.is_tensor(v)))
+    seen["memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return seen
+
+
+def tpsp_phase(tag, ann):
+    """Phase 20: the model and space axes on one card.  Each world of
+    ``TPSP_WORLDS`` is spawned (2 or 4 processes, gloo over CUDA tensors):
+    ``make_sharded_runner`` in fp32 at B=32 held to ``_run_batch`` at
+    test_sharded_serving.py's bounds (at most 0.5% unmatched either way,
+    matched scores within 1e-3) and in bf16 at B=128 on the mid scene at
+    set level (matched scores within 0.02, at most 1% unmatched: bf16
+    rounding of a reordered sum flips a borderline box), one head launch a
+    rank a call; 3 fp32 train steps at B=32 held to the plain step by
+    test_parallel_equivalence.py's rule (step-1 loss rtol 1e-5, parameters
+    within 10x a batch-permutation control taken on the card); one fused
+    bf16 step at B=128 with augment on, one rotation launch a rank.  The
+    refusal of ``keras_train --mesh 1,2`` on a one-card CUDA machine.
+    Returns (head launches, rotation launches)."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from k210_yolo_framework_tpu_torch.cli import keras_train as KT
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    head = rot = 0
+    for dims in TPSP_WORLDS:
+        world = dims[0] * dims[1] * dims[2]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.spawn(tpsp_rank, args=(world, f"{tmp}/init", dims, ann, tmp),
+                     nprocs=world)
+            ranks = [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
+                     for r in range(world)]
+        name = tpsp_name(dims)
+        for r, seen in enumerate(ranks):
+            f32, b16 = seen["serve"]["fp32"], seen["serve"]["bf16"]
+            tr, fu = seen["train"], seen["fused"]
+            head += f32["launches"] + b16["launches"]
+            rot += fu["launches"]
+            print(f"tp/sp {name} rank {r}: serve fp32 b{TPSP_SERVE_B} "
+                  f"unmatched {f32['stats'][0]}/{f32['stats'][1]} and "
+                  f"{f32['stats'][2]}/{f32['stats'][3]}, matched score "
+                  f"diff {f32['stats'][4]:.3g}, valid equal "
+                  f"{f32['valid_equal']}; bf16 b{BATCH} unmatched "
+                  f"{b16['stats'][0]}/{b16['stats'][1]} and "
+                  f"{b16['stats'][2]}/{b16['stats'][3]} (flip rate "
+                  f"{(b16['stats'][0] + b16['stats'][2]) / max(b16['stats'][1] + b16['stats'][3], 1):.4f}), "
+                  f"matched score diff {b16['stats'][4]:.3g}; head "
+                  f"launches {f32['launches']}+{b16['launches']}")
+            print(f"tp/sp {name} rank {r}: train fp32 b{TPSP_SERVE_B} "
+                  f"losses {tr['losses']} vs plain {tr['plain_losses']}, "
+                  f"params rel_l1 {tr['err']:.3g} vs control "
+                  f"{tr['control']:.3g}; collectives a step "
+                  f"{tr['collectives']}; fused bf16 b{BATCH} loss "
+                  f"{fu['loss']:.4f}, rotate launches {fu['launches']}; "
+                  f"peak {seen['memory_gib']:.1f} GiB")
+            print(f"tp/sp {name} rank {r} (gloo on one card, {world} "
+                  f"processes sharing it: not a scaling number): serve "
+                  f"fp32 b{TPSP_SERVE_B} {f32['ms']:.1f} ms, bf16 b{BATCH} "
+                  f"{b16['ms']:.1f} ms; train step fp32 b{TPSP_SERVE_B} "
+                  f"{tr['step_ms']:.1f} ms, "
+                  f"fused step bf16 b{BATCH} (second call) {fu['ms']:.1f} ms "
+                  f"{tag}")
+            un_ab, n_a, un_ba, n_b, ds = b16["stats"]
+            checks = {
+                "fp32 serving at set level": within_half_percent(
+                    *f32["stats"][:4]) and f32["stats"][4] <= 1e-3,
+                "bf16 serving at set level": n_a > 0
+                and un_ab <= max(1, int(np.ceil(0.01 * n_a)))
+                and un_ba <= max(1, int(np.ceil(0.01 * n_b))) and ds <= 0.02,
+                "one head launch a call": f32["launches"] == 1
+                and b16["launches"] == 1,
+                "step-1 loss rtol 1e-5": abs(tr["losses"][0]
+                                             - tr["plain_losses"][0])
+                <= 1e-5 * abs(tr["plain_losses"][0]),
+                "parameters within 10x the control":
+                    tr["err"] < 10 * max(tr["control"], 1e-6),
+                "one rotation launch": fu["launches"] == 1,
+                "finite fused step": fu["finite"],
+            }
+            failed = [k for k, ok in checks.items() if not ok]
+            if failed:
+                raise AssertionError(f"tp/sp {name} rank {r}: {failed}")
+        print(f"tp/sp {name}: {world} ranks, wall "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # --mesh 1,2 on a one-card CUDA machine: one card a rank, no fallback
+    try:
+        KT.main(KT.parse_args(CLI_NET + ["--mesh", "1,2"]))
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        refusal = ""
+    print(f"tp/sp: keras_train --mesh 1,2 on {torch.cuda.device_count()} "
+          f"card(s): {refusal!r}")
+    if torch.cuda.device_count() == 1 and "one a card" not in refusal:
+        raise AssertionError("keras_train --mesh 1,2 did not refuse one card")
+    print(f"phase 20: wall seconds {time.perf_counter() - t_phase:.1f}")
+    return head, rot
+
+
 def main() -> int:
     import torch
 
@@ -3403,7 +3714,12 @@ def serving_scenes(spec, device):
     dense_pred = Predictor(net, dense_state(net, spec), spec, obj_thresh=0.7,
                            **serve)
     scenes = (("sparse", pred), ("mid", mid_pred), ("dense", dense_pred))
+    return (net, scenes, *scene_inputs())
 
+
+def scene_inputs():
+    """The serving scenes' inputs: BATCH canvases (half of them cut), their
+    sizes and one 375x500 image, from seed 2."""
     rng = np.random.default_rng(2)
     hws = np.tile(np.asarray(CANVAS_HW, np.int32), (BATCH, 1))
     hws[BATCH // 2:] = np.stack([rng.integers(60, CANVAS_HW[0] + 1, BATCH // 2),
@@ -3413,7 +3729,7 @@ def serving_scenes(spec, device):
     for b, (h, w) in enumerate(hws):
         canvases[b, :h, :w] = rng.integers(0, 256, (h, w, 3))
     image = rng.integers(0, 256, (375, 500, 3)).astype(np.uint8)
-    return net, scenes, canvases, hws, image
+    return canvases, hws, image
 
 
 def run(device) -> int:
@@ -3641,6 +3957,8 @@ def run(device) -> int:
                 device, tag, ann, canvases, hws, image)
         # ---- 19. training on the data axis --------------------------------
         p19_rot = mesh_training(device, tag, ann)
+        # ---- 20. the model and space axes ----------------------------------
+        p20_head, p20_rot = tpsp_phase(tag, ann)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
@@ -3648,7 +3966,7 @@ def run(device) -> int:
         "route": "cuda",
         "source": "k210_yolo_framework_tpu_torch/csrc/yolo_head.cu",
         "replaces": "k210_yolo_framework_tpu/ops/yolo_head_pallas.py:140",
-        "launches": launches + q_launches + p18_head,
+        "launches": launches + q_launches + p18_head + p20_head,
         "global_launches": p18_head_global,
         "max_abs_err": max(max_err, slice_err),
         "ms": k_ms,
@@ -3664,7 +3982,7 @@ def run(device) -> int:
         "source": "k210_yolo_framework_tpu_torch/csrc/rotate3shear.cu",
         "replaces": "k210_yolo_framework_tpu/ops/rotate_pallas.py:113",
         **rot,
-        "launches": rot["launches"] + q_rot + p19_rot,
+        "launches": rot["launches"] + q_rot + p19_rot + p20_rot,
     }, {
         "name": "nms_select",
         "route": "cuda",

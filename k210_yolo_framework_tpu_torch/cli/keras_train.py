@@ -14,20 +14,23 @@ takes anything ``training.checkpoint.load_variables`` reads; a ``ckpt/``
 directory also resumes the optimizer and the step count.  SIGINT / SIGTERM
 end training at a step boundary and the run is saved.
 
-``--mesh dp[,mp[,sp]] | auto`` trains data-parallel, one process a device
+``--mesh dp[,mp[,sp]] | auto`` trains on a mesh, one process a device
 (``training.train.fit(mesh=)``: the global batch's step, BatchNorm on the
-global batch's statistics).  Under torchrun each process joins the world
-from its environment:
+global batch's statistics): data-parallel over dp, and with mp or sp above
+1 (yolo_mobilev1) each rank computes its output channels and rows of the
+forward (``parallel/sharded.py``).  Under torchrun each process joins the
+world from its environment:
 
     torchrun --nproc_per_node 4 \
         -m k210_yolo_framework_tpu_torch.cli.keras_train --mesh auto ...
 
 Run plainly, the script starts the ranks itself: ``--mesh auto`` one a
-visible card (one process where there is one card), ``--mesh N`` N
-processes (``--device cpu``: gloo ranks on the CPU, ``auto`` one).  A
-CUDA mesh is NCCL (nothing falls back to gloo or to the CPU), the batch
-must divide by dp, and mp or sp above 1 raise ``NotImplementedError``.
-Only rank 0 writes the run's files and prints; every rank reads
+visible card (one process where there is one card), ``--mesh dp,mp,sp``
+dp * mp * sp processes (``--device cpu``: gloo ranks on the CPU, ``auto``
+one).  A CUDA mesh is NCCL with one card a rank (nothing falls back to
+gloo or to the CPU), the batch must divide by dp, and another builder than
+yolo_mobilev1 on mp or sp above 1 raises ``NotImplementedError``.  Only
+rank 0 writes the run's files and prints; every rank reads
 ``--pre_ckpt``, and rank 0's state is the one replicated.
 """
 
@@ -44,19 +47,26 @@ from pathlib import Path
 def mesh_dims(text: str) -> list:
     """``--mesh``'s 'dp[,mp[,sp]]' as [dp, mp, sp] (1 for an axis not
     given), or [] for 'auto' / none; more than three axes exit with the
-    JAX script's text, mp or sp above 1 raise ``NotImplementedError``."""
+    JAX script's text."""
     dims = [int(x) for x in text.split(",")] \
         if text and text != "auto" else []
     if len(dims) > 3:
         raise SystemExit(f"--mesh {text!r}: format is 'dp,mp[,sp]' "
                          "or 'auto' (at most 3 axes)")
-    dims = dims + [1] * (3 - len(dims)) if dims else []
-    if dims and (dims[1] > 1 or dims[2] > 1):
+    return dims + [1] * (3 - len(dims)) if dims else []
+
+
+def _check_builder(model_def: str, dims: list, text: str) -> None:
+    """Another builder than yolo_mobilev1 on a model or space axis raises
+    ``NotImplementedError``, before any rank starts."""
+    from k210_yolo_framework_tpu_torch.models.yolonet import NETWORKS
+
+    if dims and dims[1] * dims[2] > 1 and model_def in NETWORKS \
+            and not NETWORKS[model_def].shards:
         raise NotImplementedError(
-            f"--mesh {text!r}: training needs a pure data-parallel mesh (mp "
-            "= sp = 1); the model and space axes are not ported yet "
-            "(ROADMAP queue 1 item 3)")
-    return dims
+            f"--mesh {text!r} --model_def {model_def}: the model and space "
+            "axes cover yolo_mobilev1 only; its residual adds and SAME "
+            "max-pools have no halo rule yet (ROADMAP queue 1 item 4)")
 
 
 def _check_divisible(batch_size: int, dp: int, text: str) -> None:
@@ -79,19 +89,20 @@ def main(args) -> Path:
     if not args.mesh:
         return _train(args, T.checked_device(args.device), _run_dir(args))
     dims = mesh_dims(args.mesh)
+    _check_builder(args.model_def, dims, args.mesh)
     device = T.checked_device(args.device)
     if dist.is_initialized():          # the caller's world
         return _train(args, device, None, joined=True)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:     # torchrun
         return _rank_main(None, None, None, args, None)
     if dims:
-        world = dims[0]
+        world = dims[0] * dims[1] * dims[2]
     else:
         world = torch.cuda.device_count() if device.type == "cuda" else 1
     if device.type == "cuda" and world > torch.cuda.device_count():
         raise SystemExit(f"--mesh {args.mesh!r}: {world} processes, one a "
                          f"card, but {torch.cuda.device_count()} visible")
-    _check_divisible(args.batch_size, world, args.mesh)
+    _check_divisible(args.batch_size, dims[0] if dims else world, args.mesh)
     run_dir = _run_dir(args)
     with tempfile.TemporaryDirectory() as tmp:
         spawn = (f"file://{tmp}/init", args, run_dir)
@@ -326,9 +337,9 @@ def parse_args(argv):
                         help="after training, replace BatchNorm EMA stats "
                              "with arithmetic means over N train batches")
     parser.add_argument("--mesh", type=str, default="",
-                        help="'dp[,mp[,sp]]' or 'auto': data-parallel "
-                             "training, one process a device (mp or sp "
-                             "above 1 raise: not ported yet)")
+                        help="'dp[,mp[,sp]]' or 'auto': training on a "
+                             "mesh, one process a device (mp or sp above "
+                             "1: yolo_mobilev1 only)")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["float32", "bfloat16"],
                         help="conv-stack compute dtype (params and loss "

@@ -23,8 +23,10 @@ calibrated static activation ranges; :meth:`Predictor.calibrate`).
 stem conv's im2col patches instead of the canvas
 (``ops/letterbox.letterbox_stem_patches``) and the stem contracts them;
 ``'nativeconv'`` quantizes the stem too under the int8-activation modes.
-:meth:`Predictor.make_sharded_runner` serves a batch over a data-parallel
-``parallel.make_mesh`` mesh, one shard a process.
+:meth:`Predictor.make_sharded_runner` serves a batch over a
+``parallel.make_mesh`` mesh, one process a device: a data shard a data
+rank, and on a mesh with a model or space axis each rank's channels and
+rows of the forward (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -126,15 +128,17 @@ def stem_input(canvases_u8: torch.Tensor, img_hws: torch.Tensor,
 
 
 def folded_logits(net: YoloNet, weights: Mapping[str, torch.Tensor],
-                  imgs_u8: torch.Tensor, dtype) -> List[torch.Tensor]:
+                  imgs_u8: torch.Tensor, dtype,
+                  **forward) -> List[torch.Tensor]:
     """Letterboxed uint8 [B, h, w, 3] (or the stem's patches of them,
     whose max is the image's: every pixel lies in some patch) -> per-layer
     fp32 head logits, each image's 1/max folded in after the stem conv
-    (``dtype``: the net's compute dtype or an ``Int8Act``)."""
+    (``dtype``: the net's compute dtype or an ``Int8Act``; ``forward``:
+    the net's other keywords, ``shard``)."""
     inv_scale = 1.0 / torch.clamp_min(torch.amax(
         imgs_u8, dim=tuple(range(1, imgs_u8.ndim))).to(torch.float32), 1e-12)
     preds = net_call(net, weights, imgs_u8, input_scale=inv_scale,
-                     dtype=dtype)
+                     dtype=dtype, **forward)
     return [p.to(torch.float32) for p in preds]
 
 
@@ -354,36 +358,56 @@ class Predictor:
                    img_hws: torch.Tensor) -> NmsResult:
         return self._head(self._forward_batch(canvases_u8, img_hws), img_hws)
 
-    # ---- data-parallel serving over a device mesh ---------------------------
+    # ---- serving over a device mesh ---------------------------------------
 
     def make_sharded_runner(self, mesh):
-        """Serving over a pure data-parallel ``parallel.make_mesh`` mesh,
-        one process a device, each holding this Predictor.  Returns
-        ``run(canvases [B, H, W, 3], img_hws [B, 2]) -> NmsResult`` on this
-        Predictor's device, which every rank calls with the whole batch (as
-        JAX's one controller is given it), B divisible by the data axis's
-        size dp.  Each rank copies only its contiguous B / dp shard to its
-        device and runs the whole serving program on it (``_run_batch``,
-        head kernel included, in every quantize mode); the fixed-shape
-        result fields are all-gathered over the data axis, so every rank
-        returns the whole batch's result.  The parameters are replicated:
-        rank 0 of the data axis broadcasts its weights (and calibrated
-        ranges) to the others here.  A mesh with a model or space axis
-        raises ``NotImplementedError``."""
+        """Serving over a ``parallel.make_mesh`` mesh, one process a device,
+        each holding this Predictor.  Returns ``run(canvases [B, H, W, 3],
+        img_hws [B, 2]) -> NmsResult`` on this Predictor's device, which
+        every rank calls with the whole batch (as JAX's one controller is
+        given it), B divisible by the data axis's size dp.  Each rank
+        copies only its data coordinate's contiguous B / dp shard to its
+        device.  On a pure data-parallel mesh it runs the whole serving
+        program on it (``_run_batch``, head kernel included, in every
+        quantize mode).  With a model or space axis (yolo_mobilev1, the
+        float modes, a stem other than ``patches``) it letterboxes the
+        shard's canvases and takes each image's 1/max whole, runs its part
+        of the forward (its channels and rows, ``parallel/sharded.py``),
+        whose head outputs come back whole, and runs the head kernel on the
+        shard.  The
+        fixed-shape result fields are all-gathered over the data axis, so
+        every rank returns the whole batch's result.  The parameters are
+        replicated: rank 0 of the data axis (of the world, with a model or
+        space axis) broadcasts its weights (and calibrated ranges) to the
+        others here."""
         import torch.distributed as dist
 
         from k210_yolo_framework_tpu_torch.parallel import mesh as PM
+        from k210_yolo_framework_tpu_torch.parallel.sharded import (
+            ShardContext,
+        )
 
         self._require_calibrated()
-        PM.require_data_parallel(mesh, "make_sharded_runner")
         group = PM.data_group(mesh)
         dp = dist.get_world_size(group)
-        src = dist.get_global_rank(group, 0)
+        shard = None
+        if PM.axis_size(mesh, PM.MODEL_AXIS) * PM.axis_size(
+                mesh, PM.SPACE_AXIS) > 1:
+            if self.quantize is not None or self.stem_mode == "patches":
+                PM.require_data_parallel(
+                    mesh, f"serving with quantize={self.quantize!r} and "
+                    f"stem_mode={self.stem_mode!r}", 5)
+            if not self.net.shards:
+                PM.require_data_parallel(
+                    mesh, f"serving {type(self.net).__name__}", 4)
+            shard = ShardContext(mesh)
+        held_by = PM.world_group(mesh) if shard is not None else group
+        src = dist.get_global_rank(held_by, 0)
         held = list(self.net.parameters()) + list(self.net.buffers())
         held += [t for v in self.qweights.values() for t in v]
         with torch.no_grad():
             for t in held:
-                dist.broadcast(t, src=src, group=group)
+                dist.broadcast(t, src=src, group=held_by)
 
         def gather(t: torch.Tensor) -> torch.Tensor:
             # as uint8: gloo has no bool all-gather
@@ -402,7 +426,16 @@ class Predictor:
                                 if isinstance(img_hws, np.ndarray)
                                 else img_hws[part],
                                 dtype=torch.int32).to(self.device)
-            return NmsResult(*(gather(t) for t in self._run_batch(c, h)))
+            if shard is None:
+                res = self._run_batch(c, h)
+            else:
+                with torch.inference_mode():
+                    imgs = self._letterbox_for_stem(c, h,
+                                                    self.compute_dtype)
+                    res = self._head(folded_logits(
+                        self.net, {}, imgs, self.module_dtype, shard=shard),
+                        h)
+            return NmsResult(*(gather(t) for t in res))
 
         return run
 

@@ -22,6 +22,11 @@ checkpoint mechanically.
 With a data-parallel process group set on the net (:func:`set_data_group`,
 done by the train step on a mesh), train-mode BatchNorm normalises with the
 statistics of the whole global batch, as JAX's one GSPMD program does.
+On a mesh with a model or space axis the layers take and return
+``parallel.sharded.Sharded`` activations instead (this rank's channels and
+rows of each, ``parallel/sharded.py``): ``Conv``, ``ConvBN``,
+``DarknetConvBN``, ``darknet_head_conv``, ``upsample2x`` and
+``cat_channels`` accept either.
 
 ``dtype`` may also be the :class:`Int8Act` sentinel (the JAX package's
 serving-only int8-activation modes): then every bias-free dense conv but
@@ -41,8 +46,18 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from k210_yolo_framework_tpu_torch.parallel.sharded import (
+    Sharded,
+    all_reduce_sum,
+    conv_rows,
+    gather,
+)
+from k210_yolo_framework_tpu_torch.parallel.sharded import (
+    cat_channels as _cat_sharded,
+)
+
 __all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN", "Int8Act",
-           "STEM_MODES",
+           "STEM_MODES", "cat_channels",
            "darknet_head_conv", "leaky_relu", "max_pool_same", "name_convs",
            "exact_div", "relu", "relu6", "set_data_group",
            "smooth_max_pool_same", "smooth_witness", "split_dtype",
@@ -171,10 +186,21 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_(x, 0.0, 6.0)
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
+def upsample2x(x):
     """Nearest-neighbour 2x upsample of an NCHW tensor (keras
-    ``UpSampling2D(2)``)."""
+    ``UpSampling2D(2)``), or of a ``Sharded`` one: a rank's rows s of H
+    become its rows of 2H, its channels stay its own."""
+    if isinstance(x, Sharded):
+        return x.like(upsample2x(x.t))
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def cat_channels(parts):
+    """NCHW tensors concatenated on channels, in order (``torch.cat`` on
+    dim 1), or ``Sharded`` ones (``parallel.sharded.cat_channels``)."""
+    if isinstance(parts[0], Sharded):
+        return _cat_sharded(parts)
+    return torch.cat(parts, dim=1)
 
 
 def _pool_pads(x: torch.Tensor, stride: int) -> Tuple[int, int, int, int]:
@@ -273,9 +299,37 @@ class Conv(nn.Module):
         return F.conv2d(x, weight, bias, self.strides, padding, 1,
                         self.groups)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x, dtype: torch.dtype):
+        if isinstance(x, Sharded):
+            return self.forward_sharded(x, dtype)
         bias = None if self.bias is None else self.bias.to(dtype)
         return self._conv2d(x.to(dtype), self.weight.to(dtype), bias)
+
+    def forward_sharded(self, x: Sharded, dtype: torch.dtype) -> Sharded:
+        """This rank's part of the conv on a TP/SP mesh
+        (``parallel/sharded.py``): output channels ``channel_range`` of the
+        kernel from ``weight[lo:hi]`` (and ``bias[lo:hi]``); the input's
+        channels gathered for a dense conv, that slice of them for a
+        depthwise one; this rank's output rows where they divide by sp
+        (``conv_rows``)."""
+        ctx = x.ctx
+        cout, _, kh, _ = self.weight.shape
+        lo, hi = ctx.channel_range(cout)
+        sliced = hi - lo < cout
+        t = x.t.to(dtype)
+        t = x.channel_slice(t, lo, hi) if self.groups > 1 and sliced \
+            else x.whole_channels(t)
+        t, (top, bottom), rows = conv_rows(x, t, kh, self.strides[0],
+                                           self.pads[0])
+        left, right = self.pads[1]
+        if top or bottom or left or right:
+            t = F.pad(t, (left, right, top, bottom))
+        weight, bias = self.weight[lo:hi], self.bias
+        if bias is not None:
+            bias = bias[lo:hi].to(dtype)
+        y = F.conv2d(t, weight.to(dtype), bias, self.strides, 0, 1,
+                     1 if self.groups == 1 else hi - lo)
+        return Sharded(y, ctx, rows, sliced)
 
     def forward_patches(self, x: torch.Tensor,
                         dtype: torch.dtype) -> torch.Tensor:
@@ -415,25 +469,6 @@ def name_convs(net: nn.Module) -> nn.Module:
     return net
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """A sum over a process group whose backward sums the incoming gradient
-    over the same group: every rank's output is used by every rank's
-    loss."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 class BatchNorm(nn.Module):
     """BatchNorm over channels in fp32, in flax's order:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
@@ -451,7 +486,14 @@ class BatchNorm(nn.Module):
     ``E[x]`` and ``E[x^2]``, weighted by its share 1 / dp, are summed over
     the group by a sum whose backward sums the gradient too, so the
     statistics, the running ones and the gradients are the whole batch's.
-    At dp = 1 that is this arithmetic exactly (a product by 1.0)."""
+    At dp = 1 that is this arithmetic exactly (a product by 1.0).
+
+    On a TP/SP mesh ``layout`` is the ``Sharded`` activation ``x`` is the
+    part of: the group is ``layout.ctx.batch_group(layout.rows)`` (data x
+    space while the rows are split, data after), and where ``x`` holds the
+    channel slice [lo, hi) of a model rank, the parameters and statistics
+    of those channels normalise it; the slices' new running statistics
+    are gathered over ``model``, so every rank stores them whole."""
 
     def __init__(self, features: int, momentum: float = 0.99):
         super().__init__()
@@ -462,29 +504,44 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                layout: Optional[Sharded] = None) -> torch.Tensor:
         x = x.to(torch.float32)
+        group, model_group = self.data_group, None
+        weight, bias = self.weight, self.bias
+        running = self.running_mean, self.running_var
+        if layout is not None:
+            group = layout.ctx.batch_group(layout.rows)
+            if layout.channels:
+                lo, hi = layout.ctx.channel_range(self.weight.shape[0])
+                model_group = layout.ctx.model_group
+                weight, bias = weight[lo:hi], bias[lo:hi]
+                running = tuple(r[lo:hi] for r in running)
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
             sq = (x * x).mean(dim=(0, 2, 3))
-            if self.data_group is not None:
-                share = 1.0 / dist.get_world_size(self.data_group)
-                mean, sq = _AllReduceSum.apply(
-                    torch.stack([mean, sq]) * share,
-                    self.data_group).unbind(0)
+            if group is not None:
+                share = 1.0 / dist.get_world_size(group)
+                mean, sq = all_reduce_sum(torch.stack([mean, sq]) * share,
+                                          group).unbind(0)
             var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
+                new_mean, new_var = mean, var
+                if model_group is not None:      # every channel's, whole
+                    new_mean, new_var = gather(torch.stack([mean, var]),
+                                               model_group, 1)
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                                        + (1 - m) * new_mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * new_var)
         else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + _BN_EPS) * self.weight
+            mean, var = running
+        mul = torch.rsqrt(var + _BN_EPS) * weight
         y = x - mean[:, None, None]
         if torch.is_grad_enabled():
-            return y * mul[:, None, None] + self.bias[:, None, None]
-        return y.mul_(mul[:, None, None]).add_(self.bias[:, None, None])
+            return y * mul[:, None, None] + bias[:, None, None]
+        return y.mul_(mul[:, None, None]).add_(bias[:, None, None])
 
 
 def set_data_group(net: nn.Module, group) -> nn.Module:
@@ -552,10 +609,12 @@ class ConvBN(nn.Module):
         self._stem_mode = mode
         self.conv.int8_capable = self.conv.int8_rule(mode)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
-                post_conv_scale: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x, dtype: torch.dtype = torch.float32,
+                post_conv_scale: Optional[torch.Tensor] = None):
         dtype, int8_act = split_dtype(dtype)
+        if isinstance(x, Sharded):
+            return self._forward_sharded(x, dtype, int8_act,
+                                         post_conv_scale)
         if int8_act is not None and self.training:
             # round() has no gradient: the conv stack would not train
             raise NotImplementedError(
@@ -583,6 +642,24 @@ class ConvBN(nn.Module):
             x = self.act(x)
         return x
 
+    def _forward_sharded(self, x: Sharded, dtype, int8_act,
+                         post_conv_scale) -> Sharded:
+        """This rank's part on a TP/SP mesh: the conv's
+        (``Conv.forward_sharded``), then the scale, BN and activation on
+        it."""
+        if int8_act is not None or self.stem_mode == "patches":
+            raise NotImplementedError(
+                "the int8-activation modes and the patches stem on a mesh "
+                "with a model or space axis (ROADMAP queue 1 item 5)")
+        y = self.conv(x, dtype)
+        t = y.t
+        if post_conv_scale is not None:
+            t = t * post_conv_scale.to(t.dtype)[:, None, None, None]
+        t = self.bn(t, y)
+        if self.act is not None:
+            t = self.act(t)
+        return y.like(t)
+
 
 class DarknetConvBN(nn.Module):
     """``DarknetConv2D_BN_Leaky``: no bias, BN, LeakyReLU 0.1; the stride-2
@@ -607,9 +684,8 @@ class DarknetConvBN(nn.Module):
     def stem_mode(self, mode: str) -> None:
         self.dark_conv_bn.stem_mode = mode
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
-                post_conv_scale: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x, dtype: torch.dtype = torch.float32,
+                post_conv_scale: Optional[torch.Tensor] = None):
         return self.dark_conv_bn(x, dtype, post_conv_scale)
 
 
@@ -620,8 +696,7 @@ class darknet_head_conv(nn.Module):  # noqa: N801 (the JAX package's name)
         super().__init__()
         self.dark_conv_out = Conv(cin, features, (1, 1), use_bias=True)
 
-    def forward(self, x: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def forward(self, x, dtype: torch.dtype = torch.float32):
         # under Int8Act the head conv stays wide: its output is the decode
         # surface
         return self.dark_conv_out(x, split_dtype(dtype)[0])

@@ -10,6 +10,12 @@ statistics updated in place; ``net.eval()`` serves.
 
 All four builders of the JAX package: ``yolo_mobilev1``, ``yolo_mobilev2``
 and ``tiny_yolo`` (two scales) and the darknet53 ``yolo`` (three).
+
+``shard`` (a ``parallel.sharded.ShardContext``) runs this rank's part of
+the forward on a mesh with a model or space axis: the image enters whole,
+each layer computes its channels and rows (``parallel/sharded.py``), and
+the head outputs are gathered, so every rank returns them whole.
+yolo_mobilev1 alone takes it (``YoloNet.shards``); the others raise.
 """
 
 from __future__ import annotations
@@ -29,11 +35,13 @@ from k210_yolo_framework_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
     DarknetConvBN,
+    cat_channels,
     darknet_head_conv,
     upsample2x,
 )
 from k210_yolo_framework_tpu_torch.models.mobilenet_v1 import MobileNetV1
 from k210_yolo_framework_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from k210_yolo_framework_tpu_torch.parallel.sharded import Sharded
 
 __all__ = ["YoloNet", "YoloMobileV1", "YoloMobileV2", "TinyYolo", "Yolo",
            "build_network", "init_weights", "NETWORKS"]
@@ -56,7 +64,7 @@ class _TwoScaleHead(nn.Module):
                 dtype: torch.dtype) -> List[torch.Tensor]:
         y1 = self.y1_out(self.y1_conv(trunk32, dtype), dtype)
         x = upsample2x(self.up_conv(trunk32, dtype))
-        x = torch.cat([x, tap16], dim=1)
+        x = cat_channels([x, tap16])
         y2 = self.y2_out(self.y2_conv(x, dtype), dtype)
         return [y1, y2]
 
@@ -67,6 +75,8 @@ class YoloNet(nn.Module):
     ``"default"``) for its stem; ``net.stem_mode`` reads and sets it."""
 
     n_out_layers = 2
+    # whether the forward takes ``shard`` (a model or space axis)
+    shards = False
 
     def __init__(self, anchor_num: int, class_num: int,
                  in_hw: Sequence[int]):
@@ -95,13 +105,25 @@ class YoloNet(nn.Module):
 
     def forward_raw(self, x: torch.Tensor,
                     input_scale: Optional[torch.Tensor] = None,
-                    dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+                    dtype: torch.dtype = torch.float32,
+                    shard=None) -> List[torch.Tensor]:
         """x [B, H, W, 3] (any real dtype; cast to ``dtype`` by the stem
         conv), or in the ``"patches"`` stem mode the stem's patches [B, Ho,
-        kh, Wo, kw, 3] -> per layer [B, h, w, a * (5 + C)] in ``dtype``."""
+        kh, Wo, kw, 3] -> per layer [B, h, w, a * (5 + C)] in ``dtype``.
+        With ``shard`` this rank's part on a TP/SP mesh (module
+        docstring)."""
         if self.stem_mode != "patches":
             x = x.permute(0, 3, 1, 2)
-        heads = self._heads(x, dtype, input_scale)
+        if shard is None:
+            heads = self._heads(x, dtype, input_scale)
+        else:
+            if not self.shards:
+                raise NotImplementedError(
+                    f"{type(self).__name__} on a mesh with a model or space "
+                    "axis: its residual adds and SAME max-pools have no "
+                    "halo rule yet (ROADMAP queue 1 item 4)")
+            heads = [h.full() for h in self._heads(Sharded(x, shard), dtype,
+                                                   input_scale)]
         return [h.permute(0, 2, 3, 1) for h in heads]
 
     def reshape_outputs(self, outputs: List[torch.Tensor]
@@ -112,10 +134,12 @@ class YoloNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 input_scale: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+                dtype: torch.dtype = torch.float32,
+                shard=None) -> List[torch.Tensor]:
         """-> per layer [B, h, w, a, 5 + C]; channel ``a * (5 + C) + e`` of
         the raw output is entry e of anchor a."""
-        return self.reshape_outputs(self.forward_raw(x, input_scale, dtype))
+        return self.reshape_outputs(self.forward_raw(x, input_scale, dtype,
+                                                     shard))
 
 
 class _TwoScaleNet(YoloNet):
@@ -139,6 +163,8 @@ class _TwoScaleNet(YoloNet):
 
 class YoloMobileV1(_TwoScaleNet):
     """yolo_mobilev1: y1 width 128 if alpha > 0.8 else 192, y2 width 128."""
+
+    shards = True
 
     def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
                  alpha: float = 0.75, stem_mode: str = "default"):

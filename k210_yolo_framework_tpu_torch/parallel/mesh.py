@@ -14,17 +14,24 @@ mesh dimension:
     port's OIHW kernels, the last dim of JAX's HWIO ones);
   * everything else is replicated.
 
-Serving over a pure data-parallel mesh is
-``inference.Predictor.make_sharded_runner``; training on one is
-``training.train.fit(mesh=)`` and its steps.  Both are JAX's one GSPMD
+Serving over a mesh is ``inference.Predictor.make_sharded_runner``;
+training on one is ``training.train.fit(mesh=)`` and its steps.  Both are
+JAX's one GSPMD
 program written out per rank: rank r of the data axis holds the batch
 slots ``[r * B / dp, (r + 1) * B / dp)`` (:func:`slot_range`), and what
 GSPMD reduces over the whole batch is summed over the data axis here
 (:func:`sum_over_data`; gloo has no average, so a mean is a sum divided by
 dp).  :func:`init_world` joins a process group the way the entry points
 do: from torchrun's environment, or from an explicit ``file://`` URL.
-The model and space axes are not ported yet (ROADMAP queue 1 item 3):
-:func:`require_data_parallel` refuses them.
+
+The model and space axes (``parallel/sharded.py``): rank m of ``model``
+computes output channels :func:`channel_range` of each kernel
+:func:`param_shardings` marks, rank s of ``space`` rows :func:`row_range`
+of each activation whose rows divide; BatchNorm's moments are summed over
+:func:`pixel_group` (data x space) while a layer's rows are split, over
+the data group after they are gathered; state and gradients over
+:func:`world_group`.  What they do not cover yet raises through
+:func:`require_data_parallel`, naming the ROADMAP item that holds it.
 """
 
 from __future__ import annotations
@@ -38,10 +45,12 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Placement, Replicate, Shard
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "SPACE_AXIS", "axis_size",
-           "batch_sharding", "data_group", "data_rank", "host_group",
-           "image_sharding", "init_world", "make_mesh", "mean_over_data",
-           "param_shardings", "replicated", "require_data_parallel",
-           "slot_range", "sum_over_data"]
+           "batch_sharding", "channel_range", "data_group", "data_rank",
+           "host_group", "image_sharding", "init_world", "make_mesh",
+           "mean_over_data", "model_group", "model_rank", "param_shardings",
+           "pixel_group", "replicated", "require_data_parallel",
+           "row_range", "shards_channels", "slot_range", "space_group",
+           "space_rank", "sum_over_data", "world_group"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -99,22 +108,52 @@ def param_shardings(state: Mapping[str, torch.Tensor], mesh: DeviceMesh,
     mp = axis_size(mesh, MODEL_AXIS)
 
     def rule(t: torch.Tensor) -> Placements:
-        if mp > 1 and t.ndim == 4 and t.shape[0] % mp == 0 \
-                and t.shape[0] >= min_channels:
+        if t.ndim == 4 and shards_channels(t.shape[0], mp, min_channels):
             return (Replicate(), Shard(0), Replicate())
         return replicated(mesh)
 
     return {name: rule(t) for name, t in state.items()}
 
 
-def require_data_parallel(mesh: DeviceMesh, what: str) -> None:
+def shards_channels(cout: int, mp: int, min_channels: int = 128) -> bool:
+    """Whether a conv kernel of ``cout`` output channels shards them over a
+    model axis of size ``mp``: mp > 1, cout divides by it and is at least
+    ``min_channels`` (JAX's ``param_shardings`` rule)."""
+    return mp > 1 and cout % mp == 0 and cout >= min_channels
+
+
+def channel_range(cout: int, mesh: DeviceMesh) -> Tuple[int, int]:
+    """The output channels ``[lo, hi)`` of a conv kernel of ``cout`` that
+    this rank computes: ``[m * O / mp, (m + 1) * O / mp)`` for model rank m
+    where :func:`shards_channels` marks the kernel, else all of them."""
+    mp = axis_size(mesh, MODEL_AXIS)
+    if not shards_channels(cout, mp):
+        return 0, cout
+    m = model_rank(mesh)
+    return m * cout // mp, (m + 1) * cout // mp
+
+
+def row_range(h: int, mesh: DeviceMesh) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of an activation of ``h`` rows that this rank
+    holds: ``[s * H / sp, (s + 1) * H / sp)`` for space rank s where H
+    divides by sp, else all of them (the layer runs replicated over
+    ``space``)."""
+    sp = axis_size(mesh, SPACE_AXIS)
+    if sp == 1 or h % sp:
+        return 0, h
+    s = space_rank(mesh)
+    return s * h // sp, (s + 1) * h // sp
+
+
+def require_data_parallel(mesh: DeviceMesh, what: str, item: int) -> None:
     """Raise ``NotImplementedError`` unless the mesh is pure data
-    parallelism (mp = sp = 1)."""
+    parallelism (mp = sp = 1): for what the model and space axes do not
+    cover yet, ROADMAP queue 1 item ``item``."""
     if axis_size(mesh, MODEL_AXIS) != 1 or axis_size(mesh, SPACE_AXIS) != 1:
         raise NotImplementedError(
             f"{what} needs a pure data-parallel mesh (mp = sp = 1); the "
-            "model and space axes are not ported yet (ROADMAP queue 1 "
-            "item 3)")
+            "model and space axes do not cover it yet (ROADMAP queue 1 "
+            f"item {item})")
 
 
 def data_group(mesh: DeviceMesh) -> dist.ProcessGroup:
@@ -125,6 +164,49 @@ def data_group(mesh: DeviceMesh) -> dist.ProcessGroup:
 def data_rank(mesh: DeviceMesh) -> int:
     """This rank's index along the data axis."""
     return mesh.get_local_rank(DATA_AXIS)
+
+
+def model_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The process group of this rank's model axis."""
+    return mesh.get_group(MODEL_AXIS)
+
+
+def model_rank(mesh: DeviceMesh) -> int:
+    """This rank's index along the model axis."""
+    return mesh.get_local_rank(MODEL_AXIS)
+
+
+def space_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The process group of this rank's space axis."""
+    return mesh.get_group(SPACE_AXIS)
+
+
+def space_rank(mesh: DeviceMesh) -> int:
+    """This rank's index along the space axis."""
+    return mesh.get_local_rank(SPACE_AXIS)
+
+
+def pixel_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The group over which one batch's pixels are spread: this rank's
+    data and space axes together (dp * sp ranks of one model coordinate).
+    Made once a mesh: every rank calls ``new_group`` for every model
+    coordinate, in the same order, the first time."""
+    if not hasattr(mesh, "_pixel_groups"):
+        grid = mesh.mesh.reshape(axis_size(mesh, DATA_AXIS),
+                                 axis_size(mesh, MODEL_AXIS),
+                                 axis_size(mesh, SPACE_AXIS))
+        planes = [grid[:, m, :].flatten().tolist()
+                  for m in range(grid.shape[1])]
+        mesh._pixel_groups = [(ranks, dist.new_group(ranks))
+                              for ranks in planes]
+    me = dist.get_rank()
+    return next(g for ranks, g in mesh._pixel_groups if me in ranks)
+
+
+def world_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The group of every rank of the mesh: the default group, which
+    :func:`make_mesh` spans."""
+    return dist.group.WORLD
 
 
 def slot_range(batch: int, mesh: DeviceMesh) -> Tuple[int, int]:
@@ -151,10 +233,10 @@ def mean_over_data(t: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
 
 
 def host_group(mesh: DeviceMesh) -> Tuple[dist.ProcessGroup, bool]:
-    """A gloo group over this rank's data axis, for host tensors: the data
-    group itself where it is gloo, else a new one.  Returns (group, made);
-    the caller destroys a group it was given new (``made``)."""
-    group = data_group(mesh)
+    """A gloo group over every rank of the mesh, for host tensors: the
+    world group itself where it is gloo, else a new one.  Returns (group,
+    made); the caller destroys a group it was given new (``made``)."""
+    group = world_group(mesh)
     if dist.get_backend(group) == "gloo":
         return group, False
     return dist.new_group(dist.get_process_group_ranks(group),

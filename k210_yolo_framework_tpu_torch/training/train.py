@@ -27,8 +27,23 @@ penalty's, added once a rank) are summed over the data axis and divided by
 dp, which is the gradient of the global loss; the logged losses are the
 mean over ranks and the P/R counters the sum.  The parameters, BN
 statistics, Adam moments, masks and step count start as rank 0's
-(:func:`shard_state`) and stay identical on every rank.  A mesh with a
-model or space axis raises ``NotImplementedError``.
+(:func:`shard_state`) and stay identical on every rank.
+
+On a mesh with a model or space axis (yolo_mobilev1) each rank of a data
+coordinate holds the same slots and computes its part of the forward:
+its output channels of each kernel ``param_shardings`` marks and its
+rows of each activation whose rows divide (``parallel/sharded.py``);
+BatchNorm sums its moments over data x space while a layer's rows are
+split, over data after.  TP here shards the compute, not the storage:
+every rank keeps every parameter whole and computes with its slice, so
+Adam, pruning's per-kernel threshold and the checkpoints are as on one
+device, and the state is laid out as JAX's is after the same steps.  The
+gradient rule is one rule with one collective: each rank's loss
+(replicated over its model and space peers) is scaled by 1 / (mp * sp)
+before ``backward()``, the collectives' backwards sum what each rank's
+slice fed, and every ``.grad`` is then summed over the world and divided
+by dp.  At mp = sp = 1 that is the data-parallel mean above, exactly.
+The logged losses and the P/R counters reduce over the data axis only.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ from k210_yolo_framework_tpu_torch.models.layers import (
 )
 from k210_yolo_framework_tpu_torch.models.yolonet import YoloNet
 from k210_yolo_framework_tpu_torch.parallel import mesh as PM
+from k210_yolo_framework_tpu_torch.parallel.sharded import ShardContext
 from k210_yolo_framework_tpu_torch.training import loss as L
 from k210_yolo_framework_tpu_torch.training import metrics as M
 from k210_yolo_framework_tpu_torch.training import pruning as P
@@ -141,12 +157,12 @@ def prune_step(state: TrainState, cfg: TrainConfig, prune_end: int) -> None:
 
 
 def shard_state(state: TrainState, mesh) -> TrainState:
-    """Replicate rank 0's state over the mesh's data axis, in place: rank 0
-    of the data axis broadcasts the parameters, BN statistics, Adam
-    moments and step counts, pruning masks, P/R counters and the step
-    count.  Returns ``state``."""
-    PM.require_data_parallel(mesh, "shard_state")
-    group = PM.data_group(mesh)
+    """Replicate rank 0's state over every rank of the mesh, in place: world
+    rank 0 broadcasts the parameters (whole: a model rank computes with its
+    slice of a kernel but stores all of it), BN statistics, Adam moments
+    and step counts, pruning masks, P/R counters and the step count.
+    Returns ``state``."""
+    group = PM.world_group(mesh)
     src = dist.get_global_rank(group, 0)
     net, opt = state.net, state.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
@@ -180,22 +196,38 @@ def shard_state(state: TrainState, mesh) -> TrainState:
     return state
 
 
-def _mean_grads(params, group) -> None:
-    """Each parameter's ``.grad`` replaced by its mean over ``group``, in
-    one collective."""
+def _mean_grads(params, group, dp: int) -> None:
+    """Each parameter's ``.grad`` replaced by its sum over ``group`` (the
+    world) divided by ``dp``, in one collective."""
     grads = [p.grad for p in params if p.grad is not None]
-    flat = PM.mean_over_data(torch.cat([g.reshape(-1) for g in grads]),
-                             group)
+    flat = PM.sum_over_data(torch.cat([g.reshape(-1) for g in grads]),
+                            group).div_(dp)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view(g.shape))
 
 
-def _data_axis(mesh, what: str):
-    """The data group of a pure data-parallel mesh, or None without one."""
+@dataclasses.dataclass
+class _Axes:
+    """What a step needs of its mesh: the data group (the losses and P/R
+    counters), the world group and dp (the gradients), the TP/SP forward's
+    context (None at mp = sp = 1) and the loss scale 1 / (mp * sp)."""
+    data: object
+    world: object
+    dp: int
+    shard: Optional[ShardContext]
+    loss_scale: float
+
+
+def _axes(mesh) -> Optional[_Axes]:
+    """The step's view of ``mesh``, or None without one."""
     if mesh is None:
         return None
-    PM.require_data_parallel(mesh, what)
-    return PM.data_group(mesh)
+    model_space = PM.axis_size(mesh, PM.MODEL_AXIS) * PM.axis_size(
+        mesh, PM.SPACE_AXIS)
+    return _Axes(data=PM.data_group(mesh), world=PM.world_group(mesh),
+                 dp=PM.axis_size(mesh, PM.DATA_AXIS),
+                 shard=ShardContext(mesh) if model_space > 1 else None,
+                 loss_scale=1.0 / model_space)
 
 
 def _layer_logs(logs: dict, prefix: str, layer_losses, pr) -> dict:
@@ -207,15 +239,19 @@ def _layer_logs(logs: dict, prefix: str, layer_losses, pr) -> dict:
     return logs
 
 
-def _losses(net, spec, cfg, images, labels, dtype, group=None):
-    """(outputs, per-layer losses, their sum); with ``group`` BatchNorm
-    takes the global batch's statistics.  The normaliser is this batch's
-    (a rank's shard's) size."""
-    set_data_group(net, group)
-    try:
-        outs = net(images, dtype=dtype)
-    finally:
-        set_data_group(net, None)
+def _losses(net, spec, cfg, images, labels, dtype, axes=None):
+    """(outputs, per-layer losses, their sum); on a mesh (``axes``)
+    BatchNorm takes the global batch's statistics, and with a model or
+    space axis the forward is this rank's part, its outputs whole.  The
+    normaliser is this batch's (a rank's shard's) size."""
+    if axes is not None and axes.shard is not None:
+        outs = net(images, dtype=dtype, shard=axes.shard)
+    else:
+        set_data_group(net, None if axes is None else axes.data)
+        try:
+            outs = net(images, dtype=dtype)
+        finally:
+            set_data_group(net, None)
     layer_losses = L.yolo_loss_layers(
         labels, outs, spec, images.shape[0], cfg.obj_thresh, cfg.iou_thresh,
         cfg.obj_weight, cfg.noobj_weight, cfg.wh_weight)
@@ -243,10 +279,11 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
     ``cfg.is_prune``, ``train_epoch_step`` (steps an epoch) is required:
     the schedule ends after ``prune_end_epoch`` epochs; the masks follow
     the update (:func:`prune_step`) and ``logs["sparsity"]`` is their share
-    of zeros.  With ``mesh`` (pure data parallelism) each rank is given its
+    of zeros.  With ``mesh`` each rank is given its data coordinate's
     slots of the global batch and the step is the global batch's (module
     docstring); the state must be replicated (:func:`shard_state`)."""
-    group = _data_axis(mesh, "the train step")
+    axes = _axes(mesh)
+    group = None if axes is None else axes.data
     if cfg.is_prune and train_epoch_step is None:
         raise ValueError("pruning needs train_epoch_step: the schedule ends "
                          "after prune_end_epoch epochs")
@@ -259,13 +296,18 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
         net, opt = state.net, state.optimizer
         net.train()
         outs, layer_losses, main = _losses(net, spec, cfg, images, labels,
-                                           compute_dtype, group)
+                                           compute_dtype, axes)
         opt.zero_grad(set_to_none=True)
-        (main + L.l2_penalty(net)).backward()
-        if group is not None:
+        total = main + L.l2_penalty(net)
+        if axes is not None and axes.loss_scale != 1.0:
+            # replicated over the model and space peers: each backs 1/(mp sp)
+            total = total * axes.loss_scale
+        total.backward()
+        if axes is not None:
             # each rank's sum already holds every rank's share through the
-            # BN statistics' backward: the mean is the global gradient
-            _mean_grads(net.parameters(), group)
+            # collectives' backwards: the world's sum over dp is the global
+            # gradient
+            _mean_grads(net.parameters(), axes.world, axes.dp)
         lr = schedule(state.step)
         adam_update(opt, lr)
         if cfg.is_prune:
@@ -292,7 +334,11 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
     running statistics; the net's train/eval mode is restored after.  With
     ``mesh`` each rank is given its slots of the test batch; ``val_loss``
     is the mean over ranks and the counters the sum."""
-    group = _data_axis(mesh, "the eval step")
+    axes = _axes(mesh)
+    group = None if axes is None else axes.data
+    # eval-mode BatchNorm reduces nothing: only a TP/SP forward needs the
+    # mesh
+    fwd_axes = axes if axes is not None and axes.shard is not None else None
 
     @torch.no_grad()
     def step(net: YoloNet, pr, images, labels):
@@ -300,7 +346,8 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
         net.eval()
         try:
             outs, layer_losses, loss = _losses(net, spec, cfg, images,
-                                               labels, compute_dtype)
+                                               labels, compute_dtype,
+                                               fwd_axes)
         finally:
             net.train(was_training)
         pr = M.update_pr_state(pr, labels, outs, cfg.obj_thresh, group)
@@ -433,12 +480,13 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
     this rank's) every rank runs this loop over the same batches and the
     same generator: the state is replicated from rank 0
     (:func:`shard_state`), each step is the sharded one, and the log lines,
-    ``scalar_logger`` and the profiler run on rank 0 only.  A stop signal
-    on any rank stops every rank after the same step (the flag is agreed
-    over a gloo group each step, a host collective)."""
+    ``scalar_logger`` and the profiler run on world rank 0 only.  A stop
+    signal on any rank stops every rank after the same step (the flag is
+    agreed over a gloo group of the whole world each step, a host
+    collective)."""
     device = checked_device(device)
-    group = _data_axis(mesh, "fit")
-    if group is not None and PM.data_rank(mesh) != 0:
+    group = None if mesh is None else PM.data_group(mesh)
+    if group is not None and dist.get_rank() != 0:
         log_fn, scalar_logger, profile_dir = (lambda _line: None), None, ""
     if state is None:
         state = create_train_state(net, cfg, device)
@@ -559,9 +607,13 @@ def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
     ``make_preprocess_fn``'s, drawing its augment from ``generator``.  With
     ``mesh`` (pure data parallelism) every rank is given the same batches,
     preprocesses its slots, and each batch's moments are the global
-    batch's."""
+    batch's.  A mesh with a model or space axis raises
+    ``NotImplementedError``."""
     device = checked_device(device)
-    group = _data_axis(mesh, "recalibrate_batch_stats")
+    group = None
+    if mesh is not None:
+        PM.require_data_parallel(mesh, "recalibrate_batch_stats", 6)
+        group = PM.data_group(mesh)
     bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
     ema = {bn: (bn.running_mean.clone(), bn.running_var.clone(), bn.momentum)
            for bn in bns}

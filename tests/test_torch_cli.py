@@ -246,11 +246,12 @@ def test_keras_train_guards(synth, monkeypatch):
         "(drop_remainder batching, utils.py:449-450) — lower --batch_size")
     assert "zero steps per epoch (drop_remainder" in \
         (REPO / "keras_train.py").read_text()
-    # --mesh as keras_train.py parses it: a model axis is not ported yet,
-    # more than three axes exit with the JAX script's text, and the batch
-    # must divide by dp
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        TKT.main(TKT.parse_args(TRAIN + ["--mesh", "1,2"]))
+    # --mesh as keras_train.py parses it: the model and space axes cover
+    # yolo_mobilev1 only, more than three axes exit with the JAX script's
+    # text, and the batch must divide by dp
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        TKT.main(TKT.parse_args(TRAIN + ["--mesh", "1,2", "--model_def",
+                                         "tiny_yolo"]))
     with pytest.raises(SystemExit) as e:
         TKT.main(TKT.parse_args(TRAIN + ["--mesh", "2,2,1,1"]))
     assert str(e.value) == ("--mesh '2,2,1,1': format is 'dp,mp[,sp]' or "
@@ -291,6 +292,46 @@ def test_keras_train_on_a_two_rank_mesh(synth, monkeypatch, capsys):
              (again / "scalars.jsonl").read_text().splitlines()]
     assert [d["step"] for d in lines] == [3]
     assert TC.restore_state(str(again / "ckpt"), state).step == 3
+
+
+def test_keras_train_on_a_tp_sp_mesh(synth, monkeypatch):
+    """--mesh 1,2,2 --device cpu: four gloo ranks (channels over the model
+    axis, rows over the space axis) train the batch of 4 for an epoch of
+    2 steps;
+    world rank 0 alone writes the run, whose weights load into JAX's
+    layout and whose checkpoint resumes on the same mesh."""
+    run = _train(["--mesh", "1,2,2", "--max_nrof_epochs", "1",
+                  "--log_dir", "log_tpsp"], monkeypatch, synth)
+    assert [p.name for p in (synth / "log_tpsp").iterdir()] == [run.name]
+    lines = [json.loads(l) for l in
+             (run / "scalars.jsonl").read_text().splitlines()]
+    assert [d["step"] for d in lines] == [1, 2]
+    assert all(np.isfinite(d["loss"]) for d in lines)
+    state = TT.create_train_state(
+        build_network("yolo_mobilev1", (96, 96), 3, 4, alpha=0.5),
+        TConfig.TrainConfig(), "cpu")
+    assert TC.restore_state(str(run / "ckpt"), state).step == 2
+    sd = TC.load_variables(str(run / "yolo_model.npz"), "yolo_mobilev1",
+                           state.net)
+    for k, v in state.net.state_dict().items():
+        assert torch.equal(sd[k], v), k
+    # the JAX package reads the whole kernels, those the model axis split
+    # included
+    _, variables, _ = jax_weights("yolo_mobilev1", (96, 96), 3, 4, alpha=0.5)
+    loaded = JCK.load_h5(str(run / "yolo_model.h5"),
+                         {"params": variables["params"],
+                          "batch_stats": variables["batch_stats"]})
+    np.testing.assert_array_equal(
+        np.asarray(loaded["params"]["backbone"]["block_13"]["pw"]["conv"]
+                   ["kernel"]),
+        TC.flat_from_state_dict(sd)["params/backbone/block_13/pw/conv/kernel"])
+    again = _train(["--mesh", "1,2,2", "--max_nrof_epochs", "1",
+                    "--log_dir", "log_tpsp2", "--pre_ckpt",
+                    str(run / "ckpt")], monkeypatch, synth)
+    lines = [json.loads(l) for l in
+             (again / "scalars.jsonl").read_text().splitlines()]
+    assert [d["step"] for d in lines] == [3, 4]
+    assert TC.restore_state(str(again / "ckpt"), state).step == 4
 
 
 # ---- keras_inference / keras_eval -------------------------------------

@@ -1195,3 +1195,50 @@ def test_mesh_fused_step_over_nccl_equals_the_plain_step(dev, tmp_path):
         assert sorted(sa) == sorted(sb)
         for k in sa:
             assert torch.equal(sa[k], sb[k]), k
+
+
+def test_halo_and_gather_on_cuda_tensors_over_gloo(dev, tmp_path):
+    """The model and space axes' collectives on CUDA tensors: four
+    processes share the card (NCCL refuses two ranks on one card), joined
+    by gloo, on a (1, 2, 2) mesh.  Each rank's rows with their one-row
+    halos equal those rows of the zero-padded whole and the gathered
+    channels the whole tensor, exactly; the backward of sum(out * g) gives
+    each row the sum of the gradients of every window it lies in, and each
+    channel slice its gradient summed over the model group (2 g)."""
+    import torch_tpsp_worker as W
+    from torch_parallel_worker import spawn_world
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 4, 6, 5)).astype(np.float32)
+    g = rng.standard_normal((2, 4, 6, 5)).astype(np.float32)
+    seen = spawn_world(4, dict(coll_x=x, coll_g=g), tmp_path,
+                       target=W.cuda_collectives)
+    padded = np.pad(x, ((0, 0), (0, 0), (1, 1), (0, 0)))
+    windows = np.zeros_like(g)
+    for s in seen:
+        lo, hi = s["rows"]
+        windows[:, :, max(lo - 1, 0):min(hi + 1, 6)] += \
+            g[:, :, max(lo - 1, 0):min(hi + 1, 6)] / 2
+    assert sorted({s["rows"] for s in seen}) == [(0, 3), (3, 6)]
+    for s in seen:
+        lo, hi = s["rows"]
+        clo, chi = s["channels"]
+        np.testing.assert_array_equal(s["halo"], padded[:, :, lo:hi + 2])
+        np.testing.assert_allclose(s["halo_grad"], windows[:, :, lo:hi],
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(s["gathered"], x)
+        np.testing.assert_allclose(s["gather_grad"], 2 * g[:, clo:chi],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_keras_train_mesh_needs_one_card_a_rank(dev):
+    """--mesh 1,2 on a one-card machine exits before any rank starts:
+    nothing falls back to gloo or to the CPU."""
+    from k210_yolo_framework_tpu_torch.cli import keras_train as KT
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the refusal is a one-card machine's")
+    with pytest.raises(SystemExit,
+                       match="2 processes, one a card, but 1 visible"):
+        KT.main(KT.parse_args(["--model_def", "yolo_mobilev1",
+                               "--mesh", "1,2"]))

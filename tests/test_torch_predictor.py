@@ -202,8 +202,8 @@ def test_port_imports_without_jax():
     """Every module of the port (the native loader's bindings and the
     command-line entry points among them), every module chip_smoke.py
     imports, and the modules the tests' spawned gloo ranks run
-    (``tests/torch_parallel_worker.py``, ``torch_parallel_train_worker.py``)
-    import in a fresh interpreter in which importing jax, flax,
+    (``tests/torch_parallel_worker.py``, ``torch_parallel_train_worker.py``,
+    ``torch_tpsp_worker.py``) import in a fresh interpreter in which importing jax, flax,
     optax, orbax, h5py or matplotlib fails (the card's machine has no flax
     and no h5py: the port imports h5py and matplotlib where it uses them).
     None ends up in sys.modules, and no module of the JAX package
@@ -225,13 +225,13 @@ for mod in ("native", "models.mobilenet_v2", "models.darknet", "port",
             "anchors.kmeans", "utils.tboard", "utils.console",
             "training.pruning", "cli.keras_train", "cli.keras_inference",
             "cli.keras_eval", "cli.make_anchor_list", "cli.make_voc_list",
-            "parallel.mesh"):
+            "parallel.mesh", "parallel.sharded"):
     assert f"k210_yolo_framework_tpu_torch.{mod}" in names, names
 for name in names:
     importlib.import_module(name)
 exec(sys.argv[1])   # chip_smoke.py's import statements
 sys.path.insert(0, "tests")
-import torch_parallel_worker, torch_parallel_train_worker  # spawned ranks
+import torch_parallel_worker, torch_parallel_train_worker, torch_tpsp_worker  # noqa: E401,E501 spawned ranks
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "h5py",
                                     "matplotlib"))

@@ -34,6 +34,7 @@ from k210_yolo_framework_tpu_torch.parallel import (
     slot_range,
     sum_over_data,
 )
+from k210_yolo_framework_tpu_torch.parallel.sharded import ShardContext
 from k210_yolo_framework_tpu_torch.training import checkpoint as TC
 from k210_yolo_framework_tpu_torch.training import train as TT
 
@@ -62,7 +63,7 @@ def _net(job, spec):
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to(torch.float32).contiguous().numpy().copy()
+    return t.detach().to(torch.float32).cpu().contiguous().numpy().copy()
 
 
 def snapshot(state) -> dict:
@@ -217,13 +218,18 @@ def run(rank: int, world: int, init_file: str, job_file: str,
                 spec = _spec(job)
                 tp = make_mesh(dp=world // 2, mp=2, device_type="cpu")
                 sp = make_mesh(dp=world // 2, sp=2, device_type="cpu")
+                # what the model and space axes do not train yet: another
+                # builder, and recalibrate_batch_stats
+                tiny = build_network("tiny_yolo", spec.in_hw, spec.nanchors,
+                                     spec.class_num)
                 seen["model_error"] = _raised(
-                    lambda: TT.make_train_step(spec, _cfg(job), mesh=tp),
+                    lambda: tiny(torch.zeros(1, *spec.in_hw, 3),
+                                 shard=ShardContext(tp)),
                     NotImplementedError)
                 seen["space_error"] = _raised(
-                    lambda: TT.fit(None, spec, _cfg(job), iter(()), None,
-                                   None, None, 1, 0, device="cpu", mesh=sp),
-                    NotImplementedError)
+                    lambda: TT.recalibrate_batch_stats(
+                        _net(job, spec), iter(()), None, device="cpu",
+                        mesh=sp), NotImplementedError)
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()
