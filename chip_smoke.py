@@ -6,7 +6,8 @@ command-line entry points (phase 16), quantized serving, the export and
 the ``Helper`` facade (phase 17), and the darknet53 yolo at 608x608 with
 the greedy kernels' global path, the stem modes and data-parallel serving
 (phase 18), data-parallel training (phase 19), and serving and training on
-the model and space axes (phase 20).
+the model and space axes (phase 20: yolo_mobilev1; phase 21: the other
+three builders).
 
     python3 chip_smoke.py
 
@@ -194,11 +195,29 @@ Phases (any failure raises and the script exits non-zero):
      matched scores within 1e-3) and in bf16 at B=128 on the mid scene at
      set level (1%, 0.02; the flip rate printed), one head launch a call;
      3 ``make_train_step`` steps in fp32 at B=32 against the plain step
-     (step-1 loss rtol 1e-5, parameters within 10x a batch-permutation
-     control taken on the card) and one fused bf16 step at B=128 with
-     augment on (one rotation launch); its serve and step ms (gloo on one
-     card: not a scaling number) and its collectives a step.  Then
-     ``keras_train --mesh 1,2`` must refuse the one-card machine.
+     (step-1 loss rtol 1e-5, first-step gradients and parameters within
+     10x a batch-permutation control taken on the card) and one fused
+     bf16 step at B=128 with augment on (one rotation launch); its serve
+     and step ms (gloo on one card: not a scaling number) and its
+     collectives a step.  Then ``keras_train --mesh 1,2`` must refuse the
+     one-card machine;
+ 21. the other builders on the model and space axes, in phase 20's
+     worlds (each world spawned once for both phases, one row of
+     ``TPSP_CASES`` a builder): yolo_mobilev2 (alpha 1.0) and tiny_yolo
+     at 224x320, the darknet53 yolo at 224x320 and at 608x608
+     (N=22,743), seeded.  Each rank: ``make_sharded_runner`` in fp32
+     against ``_run_batch`` (at most 0.5% unmatched either way, matched
+     scores within 1e-3), one head launch a call (on the global path at
+     608x608); for the first three, 2 ``make_train_step`` steps in fp32
+     of the smooth witness against the plain step (step-1 loss rtol
+     1e-5, first-step gradients and parameters within 10x a
+     batch-permutation control, worst leaf outside the leaves whose
+     gradient is at rounding level, which must stay there) and one step
+     of the net itself (step-1 loss rtol 1e-5); tiny_yolo's fused bf16
+     step at B=32 (one rotation launch) and, in the 4-rank world, its
+     ``recalibrate_batch_stats(mesh=)`` on dp2*sp2 and tp2*sp2 against
+     the single-process recalibration; the serve and step ms (gloo on one
+     card: not a scaling number) and the collectives a step.
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -222,6 +241,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -3163,13 +3183,15 @@ def state_differences(a, b) -> list:
     return diff
 
 
-def rel_l1(a, b) -> float:
-    """The worst parameter's sum|a - b| / sum|b| over two nets
-    (tests/test_parallel_equivalence.py's statistic)."""
-    pb = dict(b.named_parameters())
-    return max(float((p.detach() - pb[n].detach()).abs().sum()
-                     / (pb[n].detach().abs().sum() + 1e-12))
-               for n, p in a.named_parameters())
+def rel_l1(a, b, skip=()) -> float:
+    """The worst parameter's sum|a - b| / sum|b| over two nets or two dicts
+    of tensors (tests/test_parallel_equivalence.py's statistic), the names
+    in ``skip`` left out."""
+    a, b = (dict(x.named_parameters()) if hasattr(x, "named_parameters")
+            else x for x in (a, b))
+    return max(float((a[n].detach() - p.detach()).abs().sum()
+                     / (p.detach().abs().sum() + 1e-12))
+               for n, p in b.items() if n not in skip)
 
 
 def mesh_training(device, tag, ann):
@@ -3379,14 +3401,62 @@ def mesh_training(device, tag, ann):
     return launches + cli_launches
 
 
-# ---- 20. the model and space axes ---------------------------------------
+# ---- 20-21. the model and space axes -------------------------------------
 # NCCL refuses two ranks on one card, so each world is 2 or 4 processes on
 # the one GPU joined by gloo, with the tensors on CUDA.  gloo on one card is
 # no scaling number: its collectives stage through the host.
 TPSP_WORLDS = ((1, 2, 1), (1, 1, 2), (1, 2, 2))
-TPSP_SERVE_B = 32          # fp32 serving against _run_batch
-TPSP_STEPS = 3             # fp32 train steps against the plain step
 TPSP_TIMED = 3             # calls timed a rank, each
+TPSP_RECAL = (2, 8)        # recalibration: batches, batch size
+# a gradient leaf whose largest entry lies below this share of the largest
+# gradient entry is at rounding level: a BatchNorm bias whose every path to
+# the loss runs through a 1x1 conv and a train-mode BN (yolo_mobilev2's
+# linear project BNs) has an exact gradient of 0, its relative L1 is noise
+# against noise and Adam moves it by +-lr on that noise; such leaves are
+# held to stay at rounding level and left out of the worst leaf
+VANISHING = 1e-6
+
+
+class TpspCase(NamedTuple):
+    """One builder in every world: the runner's ``serve`` calls (dtype,
+    batch); ``steps`` fp32 train steps at ``train_b`` (0: none), of the
+    smooth witness and one of the net itself where ``witness``; a fused
+    bf16 step at ``fused_b`` (0: none); with ``recalibrate``,
+    ``recalibrate_batch_stats(mesh=)`` on dp2*sp2 and tp2*sp2 in the
+    4-rank world."""
+    tag: str
+    phase: int
+    model: str
+    alpha: float
+    layers: int
+    in_hw: tuple
+    serve: tuple
+    train_b: int = 0
+    steps: int = 0
+    witness: bool = False
+    fused_b: int = 0
+    recalibrate: bool = False
+
+
+# Phase 20: yolo_mobilev1, the main path's model and width.  Phase 21:
+# yolo_mobilev2 at alpha 1.0 (its 160-channel blocks 14-15 sliced over
+# model), tiny_yolo (at 224x320 its 7-row stride-32 grid is gathered before
+# the stride-1 pool), the darknet53 yolo at 224x320 and at YOLOv3's 608x608
+# (N = 22,743: the head's global path on every rank).  The yolo's batches
+# are small: over gloo on one card each of its ~70 channel gathers a
+# forward is staged through the host.
+TPSP_CASES = (
+    TpspCase("v1", 20, "yolo_mobilev1", 0.75, 2, (224, 320),
+             (("fp32", 32), ("bf16", BATCH)), 32, 3, fused_b=BATCH),
+    TpspCase("v2", 21, "yolo_mobilev2", 1.0, 2, (224, 320), (("fp32", 8),),
+             8, 2, witness=True),
+    TpspCase("tiny", 21, "tiny_yolo", 1.0, 2, (224, 320), (("fp32", 8),),
+             8, 2, witness=True, fused_b=32, recalibrate=True),
+    TpspCase("yolo", 21, "yolo", 1.0, 3, (224, 320), (("fp32", 4),), 2, 2,
+             witness=True),
+    TpspCase("yolo608", 21, "yolo", 1.0, 3, (BIG_SIDE, BIG_SIDE),
+             (("fp32", 2),)),
+)
 
 
 def tpsp_name(dims) -> str:
@@ -3405,9 +3475,9 @@ def set_level(got, want):
     return un_ab, n_a, un_ba, n_b, max(ds_ab, ds_ba)
 
 
-def within_half_percent(un_ab, n_a, un_ba, n_b) -> bool:
-    return (n_a > 0 and un_ab <= max(1, int(np.ceil(0.005 * n_a)))
-            and un_ba <= max(1, int(np.ceil(0.005 * n_b))))
+def within_share(un_ab, n_a, un_ba, n_b, share) -> bool:
+    return (n_a > 0 and un_ab <= max(1, int(np.ceil(share * n_a)))
+            and un_ba <= max(1, int(np.ceil(share * n_b))))
 
 
 def counted_collectives(fn) -> dict:
@@ -3435,7 +3505,7 @@ def counted_collectives(fn) -> dict:
 
 
 def tpsp_rank(rank, world, init_file, dims, ann, out_dir):
-    """One rank of a phase-20 world: gloo over CUDA tensors on card 0."""
+    """One rank of a world: gloo over CUDA tensors on card 0."""
     import pickle
 
     import torch
@@ -3457,75 +3527,82 @@ def tpsp_rank(rank, world, init_file, dims, ann, out_dir):
         dist.destroy_process_group()
 
 
-def tpsp_work(dims, ann) -> dict:
-    """Serve and train on the (dp, mp, sp) mesh ``dims``: the runner in
-    fp32 at B=32 and in bf16 at B=128 (mid scene) against ``_run_batch``
-    on the card; 3 fp32 train steps at B=32 against the plain step and a
-    batch-permutation control; one fused bf16 step at B=128 with augment
-    on (its rotation launches counted on the first call, the second
-    timed); per-rank times and kernel launches.  cuDNN takes deterministic
-    algorithms, so the plain step and its control repeat exactly."""
-    import copy
-
+def tpsp_serve(mesh, net0, spec, label, bsz, canvases, hws) -> dict:
+    """``make_sharded_runner`` in ``label``'s dtype against ``_run_batch``
+    on the card: the set-level statistic, the head launches of one call
+    (and those on the global path), the ms of a call."""
     import torch
 
-    from k210_yolo_framework_tpu_torch import voc_spec
-    from k210_yolo_framework_tpu_torch.config import TrainConfig
-    from k210_yolo_framework_tpu_torch.data import pipeline as PL
     from k210_yolo_framework_tpu_torch.inference import Predictor
-    from k210_yolo_framework_tpu_torch.models import build_network
-    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
-    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
     from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
-    from k210_yolo_framework_tpu_torch.parallel import make_mesh
-    from k210_yolo_framework_tpu_torch.training import train as TT
-
-    device = torch.device("cuda", 0)
-    spec = voc_spec()
-    mesh = make_mesh(*dims, device_type="cuda")
-    net0 = build_network("yolo_mobilev1", spec.in_hw, spec.nanchors,
-                         spec.class_num, alpha=0.75,
-                         generator=torch.Generator().manual_seed(0))
-    canvases, hws, _ = scene_inputs()
-    c_dev = torch.from_numpy(canvases).to(device)
-    h_dev = torch.from_numpy(hws).to(device)
-    seen = {"serve": {}}
 
     def host(res):
         return NmsResult(*(t.cpu().numpy() for t in res))
 
-    for label, dtype, bsz in (("fp32", torch.float32, TPSP_SERVE_B),
-                              ("bf16", torch.bfloat16, BATCH)):
-        pred = Predictor(net0, None, spec, obj_thresh=MID_THRESH,
-                         iou_thresh=IOU, compute_dtype=dtype, device=device)
-        runner = pred.make_sharded_runner(mesh)
-        TH.fused_decode_nms.launches = 0
-        got = runner(c_dev[:bsz], h_dev[:bsz])
-        torch.cuda.synchronize()
-        launches = TH.fused_decode_nms.launches
-        want = pred._run_batch(c_dev[:bsz], h_dev[:bsz])
-        ms = time_ms(lambda: runner(c_dev[:bsz], h_dev[:bsz]), TPSP_TIMED,
-                     warmup=1)
-        seen["serve"][label] = dict(
-            launches=launches, ms=ms, stats=set_level(host(got), host(want)),
-            valid_equal=bool(torch.equal(got.valid, want.valid)))
-        del pred, runner
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[label]
+    pred = Predictor(net0, None, spec, obj_thresh=MID_THRESH, iou_thresh=IOU,
+                     compute_dtype=dtype, device=canvases.device)
+    runner = pred.make_sharded_runner(mesh)
+    c, h = canvases[:bsz], hws[:bsz]
+    zero_counts()
+    got = runner(c, h)
+    torch.cuda.synchronize()
+    launches, global_launches = counts()[:2]
+    want = pred._run_batch(c, h)
+    return dict(stats=set_level(host(got), host(want)),
+                valid_equal=bool(torch.equal(got.valid, want.valid)),
+                launches=launches, global_launches=global_launches,
+                n=sum(a * b for a, b in spec.out_hws) * spec.nanchors,
+                ms=time_ms(lambda: runner(c, h), TPSP_TIMED, warmup=1))
 
-    # train: 3 fp32 steps at B=32 on one preprocessed batch
-    cfg = TrainConfig(batch_size=TPSP_SERVE_B, augment=True)
-    it = iter(PL.DataPipeline(ann, BATCH, seed=0))
-    hb = next(it)
-    it.close()
-    pp32 = PL.make_preprocess_fn(spec, True, torch.float32)
-    small = PL.HostBatch(*(a[:TPSP_SERVE_B] for a in hb)).to(device)
+
+def tpsp_train(mesh, net0, spec, hb, case) -> dict:
+    """``make_train_step`` in fp32 at ``case.train_b``, ``case.steps``
+    steps against the plain step and a batch-permutation control (cuDNN
+    deterministic): the first step's gradients and the final parameters,
+    worst leaf by relative L1 outside the leaves whose plain gradient is at
+    rounding level (``VANISHING``), which are held to stay there.  Where
+    ``case.witness`` the steps are the smooth witness's and one step of
+    the net itself is held by its loss.  A further mesh step timed and its
+    collectives counted."""
+    import copy
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.models.layers import (
+        BatchNorm,
+        smooth_witness,
+    )
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    device = torch.device("cuda", 0)
+    bsz = case.train_b
+    held = net0
+    if case.witness:
+        # BatchNorm's scales and biases drawn as tests/torch_parity.py
+        # draws them, so no BN leaf is relative to init's zeros
+        held = copy.deepcopy(net0)
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for mod in held.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.weight.copy_(torch.rand(mod.weight.shape,
+                                                generator=gen) + 0.5)
+                    mod.bias.copy_(torch.randn(mod.bias.shape,
+                                               generator=gen) * 0.1)
+        held = smooth_witness(held)
+    cfg = TrainConfig(batch_size=bsz, augment=True)
+    pp = PL.make_preprocess_fn(spec, True, torch.float32)
     with torch.no_grad():
-        images, labels = pp32(*small,
-                              generator=torch.Generator().manual_seed(3))
-    swap = torch.cat([torch.arange(TPSP_SERVE_B // 2, TPSP_SERVE_B),
-                      torch.arange(TPSP_SERVE_B // 2)]).to(device)
+        images, labels = pp(*PL.HostBatch(*(a[:bsz] for a in hb)).to(device),
+                            generator=torch.Generator().manual_seed(3))
+    swap = torch.cat([torch.arange(bsz // 2, bsz),
+                      torch.arange(bsz // 2)]).to(device)
 
-    def steps(m, order=None):
-        state = TT.create_train_state(copy.deepcopy(net0), cfg, device)
+    def steps(net, m, n, order=None):
+        state = TT.create_train_state(copy.deepcopy(net), cfg, device)
         if m is not None:
             TT.shard_state(state, m)
         step = TT.make_train_step(spec, cfg, mesh=m)
@@ -3533,62 +3610,263 @@ def tpsp_work(dims, ann) -> dict:
         if order is not None:
             x, y = images[order], [lab[order] for lab in labels]
         losses = []
-        for _ in range(TPSP_STEPS):
+        for i in range(n):
             state, logs = step(state, x, y)
             losses.append(float(logs["loss"]))
-        return state, losses, step
+            if i == 0:
+                grads = {k: p.grad.detach().clone()
+                         for k, p in state.net.named_parameters()}
+        return state, losses, step, grads
 
-    plain, p_losses, _ = steps(None)
-    control, _, _ = steps(None, swap)
-    meshed, m_losses, mesh_step = steps(mesh)
-    seen["train"] = dict(
-        losses=m_losses, plain_losses=p_losses,
-        err=rel_l1(meshed.net, plain.net),
-        control=rel_l1(control.net, plain.net),
-        step_ms=time_ms(lambda: mesh_step(meshed, images, labels),
-                        TPSP_TIMED, warmup=1),
-        collectives=counted_collectives(
-            lambda: mesh_step(meshed, images, labels)))
-    del plain, control, meshed
+    plain, p_losses, _, g_plain = steps(held, None, case.steps)
+    control, _, _, g_ctl = steps(held, None, case.steps, swap)
+    meshed, m_losses, mesh_step, g_mesh = steps(held, mesh, case.steps)
+    top = max(float(g.abs().max()) for g in g_plain.values())
+    vanishing = {k for k, g in g_plain.items()
+                 if float(g.abs().max()) <= VANISHING * top}
+    bn_biases = {f"{n}.bias" for n, mod in held.named_modules()
+                 if isinstance(mod, BatchNorm)}
+    rec = dict(
+        losses=m_losses, plain_losses=p_losses, vanishing=len(vanishing),
+        # only a BatchNorm's shift can be removed downstream
+        vanishing_held=vanishing <= bn_biases and all(
+            float(g[k].abs().max()) <= VANISHING * top
+            for g in (g_ctl, g_mesh) for k in vanishing),
+        grads_err=rel_l1(g_mesh, g_plain, vanishing),
+        grads_control=rel_l1(g_ctl, g_plain, vanishing),
+        err=rel_l1(meshed.net, plain.net, vanishing),
+        control=rel_l1(control.net, plain.net, vanishing))
+    del plain, control, g_plain, g_ctl, g_mesh
+    rec["step_ms"] = time_ms(lambda: mesh_step(meshed, images, labels),
+                             TPSP_TIMED, warmup=1)
+    rec["collectives"] = counted_collectives(
+        lambda: mesh_step(meshed, images, labels))
+    del meshed
+    if case.witness:
+        rec["kinked_plain_loss"] = steps(net0, None, 1)[1][0]
+        rec["kinked_loss"] = steps(net0, mesh, 1)[1][0]
+    return rec
 
-    # one fused step at B=128 in bf16 with augment on: the rotation kernel
-    cfg128 = TrainConfig(batch_size=BATCH, augment=True)
-    state = TT.create_train_state(copy.deepcopy(net0), cfg128, device)
+
+def tpsp_fused(mesh, net0, spec, hb, bsz) -> dict:
+    """One fused bf16 step at ``bsz`` with augment on: its rotation
+    launches on this rank, loss and finiteness; a second step's ms."""
+    import copy
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.config import TrainConfig
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    cfg = TrainConfig(batch_size=bsz, augment=True)
+    state = TT.create_train_state(copy.deepcopy(net0), cfg,
+                                  torch.device("cuda", 0))
     TT.shard_state(state, mesh)
     fused = TT.make_fused_train_step(
-        spec, cfg128, PL.make_preprocess_fn(spec, True, torch.bfloat16),
+        spec, cfg, PL.make_preprocess_fn(spec, True, torch.bfloat16),
         torch.bfloat16, mesh=mesh)
+    host = PL.HostBatch(*(a[:bsz] for a in hb))
     TR.rotate_3shear.launches = 0
-    state, logs = fused(state, *hb, torch.Generator().manual_seed(5))
+    state, logs = fused(state, *host, torch.Generator().manual_seed(5))
     torch.cuda.synchronize()
     launches = TR.rotate_3shear.launches
     t0 = time.perf_counter()
-    fused(state, *hb, torch.Generator().manual_seed(6))
+    fused(state, *host, torch.Generator().manual_seed(6))
     torch.cuda.synchronize()
-    seen["fused"] = dict(launches=launches,
-                         ms=(time.perf_counter() - t0) * 1e3,
-                         loss=float(logs["loss"]),
-                         finite=all(bool(torch.isfinite(v).all())
-                                    for v in logs.values()
-                                    if torch.is_tensor(v)))
+    return dict(launches=launches, ms=(time.perf_counter() - t0) * 1e3,
+                loss=float(logs["loss"]),
+                finite=all(bool(torch.isfinite(v).all())
+                           for v in logs.values() if torch.is_tensor(v)))
+
+
+def tpsp_recalibrate(mesh, net0, spec, ann) -> dict:
+    """``recalibrate_batch_stats(mesh=)`` against the single-process
+    recalibration on the same TPSP_RECAL host batches: the largest
+    difference of any BatchNorm statistic, the largest statistic, and
+    whether every statistic is within test_torch_tpsp_tiny.py's bound
+    (exact at dp = 1, where every rank takes the whole batch; else rtol
+    1e-5, atol 1e-6: the moments are summed over the data axis)."""
+    import copy
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
+    from k210_yolo_framework_tpu_torch.parallel import mesh as PM
+    from k210_yolo_framework_tpu_torch.training import train as TT
+
+    n, bsz = TPSP_RECAL
+    it = iter(PL.DataPipeline(ann, bsz, seed=1))
+    hosts = [next(it) for _ in range(n)]
+    it.close()
+    pp = PL.make_preprocess_fn(spec, False, torch.float32)
+    device = torch.device("cuda", 0)
+    nets = []
+    for m in (None, mesh):
+        net = copy.deepcopy(net0).to(device)
+        TT.recalibrate_batch_stats(net, iter(hosts), pp, num_batches=n,
+                                   device=device, mesh=m)
+        nets.append([t for mod in net.modules() if isinstance(mod, BatchNorm)
+                     for t in (mod.running_mean, mod.running_var)])
+    rtol, atol = (0.0, 0.0) if PM.axis_size(mesh, PM.DATA_AXIS) == 1 \
+        else (1e-5, 1e-6)
+    return dict(max_diff=max(float((b - a).abs().max())
+                             for a, b in zip(*nets)),
+                largest=max(float(a.abs().max()) for a in nets[0]),
+                tensors=len(nets[0]),
+                within=all(bool(((b - a).abs() <= atol + rtol * a.abs()).all())
+                           for a, b in zip(*nets)))
+
+
+def tpsp_work(dims, ann) -> dict:
+    """Each TPSP_CASES builder in turn on the (dp, mp, sp) mesh ``dims``:
+    served (``tpsp_serve``), trained (``tpsp_train``), its fused step
+    (``tpsp_fused``) and, in the 4-rank world, its recalibration on
+    dp2*sp2 and tp2*sp2 (``tpsp_recalibrate``), as the case asks; the
+    wall seconds of each."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.data import pipeline as PL
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.parallel import make_mesh
+
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(*dims, device_type="cuda")
+    canvases, hws, _ = scene_inputs()
+    c_dev = torch.from_numpy(canvases).to(device)
+    h_dev = torch.from_numpy(hws).to(device)
+    it = iter(PL.DataPipeline(ann, BATCH, seed=0))
+    hb = next(it)
+    it.close()
+    seen = {}
+    for case in TPSP_CASES:
+        t0 = time.perf_counter()
+        spec = builder_spec(case.layers, case.in_hw)
+        net0 = build_network(case.model, spec.in_hw, spec.nanchors,
+                             spec.class_num, alpha=case.alpha,
+                             generator=torch.Generator().manual_seed(0))
+        rec = {"serve": {label: tpsp_serve(mesh, net0, spec, label, bsz,
+                                           c_dev, h_dev)
+                         for label, bsz in case.serve}}
+        if case.train_b:
+            rec["train"] = tpsp_train(mesh, net0, spec, hb, case)
+        if case.fused_b:
+            rec["fused"] = tpsp_fused(mesh, net0, spec, hb, case.fused_b)
+        if case.recalibrate and dims[0] * dims[1] * dims[2] == 4:
+            rec["recalibrate"] = {
+                tpsp_name(d): tpsp_recalibrate(
+                    make_mesh(*d, device_type="cuda"), net0, spec, ann)
+                for d in ((2, 1, 2), (1, 2, 2))}
+        rec["wall_s"] = time.perf_counter() - t0
+        seen[case.tag] = rec
+        del net0
+        torch.cuda.empty_cache()
     seen["memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return seen
 
 
+def tpsp_checks(seen) -> dict:
+    """The checks of one rank's record, by name: serving at set level
+    (fp32: test_sharded_serving.py's bounds, at most 0.5% unmatched either
+    way, matched scores within 1e-3; bf16: at most 1% and 0.02, bf16
+    rounding of a reordered sum flips a borderline box) with one head
+    launch a call, on the global path past 11,622 candidates; training by
+    test_parallel_equivalence.py's rule (step-1 loss rtol 1e-5, first-step
+    gradients and final parameters within 10x the control, the leaves at
+    rounding level kept there) and the net's own step-1 loss rtol 1e-5;
+    one rotation launch a fused step; the recalibration within its
+    bound."""
+    checks = {}
+    for case in TPSP_CASES:
+        t, rec = case.tag, seen[case.tag]
+        for label, s in rec["serve"].items():
+            share, diff = (0.005, 1e-3) if label == "fp32" else (0.01, 0.02)
+            checks[f"{t} {label} serving at set level"] = within_share(
+                *s["stats"][:4], share) and s["stats"][4] <= diff
+            checks[f"{t} {label} one head launch a call"] = s["launches"] == 1
+            if s["n"] > 11622:
+                checks[f"{t} {label} the head on its global path"] = \
+                    s["global_launches"] == 1
+        tr = rec.get("train")
+        if tr is not None:
+            checks[f"{t} step-1 loss rtol 1e-5"] = abs(
+                tr["losses"][0] - tr["plain_losses"][0]) \
+                <= 1e-5 * abs(tr["plain_losses"][0])
+            if case.witness:
+                checks[f"{t} the net's step-1 loss rtol 1e-5"] = abs(
+                    tr["kinked_loss"] - tr["kinked_plain_loss"]) \
+                    <= 1e-5 * abs(tr["kinked_plain_loss"])
+            checks[f"{t} gradients within 10x the control"] = \
+                tr["grads_err"] < 10 * max(tr["grads_control"], 1e-6)
+            checks[f"{t} parameters within 10x the control"] = \
+                tr["err"] < 10 * max(tr["control"], 1e-6)
+            checks[f"{t} gradients at rounding level stay there"] = \
+                tr["vanishing_held"]
+        fu = rec.get("fused")
+        if fu is not None:
+            checks[f"{t} one rotation launch"] = fu["launches"] == 1
+            checks[f"{t} finite fused step"] = fu["finite"]
+        for name, rc in rec.get("recalibrate", {}).items():
+            checks[f"{t} recalibration on {name} equal to one process"] = \
+                rc["within"]
+    return checks
+
+
+def tpsp_lines(name, world, r, case, rec, tag):
+    """The two lines printed for ``case`` on rank ``r``: results, then
+    times."""
+    parts, times = [], []
+    for label, s in rec["serve"].items():
+        un_ab, n_a, un_ba, n_b, ds = s["stats"]
+        bsz = dict(case.serve)[label]
+        parts.append(f"serve {label} b{bsz} N={s['n']} unmatched "
+                     f"{un_ab}/{n_a} and {un_ba}/{n_b} (flip rate "
+                     f"{(un_ab + un_ba) / max(n_a + n_b, 1):.4f}), matched "
+                     f"score diff {ds:.3g}, valid equal {s['valid_equal']}, "
+                     f"head launches {s['launches']} "
+                     f"({s['global_launches']} global)")
+        times.append(f"serve {label} b{bsz} {s['ms']:.1f} ms")
+    tr = rec.get("train")
+    if tr is not None:
+        what = "smooth witness" if case.witness else "train"
+        parts.append(
+            f"{what} fp32 b{case.train_b} losses {tr['losses']} vs plain "
+            f"{tr['plain_losses']}, params rel_l1 {tr['err']:.3g} vs control "
+            f"{tr['control']:.3g}, step-1 grads rel_l1 {tr['grads_err']:.3g} "
+            f"vs control {tr['grads_control']:.3g} ({tr['vanishing']} "
+            f"leaves at rounding level, left out); collectives a step "
+            f"{tr['collectives']}")
+        if case.witness:
+            parts.append(f"the net's step-1 loss {tr['kinked_loss']:.6f} vs "
+                         f"plain {tr['kinked_plain_loss']:.6f}")
+        times.append(f"train step fp32 b{case.train_b} {tr['step_ms']:.1f} ms")
+    fu = rec.get("fused")
+    if fu is not None:
+        parts.append(f"fused bf16 b{case.fused_b} loss {fu['loss']:.4f}, "
+                     f"rotate launches {fu['launches']}")
+        times.append(f"fused step bf16 b{case.fused_b} (second call) "
+                     f"{fu['ms']:.1f} ms")
+    for mesh_name, rc in rec.get("recalibrate", {}).items():
+        parts.append(f"recalibrate_batch_stats(mesh={mesh_name}) against one "
+                     f"process: max diff {rc['max_diff']:.3g} over "
+                     f"{rc['tensors']} statistics (largest "
+                     f"{rc['largest']:.3g})")
+    head = f"tp/sp {name} rank {r} {case.tag} (phase {case.phase})"
+    return (f"{head}: {'; '.join(parts)}",
+            f"{head} (gloo on one card, {world} processes sharing it: not a "
+            f"scaling number): {', '.join(times)}; wall "
+            f"{rec['wall_s']:.1f} s {tag}")
+
+
 def tpsp_phase(tag, ann):
-    """Phase 20: the model and space axes on one card.  Each world of
-    ``TPSP_WORLDS`` is spawned (2 or 4 processes, gloo over CUDA tensors):
-    ``make_sharded_runner`` in fp32 at B=32 held to ``_run_batch`` at
-    test_sharded_serving.py's bounds (at most 0.5% unmatched either way,
-    matched scores within 1e-3) and in bf16 at B=128 on the mid scene at
-    set level (matched scores within 0.02, at most 1% unmatched: bf16
-    rounding of a reordered sum flips a borderline box), one head launch a
-    rank a call; 3 fp32 train steps at B=32 held to the plain step by
-    test_parallel_equivalence.py's rule (step-1 loss rtol 1e-5, parameters
-    within 10x a batch-permutation control taken on the card); one fused
-    bf16 step at B=128 with augment on, one rotation launch a rank.  The
-    refusal of ``keras_train --mesh 1,2`` on a one-card CUDA machine.
-    Returns (head launches, rotation launches)."""
+    """Phases 20-21: the model and space axes on one card.  Each world of
+    ``TPSP_WORLDS`` (2 or 4 processes, gloo over CUDA tensors) is spawned
+    once and runs every TPSP_CASES builder (``tpsp_work``), held by
+    ``tpsp_checks``; then the refusal of ``keras_train --mesh 1,2`` on a
+    one-card CUDA machine.  Returns (head launches, of them on the global
+    path, rotation launches)."""
     import pickle
 
     import torch
@@ -3598,7 +3876,7 @@ def tpsp_phase(tag, ann):
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    head = rot = 0
+    head = head_global = rot = 0
     for dims in TPSP_WORLDS:
         world = dims[0] * dims[1] * dims[2]
         t0 = time.perf_counter()
@@ -3609,52 +3887,15 @@ def tpsp_phase(tag, ann):
                      for r in range(world)]
         name = tpsp_name(dims)
         for r, seen in enumerate(ranks):
-            f32, b16 = seen["serve"]["fp32"], seen["serve"]["bf16"]
-            tr, fu = seen["train"], seen["fused"]
-            head += f32["launches"] + b16["launches"]
-            rot += fu["launches"]
-            print(f"tp/sp {name} rank {r}: serve fp32 b{TPSP_SERVE_B} "
-                  f"unmatched {f32['stats'][0]}/{f32['stats'][1]} and "
-                  f"{f32['stats'][2]}/{f32['stats'][3]}, matched score "
-                  f"diff {f32['stats'][4]:.3g}, valid equal "
-                  f"{f32['valid_equal']}; bf16 b{BATCH} unmatched "
-                  f"{b16['stats'][0]}/{b16['stats'][1]} and "
-                  f"{b16['stats'][2]}/{b16['stats'][3]} (flip rate "
-                  f"{(b16['stats'][0] + b16['stats'][2]) / max(b16['stats'][1] + b16['stats'][3], 1):.4f}), "
-                  f"matched score diff {b16['stats'][4]:.3g}; head "
-                  f"launches {f32['launches']}+{b16['launches']}")
-            print(f"tp/sp {name} rank {r}: train fp32 b{TPSP_SERVE_B} "
-                  f"losses {tr['losses']} vs plain {tr['plain_losses']}, "
-                  f"params rel_l1 {tr['err']:.3g} vs control "
-                  f"{tr['control']:.3g}; collectives a step "
-                  f"{tr['collectives']}; fused bf16 b{BATCH} loss "
-                  f"{fu['loss']:.4f}, rotate launches {fu['launches']}; "
-                  f"peak {seen['memory_gib']:.1f} GiB")
-            print(f"tp/sp {name} rank {r} (gloo on one card, {world} "
-                  f"processes sharing it: not a scaling number): serve "
-                  f"fp32 b{TPSP_SERVE_B} {f32['ms']:.1f} ms, bf16 b{BATCH} "
-                  f"{b16['ms']:.1f} ms; train step fp32 b{TPSP_SERVE_B} "
-                  f"{tr['step_ms']:.1f} ms, "
-                  f"fused step bf16 b{BATCH} (second call) {fu['ms']:.1f} ms "
-                  f"{tag}")
-            un_ab, n_a, un_ba, n_b, ds = b16["stats"]
-            checks = {
-                "fp32 serving at set level": within_half_percent(
-                    *f32["stats"][:4]) and f32["stats"][4] <= 1e-3,
-                "bf16 serving at set level": n_a > 0
-                and un_ab <= max(1, int(np.ceil(0.01 * n_a)))
-                and un_ba <= max(1, int(np.ceil(0.01 * n_b))) and ds <= 0.02,
-                "one head launch a call": f32["launches"] == 1
-                and b16["launches"] == 1,
-                "step-1 loss rtol 1e-5": abs(tr["losses"][0]
-                                             - tr["plain_losses"][0])
-                <= 1e-5 * abs(tr["plain_losses"][0]),
-                "parameters within 10x the control":
-                    tr["err"] < 10 * max(tr["control"], 1e-6),
-                "one rotation launch": fu["launches"] == 1,
-                "finite fused step": fu["finite"],
-            }
-            failed = [k for k, ok in checks.items() if not ok]
+            for case in TPSP_CASES:
+                rec = seen[case.tag]
+                head += sum(s["launches"] for s in rec["serve"].values())
+                head_global += sum(s["global_launches"]
+                                   for s in rec["serve"].values())
+                rot += rec.get("fused", {}).get("launches", 0)
+                print(*tpsp_lines(name, world, r, case, rec, tag), sep="\n")
+            print(f"tp/sp {name} rank {r}: peak {seen['memory_gib']:.1f} GiB")
+            failed = [k for k, ok in tpsp_checks(seen).items() if not ok]
             if failed:
                 raise AssertionError(f"tp/sp {name} rank {r}: {failed}")
         print(f"tp/sp {name}: {world} ranks, wall "
@@ -3671,8 +3912,8 @@ def tpsp_phase(tag, ann):
           f"card(s): {refusal!r}")
     if torch.cuda.device_count() == 1 and "one a card" not in refusal:
         raise AssertionError("keras_train --mesh 1,2 did not refuse one card")
-    print(f"phase 20: wall seconds {time.perf_counter() - t_phase:.1f}")
-    return head, rot
+    print(f"phases 20-21: wall seconds {time.perf_counter() - t_phase:.1f}")
+    return head, head_global, rot
 
 
 def main() -> int:
@@ -3957,8 +4198,8 @@ def run(device) -> int:
                 device, tag, ann, canvases, hws, image)
         # ---- 19. training on the data axis --------------------------------
         p19_rot = mesh_training(device, tag, ann)
-        # ---- 20. the model and space axes ----------------------------------
-        p20_head, p20_rot = tpsp_phase(tag, ann)
+        # ---- 20-21. the model and space axes, every builder ----------------
+        tpsp_head, tpsp_head_global, tpsp_rot = tpsp_phase(tag, ann)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
@@ -3966,8 +4207,8 @@ def run(device) -> int:
         "route": "cuda",
         "source": "k210_yolo_framework_tpu_torch/csrc/yolo_head.cu",
         "replaces": "k210_yolo_framework_tpu/ops/yolo_head_pallas.py:140",
-        "launches": launches + q_launches + p18_head + p20_head,
-        "global_launches": p18_head_global,
+        "launches": launches + q_launches + p18_head + tpsp_head,
+        "global_launches": p18_head_global + tpsp_head_global,
         "max_abs_err": max(max_err, slice_err),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3982,7 +4223,7 @@ def run(device) -> int:
         "source": "k210_yolo_framework_tpu_torch/csrc/rotate3shear.cu",
         "replaces": "k210_yolo_framework_tpu/ops/rotate_pallas.py:113",
         **rot,
-        "launches": rot["launches"] + q_rot + p19_rot + p20_rot,
+        "launches": rot["launches"] + q_rot + p19_rot + tpsp_rot,
     }, {
         "name": "nms_select",
         "route": "cuda",

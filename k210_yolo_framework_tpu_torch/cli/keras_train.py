@@ -17,8 +17,10 @@ end training at a step boundary and the run is saved.
 ``--mesh dp[,mp[,sp]] | auto`` trains on a mesh, one process a device
 (``training.train.fit(mesh=)``: the global batch's step, BatchNorm on the
 global batch's statistics): data-parallel over dp, and with mp or sp above
-1 (yolo_mobilev1) each rank computes its output channels and rows of the
-forward (``parallel/sharded.py``).  Under torchrun each process joins the
+1 (any builder) each rank computes its output channels and rows of the
+forward (``parallel/sharded.py``).  ``--bn_recalibrate`` after it runs on
+the same ranks, each with the whole net on its data slots, as the JAX
+script recalibrates on one device.  Under torchrun each process joins the
 world from its environment:
 
     torchrun --nproc_per_node 4 \
@@ -28,8 +30,7 @@ Run plainly, the script starts the ranks itself: ``--mesh auto`` one a
 visible card (one process where there is one card), ``--mesh dp,mp,sp``
 dp * mp * sp processes (``--device cpu``: gloo ranks on the CPU, ``auto``
 one).  A CUDA mesh is NCCL with one card a rank (nothing falls back to
-gloo or to the CPU), the batch must divide by dp, and another builder than
-yolo_mobilev1 on mp or sp above 1 raises ``NotImplementedError``.  Only
+gloo or to the CPU), and the batch must divide by dp.  Only
 rank 0 writes the run's files and prints; every rank reads
 ``--pre_ckpt``, and rank 0's state is the one replicated.
 """
@@ -56,19 +57,6 @@ def mesh_dims(text: str) -> list:
     return dims + [1] * (3 - len(dims)) if dims else []
 
 
-def _check_builder(model_def: str, dims: list, text: str) -> None:
-    """Another builder than yolo_mobilev1 on a model or space axis raises
-    ``NotImplementedError``, before any rank starts."""
-    from k210_yolo_framework_tpu_torch.models.yolonet import NETWORKS
-
-    if dims and dims[1] * dims[2] > 1 and model_def in NETWORKS \
-            and not NETWORKS[model_def].shards:
-        raise NotImplementedError(
-            f"--mesh {text!r} --model_def {model_def}: the model and space "
-            "axes cover yolo_mobilev1 only; its residual adds and SAME "
-            "max-pools have no halo rule yet (ROADMAP queue 1 item 4)")
-
-
 def _check_divisible(batch_size: int, dp: int, text: str) -> None:
     if batch_size % dp:
         raise SystemExit(f"--batch_size {batch_size} does not divide by the "
@@ -89,7 +77,6 @@ def main(args) -> Path:
     if not args.mesh:
         return _train(args, T.checked_device(args.device), _run_dir(args))
     dims = mesh_dims(args.mesh)
-    _check_builder(args.model_def, dims, args.mesh)
     device = T.checked_device(args.device)
     if dist.is_initialized():          # the caller's world
         return _train(args, device, None, joined=True)
@@ -338,8 +325,7 @@ def parse_args(argv):
                              "with arithmetic means over N train batches")
     parser.add_argument("--mesh", type=str, default="",
                         help="'dp[,mp[,sp]]' or 'auto': training on a "
-                             "mesh, one process a device (mp or sp above "
-                             "1: yolo_mobilev1 only)")
+                             "mesh, one process a device")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["float32", "bfloat16"],
                         help="conv-stack compute dtype (params and loss "

@@ -369,7 +369,7 @@ class Predictor:
         copies only its data coordinate's contiguous B / dp shard to its
         device.  On a pure data-parallel mesh it runs the whole serving
         program on it (``_run_batch``, head kernel included, in every
-        quantize mode).  With a model or space axis (yolo_mobilev1, the
+        quantize mode).  With a model or space axis (any builder, the
         float modes, a stem other than ``patches``) it letterboxes the
         shard's canvases and takes each image's 1/max whole, runs its part
         of the forward (its channels and rows, ``parallel/sharded.py``),
@@ -397,9 +397,6 @@ class Predictor:
                 PM.require_data_parallel(
                     mesh, f"serving with quantize={self.quantize!r} and "
                     f"stem_mode={self.stem_mode!r}", 5)
-            if not self.net.shards:
-                PM.require_data_parallel(
-                    mesh, f"serving {type(self.net).__name__}", 4)
             shard = ShardContext(mesh)
         held_by = PM.world_group(mesh) if shard is not None else group
         src = dist.get_global_rank(held_by, 0)

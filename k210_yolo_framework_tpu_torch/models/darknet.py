@@ -6,7 +6,9 @@ conv is a ``DarknetConvBN`` (no bias, BN momentum 0.99, LeakyReLU 0.1); a
 stride-2 one pads top/left only.  The tiny body's 2x2 max-pools are flax's
 SAME pools (``layers.max_pool_same``: -inf after, never before).  The
 blocks take their widths as constructor arguments, so tests can build them
-narrow.
+narrow.  On a TP/SP mesh every block takes and returns ``Sharded``
+activations: the pools and the residual adds take them
+(``layers.max_pool_same``, ``layers.residual_add``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 from k210_yolo_framework_tpu_torch.models.layers import (
     DarknetConvBN,
     max_pool_same,
+    residual_add,
 )
 
 __all__ = ["TinyYoloBody", "Darknet53", "LastLayers"]
@@ -73,14 +76,14 @@ class _ResBlockBody(nn.Module):
                     DarknetConvBN(filters // 2, filters, (3, 3)))
         self.num_blocks = num_blocks
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x, dtype: torch.dtype):
         x = self.down(x, dtype)
         for i in range(self.num_blocks):
             y = getattr(self, f"res_{i}_1x1")(x, dtype)
             y = getattr(self, f"res_{i}_3x3")(y, dtype)
             # without gradients the sum goes into y, the 3x3's fresh
             # output: x may be a tap the caller keeps
-            x = x + y if torch.is_grad_enabled() else y.add_(x)
+            x = residual_add(y, x)
         return x
 
 

@@ -25,8 +25,9 @@ statistics of the whole global batch, as JAX's one GSPMD program does.
 On a mesh with a model or space axis the layers take and return
 ``parallel.sharded.Sharded`` activations instead (this rank's channels and
 rows of each, ``parallel/sharded.py``): ``Conv``, ``ConvBN``,
-``DarknetConvBN``, ``darknet_head_conv``, ``upsample2x`` and
-``cat_channels`` accept either.
+``DarknetConvBN``, ``darknet_head_conv``, ``upsample2x``,
+``cat_channels``, ``residual_add``, ``max_pool_same`` and
+``smooth_max_pool_same`` accept either.
 
 ``dtype`` may also be the :class:`Int8Act` sentinel (the JAX package's
 serving-only int8-activation modes): then every bias-free dense conv but
@@ -52,6 +53,7 @@ from k210_yolo_framework_tpu_torch.parallel.sharded import (
     conv_rows,
     gather,
 )
+from k210_yolo_framework_tpu_torch.parallel.sharded import add as _add_sharded
 from k210_yolo_framework_tpu_torch.parallel.sharded import (
     cat_channels as _cat_sharded,
 )
@@ -59,7 +61,7 @@ from k210_yolo_framework_tpu_torch.parallel.sharded import (
 __all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN", "Int8Act",
            "STEM_MODES", "cat_channels",
            "darknet_head_conv", "leaky_relu", "max_pool_same", "name_convs",
-           "exact_div", "relu", "relu6", "set_data_group",
+           "exact_div", "relu", "relu6", "residual_add", "set_data_group",
            "smooth_max_pool_same", "smooth_witness", "split_dtype",
            "upsample2x"]
 
@@ -203,30 +205,78 @@ def cat_channels(parts):
     return torch.cat(parts, dim=1)
 
 
+def residual_add(fresh, other):
+    """``fresh + other``, a residual add: without gradients written into
+    ``fresh`` (the caller's fresh conv output), never into ``other`` (it
+    may be a tap the caller keeps); ``Sharded`` ones through
+    ``parallel.sharded.add``."""
+    if isinstance(fresh, Sharded):
+        return _add_sharded(fresh, other)
+    return fresh + other if torch.is_grad_enabled() else fresh.add_(other)
+
+
+def _pool_pad(n: int, stride: int) -> int:
+    """XLA's SAME pad of a 2x2 window at ``stride`` over ``n`` pixels: at
+    most one, after (stride 1: one; stride 2: where ``n`` is odd)."""
+    return max((-(-n // stride) - 1) * stride + 2 - n, 0)
+
+
 def _pool_pads(x: torch.Tensor, stride: int) -> Tuple[int, int, int, int]:
     """``F.pad``'s (left, right, top, bottom) for XLA's SAME 2x2 window on
-    an NCHW tensor: at most one, after (stride 1: one row and one column;
-    stride 2: where the size is odd)."""
-    ph, pw = (max((-(-n // stride) - 1) * stride + 2 - n, 0)
-              for n in x.shape[-2:])
+    an NCHW tensor (``_pool_pad`` of each side)."""
+    ph, pw = (_pool_pad(n, stride) for n in x.shape[-2:])
     return 0, pw, 0, ph
 
 
-def max_pool_same(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """flax ``max_pool(x, (2, 2), (stride, stride), padding="SAME")`` on an
-    NCHW tensor: the pad is -inf (``_pool_pads``); ``MaxPool2d``'s padding
-    is symmetric.  NaN propagates."""
+def _pool_sharded(x: Sharded, stride: int, window) -> Sharded:
+    """This rank's part of a 2x2 SAME pool on a TP/SP mesh: its channels
+    as they come; its output rows where they divide by sp
+    (``parallel.sharded.conv_rows``: no halo at stride 2, one row of the
+    next space rank below at stride 1 and -inf past the last), else the
+    rows gathered and pooled whole.  W is never split, so the right-hand
+    -inf column is local.  ``window(t, stride)`` pools the -inf padded
+    rows."""
+    inf = float("-inf")
+    h = x.t.shape[2] * (x.ctx.sp if x.rows else 1)
+    t, (top, bottom), rows = conv_rows(x, x.t, 2, stride,
+                                       (0, _pool_pad(h, stride)), fill=inf)
+    pw = _pool_pad(t.shape[3], stride)
+    if top or bottom or pw:
+        t = F.pad(t, (0, pw, top, bottom), value=inf)
+    return Sharded(window(t, stride), x.ctx, rows, x.channels)
+
+
+def _max_window(t: torch.Tensor, stride: int) -> torch.Tensor:
+    return F.max_pool2d(t, 2, stride)
+
+
+def _smooth_window(t: torch.Tensor, stride: int) -> torch.Tensor:
+    # exp(-inf) = 0: the pad adds nothing to a window's sum
+    return torch.log(F.avg_pool2d(torch.exp(t), 2, stride) * 4)
+
+
+def _pool_same(x, stride: int, window):
+    """``window`` over XLA's SAME 2x2 windows of an NCHW tensor, the pad
+    -inf (``_pool_pads``), or of a ``Sharded`` one (``_pool_sharded``)."""
+    if isinstance(x, Sharded):
+        return _pool_sharded(x, stride, window)
     pads = _pool_pads(x, stride)
     if any(pads):
         x = F.pad(x, pads, value=float("-inf"))
-    return F.max_pool2d(x, 2, stride)
+    return window(x, stride)
 
 
-def smooth_max_pool_same(x: torch.Tensor, stride: int) -> torch.Tensor:
+def max_pool_same(x, stride: int):
+    """flax ``max_pool(x, (2, 2), (stride, stride), padding="SAME")`` on an
+    NCHW tensor or a ``Sharded`` one: the pad is -inf; ``MaxPool2d``'s
+    padding is symmetric.  NaN propagates."""
+    return _pool_same(x, stride, _max_window)
+
+
+def smooth_max_pool_same(x, stride: int):
     """log-sum-exp over each window of ``max_pool_same``, the pad
     contributing exp(-inf) = 0: a smooth max-pool."""
-    e = F.pad(torch.exp(x), _pool_pads(x, stride))
-    return torch.log(F.avg_pool2d(e, 2, stride) * 4)
+    return _pool_same(x, stride, _smooth_window)
 
 
 def smooth_witness(net: nn.Module, pools: bool = True) -> nn.Module:

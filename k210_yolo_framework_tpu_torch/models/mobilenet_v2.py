@@ -24,7 +24,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from k210_yolo_framework_tpu_torch.models.layers import ConvBN, relu6
+from k210_yolo_framework_tpu_torch.models.layers import (
+    ConvBN,
+    relu6,
+    residual_add,
+)
 
 __all__ = ["MobileNetV2", "make_divisible"]
 
@@ -80,18 +84,19 @@ class _InvertedResBlock(nn.Module):
         self.expand_channels = c
         self.out_channels = pointwise
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype):
-        """-> (output, the expand conv's output or None).  Both BN outputs
-        are fp32, so the residual add is fp32.  Without gradients the add
-        writes into ``project``'s fresh output, never into ``x`` or the
-        expand output, which the caller may keep as a tap."""
+    def forward(self, x, dtype: torch.dtype):
+        """-> (output, the expand conv's output or None); ``x`` a tensor
+        or a ``Sharded`` one.  Both BN outputs are fp32, so the residual add
+        is fp32.  Without gradients the add writes into ``project``'s fresh
+        output, never into ``x`` or the expand output, which the caller may
+        keep as a tap."""
         inputs = x
         expand_out = None
         if self.expand is not None:
             x = expand_out = self.expand(x, dtype)
         x = self.project(self.depthwise(x, dtype), dtype)
         if self.residual:
-            x = inputs + x if torch.is_grad_enabled() else x.add_(inputs)
+            x = residual_add(x, inputs)
         return x, expand_out
 
 

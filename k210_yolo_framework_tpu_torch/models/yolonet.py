@@ -15,7 +15,7 @@ and ``tiny_yolo`` (two scales) and the darknet53 ``yolo`` (three).
 the forward on a mesh with a model or space axis: the image enters whole,
 each layer computes its channels and rows (``parallel/sharded.py``), and
 the head outputs are gathered, so every rank returns them whole.
-yolo_mobilev1 alone takes it (``YoloNet.shards``); the others raise.
+All four builders take it.
 """
 
 from __future__ import annotations
@@ -75,8 +75,6 @@ class YoloNet(nn.Module):
     ``"default"``) for its stem; ``net.stem_mode`` reads and sets it."""
 
     n_out_layers = 2
-    # whether the forward takes ``shard`` (a model or space axis)
-    shards = False
 
     def __init__(self, anchor_num: int, class_num: int,
                  in_hw: Sequence[int]):
@@ -117,11 +115,6 @@ class YoloNet(nn.Module):
         if shard is None:
             heads = self._heads(x, dtype, input_scale)
         else:
-            if not self.shards:
-                raise NotImplementedError(
-                    f"{type(self).__name__} on a mesh with a model or space "
-                    "axis: its residual adds and SAME max-pools have no "
-                    "halo rule yet (ROADMAP queue 1 item 4)")
             heads = [h.full() for h in self._heads(Sharded(x, shard), dtype,
                                                    input_scale)]
         return [h.permute(0, 2, 3, 1) for h in heads]
@@ -163,8 +156,6 @@ class _TwoScaleNet(YoloNet):
 
 class YoloMobileV1(_TwoScaleNet):
     """yolo_mobilev1: y1 width 128 if alpha > 0.8 else 192, y2 width 128."""
-
-    shards = True
 
     def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
                  alpha: float = 0.75, stem_mode: str = "default"):
@@ -223,10 +214,10 @@ class Yolo(YoloNet):
         tap8, tap16, tap32 = self.backbone(x, dtype, input_scale)
         x, y = self.last_512(tap32, dtype)
         y1 = self.y1_out(y, dtype)
-        x = torch.cat([upsample2x(self.up1_conv(x, dtype)), tap16], dim=1)
+        x = cat_channels([upsample2x(self.up1_conv(x, dtype)), tap16])
         x, y = self.last_256(x, dtype)
         y2 = self.y2_out(y, dtype)
-        x = torch.cat([upsample2x(self.up2_conv(x, dtype)), tap8], dim=1)
+        x = cat_channels([upsample2x(self.up2_conv(x, dtype)), tap8])
         _, y = self.last_128(x, dtype)
         return [y1, y2, self.y3_out(y, dtype)]
 

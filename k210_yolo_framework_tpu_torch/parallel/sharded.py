@@ -19,7 +19,12 @@ what that program computes for its mesh coordinate:
     (:func:`halo`, zeros past the image's top and bottom edge, where the
     conv's own padding is), a replicated input has them and is cut
     locally; where the output rows do not divide, a split input is
-    gathered over ``space`` and the conv runs replicated;
+    gathered over ``space`` and the conv runs replicated; a 2x2 SAME
+    max-pool follows the same rule (:func:`conv_rows`), its halo -inf past
+    the image's bottom edge;
+  * a residual add (:func:`add`) cuts a side holding whole rows or
+    channels locally to the other side's slice, and a channel concat
+    (:func:`cat_channels`) a side holding whole rows;
   * train-mode BatchNorm sums its moments over data x space while the
     layer's rows are split and over data once they are gathered
     (:meth:`ShardContext.batch_group`), never over ``model``: a rank holds
@@ -47,8 +52,8 @@ import torch.distributed as dist
 
 from k210_yolo_framework_tpu_torch.parallel import mesh as PM
 
-__all__ = ["ShardContext", "Sharded", "all_reduce_sum", "cat_channels",
-           "conv_rows", "gather", "halo"]
+__all__ = ["ShardContext", "Sharded", "add", "all_reduce_sum",
+           "cat_channels", "conv_rows", "gather", "halo"]
 
 
 def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
@@ -85,11 +90,11 @@ def gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 class _Halo(torch.autograd.Function):
     """This rank's rows [N, C, h, W] with ``above`` rows of the previous
-    space rank on top and ``below`` rows of the next one underneath; zero
-    rows past the first and the last rank."""
+    space rank on top and ``below`` rows of the next one underneath; rows
+    of ``fill`` past the first and the last rank."""
 
     @staticmethod
-    def forward(ctx, x, group, above, below):
+    def forward(ctx, x, group, above, below, fill):
         n, r = dist.get_world_size(group), dist.get_rank(group)
         h = x.shape[2]
         ctx.group, ctx.above, ctx.below, ctx.h = group, above, below, h
@@ -100,9 +105,9 @@ class _Halo(torch.autograd.Function):
                                       2), group)
         n_, c, _, w = x.shape
         top = parts[r - 1][:, :, below:] if r > 0 else \
-            x.new_zeros(n_, c, above, w)
+            x.new_full((n_, c, above, w), fill)
         bottom = parts[r + 1][:, :, :below] if r < n - 1 else \
-            x.new_zeros(n_, c, below, w)
+            x.new_full((n_, c, below, w), fill)
         return torch.cat([top, x, bottom], 2)
 
     @staticmethod
@@ -116,16 +121,18 @@ class _Halo(torch.autograd.Function):
             dx[:, :, :below] += parts[r - 1][:, :, above:]
         if r < n - 1:      # the next rank's top halo: my last rows
             dx[:, :, h - above:] += parts[r + 1][:, :, :above]
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
-def halo(t: torch.Tensor, group, above: int, below: int) -> torch.Tensor:
+def halo(t: torch.Tensor, group, above: int, below: int,
+         fill: float = 0.0) -> torch.Tensor:
     """This rank's rows of an NCHW tensor split over ``group`` (the space
     axis) with ``above`` rows of the rank before and ``below`` of the rank
-    after, zeros at the image's edges; differentiable."""
+    after, ``fill`` past the image's edges (zeros: a conv's padding; -inf:
+    a max-pool's); differentiable."""
     if above == 0 and below == 0:
         return t
-    return _Halo.apply(t, group, above, below)
+    return _Halo.apply(t, group, above, below, fill)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -219,19 +226,23 @@ class Sharded:
 
 
 def conv_rows(x: Sharded, t: torch.Tensor, kernel: int, stride: int,
-              pads: Tuple[int, int]) -> Tuple[torch.Tensor,
-                                              Tuple[int, int], bool]:
-    """The input rows this rank's part of a conv reads, from ``t`` (``x``'s
-    rows, in the conv's dtype and channels): (rows, the (top, bottom) zero
-    padding still to apply, whether the output's rows are split).
+              pads: Tuple[int, int], fill: float = 0.0
+              ) -> Tuple[torch.Tensor, Tuple[int, int], bool]:
+    """The input rows this rank's part of a conv (or of a pooling window)
+    reads, from ``t`` (``x``'s rows, in the conv's dtype and channels):
+    (rows, the (top, bottom) padding still to apply, whether the output's
+    rows are split).  ``fill`` is the padding's value (0 for a conv, -inf
+    for a max-pool), which the halo gives past the image's edges.
 
     The output is split where each space rank's output rows come from its
     own input rows plus a halo: output H * stride == input H, output H
     divides by sp, and the window reaches ``pads[0]`` rows above and
     ``kernel - stride - pads[0]`` below a rank's rows (a 3x3 stride-1 SAME
     conv one and one, a 3x3 stride-2 conv padded by 1 on an even H one
-    above only, a 1x1 none).  Otherwise a split input is gathered and the
-    conv runs replicated with its own padding."""
+    above only, a 1x1 none; a 2x2 SAME pool none at stride 2, one below at
+    stride 1).  Otherwise a split input is gathered and the conv runs
+    replicated with its own padding (a stride-2 pool whose output rows do
+    not divide by sp: a window would straddle two ranks)."""
     ctx = x.ctx
     top, bottom = pads
     h = t.shape[2] * (ctx.sp if x.rows else 1)
@@ -244,7 +255,7 @@ def conv_rows(x: Sharded, t: torch.Tensor, kernel: int, stride: int,
             t = gather(t, ctx.space_group, 2)
         return t, pads, False
     if x.rows:
-        return halo(t, ctx.space_group, top, below), (0, 0), True
+        return halo(t, ctx.space_group, top, below, fill), (0, 0), True
     lo, hi = ctx.row_range(h)
     part = t[:, :, max(lo - top, 0):min(hi + below, h)]
     return part, (max(top - lo, 0), max(hi + below - h, 0)), True
@@ -264,3 +275,33 @@ def cat_channels(parts: Sequence[Sharded]) -> Sharded:
         ts.append(t)
     return Sharded(torch.cat(ts, 1), parts[0].ctx, rows, False)
 
+
+
+def add(fresh: Sharded, other: Sharded) -> Sharded:
+    """The sum of two activations of one whole shape (a residual add).
+    Where both hold the same rows and channels their parts add; where one
+    holds whole rows or whole channels and the other this rank's slice,
+    the whole one is cut locally to the slice (no collective), so the sum
+    holds the slice.  The backward is the identity on each side, the cut's
+    scattering back into its whole tensor.  Without gradients the sum is
+    written into ``fresh``'s tensor (or its cut view), which the caller
+    owns; ``other``'s is only read (it may be a tap a later layer
+    reads)."""
+    ctx = fresh.ctx
+    rows = fresh.rows or other.rows
+    channels = fresh.channels or other.channels
+
+    def cut(p: Sharded) -> torch.Tensor:
+        t = p.t
+        if channels and not p.channels:
+            t = t[:, slice(*ctx.channel_range(t.shape[1]))]
+        if rows and not p.rows:
+            t = t[:, :, slice(*ctx.row_range(t.shape[2]))]
+        return t
+
+    a, b = cut(fresh), cut(other)
+    if a.shape != b.shape:
+        raise ValueError(f"add: parts of shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    t = a + b if torch.is_grad_enabled() else a.add_(b)
+    return Sharded(t, ctx, rows, channels)

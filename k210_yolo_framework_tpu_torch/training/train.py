@@ -29,7 +29,7 @@ mean over ranks and the P/R counters the sum.  The parameters, BN
 statistics, Adam moments, masks and step count start as rank 0's
 (:func:`shard_state`) and stay identical on every rank.
 
-On a mesh with a model or space axis (yolo_mobilev1) each rank of a data
+On a mesh with a model or space axis (any builder) each rank of a data
 coordinate holds the same slots and computes its part of the forward:
 its output channels of each kernel ``param_shardings`` marks and its
 rows of each activation whose rows divide (``parallel/sharded.py``);
@@ -605,15 +605,15 @@ def recalibrate_batch_stats(net: YoloNet, batches: Iterator, preprocess,
     batch moments in the running statistics exactly, whatever its own m.
     ``batches`` yield ``HostBatch``es; ``preprocess`` is
     ``make_preprocess_fn``'s, drawing its augment from ``generator``.  With
-    ``mesh`` (pure data parallelism) every rank is given the same batches,
-    preprocesses its slots, and each batch's moments are the global
-    batch's.  A mesh with a model or space axis raises
-    ``NotImplementedError``."""
+    ``mesh`` every rank is given the same batches, preprocesses its data
+    coordinate's slots, and each batch's moments are the global batch's
+    (summed over the data axis).  A model or space axis changes nothing:
+    the JAX package recalibrates on one device after training on any
+    mesh, so each rank runs the whole, unsharded net on its slots (the
+    weights are whole on every rank), and its model and space peers
+    compute the same statistics."""
     device = checked_device(device)
-    group = None
-    if mesh is not None:
-        PM.require_data_parallel(mesh, "recalibrate_batch_stats", 6)
-        group = PM.data_group(mesh)
+    group = None if mesh is None else PM.data_group(mesh)
     bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
     ema = {bn: (bn.running_mean.clone(), bn.running_var.clone(), bn.momentum)
            for bn in bns}

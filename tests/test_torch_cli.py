@@ -246,12 +246,14 @@ def test_keras_train_guards(synth, monkeypatch):
         "(drop_remainder batching, utils.py:449-450) — lower --batch_size")
     assert "zero steps per epoch (drop_remainder" in \
         (REPO / "keras_train.py").read_text()
-    # --mesh as keras_train.py parses it: the model and space axes cover
-    # yolo_mobilev1 only, more than three axes exit with the JAX script's
-    # text, and the batch must divide by dp
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        TKT.main(TKT.parse_args(TRAIN + ["--mesh", "1,2", "--model_def",
-                                         "tiny_yolo"]))
+    # --mesh as keras_train.py parses it: any builder on the model and
+    # space axes (a CUDA mesh without a card refuses its device, not the
+    # builder), more than three axes exit with the JAX script's text, and
+    # the batch must divide by dp
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TKT.main(TKT.parse_args(NET + ["--mesh", "1,2", "--model_def",
+                                           "tiny_yolo"]))
     with pytest.raises(SystemExit) as e:
         TKT.main(TKT.parse_args(TRAIN + ["--mesh", "2,2,1,1"]))
     assert str(e.value) == ("--mesh '2,2,1,1': format is 'dp,mp[,sp]' or "
@@ -331,6 +333,53 @@ def test_keras_train_on_a_tp_sp_mesh(synth, monkeypatch):
     lines = [json.loads(l) for l in
              (again / "scalars.jsonl").read_text().splitlines()]
     assert [d["step"] for d in lines] == [3, 4]
+    assert TC.restore_state(str(again / "ckpt"), state).step == 4
+
+
+def test_keras_train_recalibrates_on_a_tp_sp_mesh(synth, monkeypatch):
+    """Fault u: --mesh 1,2 --model_def tiny_yolo --bn_recalibrate 2
+    --device cpu trains on two gloo ranks (channels over the model axis),
+    recalibrates every BatchNorm on both, each with the whole net, and
+    writes the run: the weights (their statistics the recalibrated ones,
+    no longer the train state's EMA) load into JAX's layout, and the
+    checkpoint resumes."""
+    tiny = ["--model_def", "tiny_yolo", "--mesh", "1,2",
+            "--max_nrof_epochs", "1"]
+    run = _train(tiny + ["--bn_recalibrate", "2", "--log_dir", "log_recal"],
+                 monkeypatch, synth)
+    assert (run / "yolo_model.npz").is_file()
+    state = TT.create_train_state(build_network("tiny_yolo", (96, 96), 3, 4),
+                                  TConfig.TrainConfig(), "cpu")
+    assert TC.restore_state(str(run / "ckpt"), state).step == 2
+    sd = TC.load_variables(str(run / "yolo_model.npz"), "tiny_yolo",
+                           state.net)
+    for k, v in state.net.state_dict().items():
+        assert torch.equal(sd[k], v), k
+    # the same run without the recalibration keeps the EMA statistics
+    ema = _train(tiny + ["--log_dir", "log_ema"], monkeypatch, synth)
+    ema_sd = TC.load_variables(str(ema / "yolo_model.npz"), "tiny_yolo",
+                               state.net)
+    assert torch.equal(ema_sd["backbone.conv_6.dark_conv_bn.conv.weight"],
+                       sd["backbone.conv_6.dark_conv_bn.conv.weight"])
+    assert not torch.equal(
+        ema_sd["backbone.conv_6.dark_conv_bn.bn.running_mean"],
+        sd["backbone.conv_6.dark_conv_bn.bn.running_mean"])
+    # JAX reads the whole kernels, those the model axis split included
+    _, variables, _ = jax_weights("tiny_yolo", (96, 96), 3, 4)
+    loaded = JCK.load_h5(str(run / "yolo_model.h5"),
+                         {"params": variables["params"],
+                          "batch_stats": variables["batch_stats"]})
+    flat = TC.flat_from_state_dict(sd)
+    for key in ("backbone/conv_6/dark_conv_bn/conv/kernel",
+                "backbone/conv_6/dark_conv_bn/bn/mean"):
+        group = "params" if key.endswith("kernel") else "batch_stats"
+        node = loaded[group]
+        for part in key.split("/"):
+            node = node[part]
+        np.testing.assert_array_equal(np.asarray(node),
+                                      flat[f"{group}/{key}"])
+    again = _train(tiny + ["--log_dir", "log_recal2", "--pre_ckpt",
+                           str(run / "ckpt")], monkeypatch, synth)
     assert TC.restore_state(str(again / "ckpt"), state).step == 4
 
 

@@ -1231,6 +1231,26 @@ def test_halo_and_gather_on_cuda_tensors_over_gloo(dev, tmp_path):
                                    rtol=1e-6, atol=1e-6)
 
 
+def test_pooled_halo_on_cuda_tensors_over_gloo(dev, tmp_path):
+    """tiny_yolo's SAME max-pools (and their log-sum-exp witness) on a
+    (1, 2, 2) mesh of four processes sharing the card, joined by gloo, on
+    CUDA tensors: a split input's stride-1 pool takes one row of the next
+    space rank, -inf past the last; a stride-2 pool of an odd number of
+    output rows gathers; forward and backward equal the whole pool's
+    (``torch_tpsp_worker.assert_pools_whole``, on the CPU)."""
+    import torch_tpsp_worker as W
+    from torch_parallel_worker import spawn_world
+
+    rng = np.random.default_rng(5)
+    job = dict(pool_x=-(np.abs(rng.standard_normal((2, 3, 8, 5))) + 0.5)
+               .astype(np.float32),
+               pool_g=rng.standard_normal((2, 3, 8, 5)).astype(np.float32))
+    seen = spawn_world(4, job, tmp_path, target=W.cuda_pools)
+    for case in W.POOL_CASES:
+        for pool in W.POOLS:
+            W.assert_pools_whole(seen, job, case, pool)
+
+
 def test_keras_train_mesh_needs_one_card_a_rank(dev):
     """--mesh 1,2 on a one-card machine exits before any rank starts:
     nothing falls back to gloo or to the CPU."""

@@ -218,18 +218,24 @@ def run(rank: int, world: int, init_file: str, job_file: str,
                 spec = _spec(job)
                 tp = make_mesh(dp=world // 2, mp=2, device_type="cpu")
                 sp = make_mesh(dp=world // 2, sp=2, device_type="cpu")
-                # what the model and space axes do not train yet: another
-                # builder, and recalibrate_batch_stats
-                tiny = build_network("tiny_yolo", spec.in_hw, spec.nanchors,
-                                     spec.class_num)
+                # what the model axis does not train yet: the patches
+                # stem; recalibrate_batch_stats on the space axis runs
+                patches = _net(job, spec)
+                patches.stem_mode = "patches"
                 seen["model_error"] = _raised(
-                    lambda: tiny(torch.zeros(1, *spec.in_hw, 3),
-                                 shard=ShardContext(tp)),
+                    lambda: patches(torch.zeros(1, *spec.in_hw, 3),
+                                    shard=ShardContext(tp)),
                     NotImplementedError)
+                net = _net(job, spec)
                 seen["space_error"] = _raised(
                     lambda: TT.recalibrate_batch_stats(
-                        _net(job, spec), iter(()), None, device="cpu",
-                        mesh=sp), NotImplementedError)
+                        net, iter([PL.HostBatch(*job["host"])]),
+                        PL.make_preprocess_fn(spec, False), num_batches=1,
+                        device="cpu", mesh=sp), NotImplementedError)
+                seen["space_stats"] = {
+                    name: (_np(m.running_mean), _np(m.running_var))
+                    for name, m in net.named_modules()
+                    if isinstance(m, BatchNorm)}
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()

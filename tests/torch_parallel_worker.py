@@ -101,11 +101,12 @@ def run(rank: int, world: int, init_file: str, job_file: str,
 
 
 def spawn_world(world: int, job: dict, tmp: Path,
-                timeout: float = 300.0, target=run) -> list:
+                timeout: float = 300.0, target=run, meanwhile=None) -> list:
     """Run ``target`` (default ``run``; any function of the same arguments
     that writes ``<out_dir>/rank<r>.pkl``) on ``world`` gloo ranks; returns
-    each rank's record.  Raises (and ends the ranks) if they have not
-    finished in ``timeout`` seconds."""
+    each rank's record.  ``meanwhile()``, where given, runs here while the
+    ranks do.  Raises (and ends the ranks) if ``meanwhile`` raises or the
+    ranks have not finished in ``timeout`` seconds."""
     import torch.multiprocessing as mp
 
     job_file = tmp / "job.pkl"
@@ -113,12 +114,18 @@ def spawn_world(world: int, job: dict, tmp: Path,
     ctx = mp.spawn(target, args=(world, str(tmp / "init"), str(job_file),
                                  str(tmp)), nprocs=world, join=False)
     deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=1.0):      # raises if a rank failed
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        while not ctx.join(timeout=1.0):      # raises if a rank failed
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the gloo world of {world} ranks did "
+                                   f"not finish in {timeout} s")
+    except BaseException:
+        for proc in ctx.processes:
+            if proc.is_alive():
                 proc.terminate()
-            raise TimeoutError(f"the gloo world of {world} ranks did not "
-                               f"finish in {timeout} s")
+        raise
     return [pickle.loads((tmp / f"rank{r}.pkl").read_bytes())
             for r in range(world)]
 

@@ -1,19 +1,26 @@
-"""One rank of a four-rank gloo world for ``tests/test_torch_tpsp_serving.py``
-and ``tests/test_torch_tpsp_train.py``: the model and space axes.
+"""One rank of a four-rank gloo world for ``tests/test_torch_tpsp_serving.py``,
+``tests/test_torch_tpsp_train.py`` and the builders' files
+``tests/test_torch_tpsp_{mobilev2,tiny,yolo}.py``: the model and space
+axes.
 
-Started by ``torch_parallel_worker.spawn_world(..., target=serve or
-train)``; imports torch, numpy and the port only, never JAX.  Each rank
-joins through ``parallel.init_world`` (``file://``) and runs every case of
-its job on the meshes ``job['meshes']`` (dp, mp, sp), one after another on
-the same world, then writes what it saw to ``<out_dir>/rank<r>.pkl``.
+Started by ``torch_parallel_worker.spawn_world(..., target=serve, train
+or builder)``; imports torch, numpy and the port only, never JAX.  Each
+rank joins through ``parallel.init_world`` (``file://``) and runs every
+case of its job on the meshes ``job['meshes']`` (dp, mp, sp), one after
+another on the same world, then writes what it saw to
+``<out_dir>/rank<r>.pkl``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
+import json
 import pickle
+import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -21,7 +28,12 @@ from k210_yolo_framework_tpu_torch import config as TConfig
 from k210_yolo_framework_tpu_torch.data import pipeline as PL
 from k210_yolo_framework_tpu_torch.inference import Predictor
 from k210_yolo_framework_tpu_torch.models import build_network
-from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
+from k210_yolo_framework_tpu_torch.models.layers import (
+    BatchNorm,
+    max_pool_same,
+    smooth_max_pool_same,
+    smooth_witness,
+)
 from k210_yolo_framework_tpu_torch.parallel import (
     channel_range,
     init_world,
@@ -33,9 +45,11 @@ from k210_yolo_framework_tpu_torch.parallel import (
 from k210_yolo_framework_tpu_torch.parallel.sharded import (
     ShardContext,
     Sharded,
+    add,
     gather,
     halo,
 )
+from k210_yolo_framework_tpu_torch.training import checkpoint as TC
 from k210_yolo_framework_tpu_torch.training import train as TT
 
 import torch_parallel_train_worker as TW
@@ -94,11 +108,12 @@ def serve(rank: int, world: int, init_file: str, job_file: str,
             None, spec, quantize="int8", device="cpu")
         seen["quantize_error"] = _raised(
             lambda: quantized.make_sharded_runner(tp), NotImplementedError)
-        tiny = Predictor(build_network("tiny_yolo", spec.in_hw,
-                                       spec.nanchors, spec.class_num),
-                         None, spec, device="cpu")
-        seen["builder_error"] = _raised(
-            lambda: tiny.make_sharded_runner(tp), NotImplementedError)
+        patches = Predictor(
+            build_network(job["model"], spec.in_hw, spec.nanchors,
+                          spec.class_num, alpha=job["alpha"]),
+            None, spec, stem_mode="patches", device="cpu")
+        seen["patches_error"] = _raised(
+            lambda: patches.make_sharded_runner(tp), NotImplementedError)
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()
@@ -197,7 +212,8 @@ def train(rank: int, world: int, init_file: str, job_file: str,
           out_dir: str) -> None:
     """``make_train_step`` on each mesh; the collectives alone; the
     BatchNorm group rule; the ranges; ``fit``'s state and a stop raised on
-    a model or space rank; what the axes still refuse."""
+    a model or space rank; what the axes still refuse (the patches stem),
+    and the recalibration on dp2*sp2, which no longer refuses."""
     job = _join(rank, world, init_file, job_file)
     try:
         seen = {"plain": {}}
@@ -212,15 +228,261 @@ def train(rank: int, world: int, init_file: str, job_file: str,
         seen["fit"] = _fit_state(job, tpsp)
         seen["stop"] = TW.stop_on_one_rank(job, tpsp, rank)
         spec = TW._spec(job)
-        tiny = build_network("tiny_yolo", spec.in_hw, spec.nanchors,
-                             spec.class_num)
-        seen["builder_error"] = _raised(
-            lambda: tiny(torch.zeros(1, *spec.in_hw, 3),
-                         shard=ShardContext(tpsp)), NotImplementedError)
-        seen["recalibrate_error"] = _raised(
-            lambda: TT.recalibrate_batch_stats(
-                TW._net(job, spec), iter(()), None, device="cpu",
-                mesh=dpsp), NotImplementedError)
+        patches = TW._net(job, spec)
+        patches.stem_mode = "patches"
+        seen["patches_error"] = _raised(
+            lambda: patches(torch.zeros(1, *spec.in_hw, 3),
+                            shard=ShardContext(tpsp)), NotImplementedError)
+        seen["recalibrated"] = _recalibrated(
+            dict(job, recal_hosts=[job["host"]]), dpsp)
+        Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---- the other builders (tests/test_torch_tpsp_{mobilev2,tiny,yolo}.py) ----
+
+def leaf_rel_l1(a: dict, b) -> dict:
+    """Each leaf's sum|x - y| / sum|y| (``b`` a dict or a :func:`read_flat`
+    mapping)."""
+    assert sorted(a) == sorted(b)
+    out = {}
+    for k in sorted(b):
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        out[k] = float(np.abs(x - y).sum() / (np.abs(y).sum() + 1e-12))
+    return out
+
+
+def rel_l1(a: dict, b) -> float:
+    """test_parallel_equivalence._rel_l1: the worst leaf's sum|x - y| /
+    sum|y|."""
+    return max(leaf_rel_l1(a, b).values())
+
+
+def read_flat(stem: str, timeout: float = 600.0) -> dict:
+    """``torch_tpsp_parity.write_flat``'s flat dict, memory-mapped; waits
+    for the test process to write it (its index comes last)."""
+    deadline = time.monotonic() + timeout
+    while not Path(stem + ".json").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no reference {stem} in {timeout} s")
+        time.sleep(0.2)
+    index = json.loads(Path(stem + ".json").read_text())
+    data = np.load(stem + ".npy", mmap_mode="r")
+    return {k: data[o:o + int(np.prod(shape))].reshape(shape)
+            for k, (o, shape) in index.items()}
+
+
+def _digest(state) -> str:
+    """One hash of everything a replicated state holds (the net's state
+    dict, Adam's moments and steps, the counters, the step count)."""
+    h = hashlib.sha1(str(state.step).encode())
+    tensors = list(state.net.state_dict().values()) + list(state.pr.values())
+    for p in state.net.parameters():
+        tensors += [v for _, v in sorted(state.optimizer.state.get(
+            p, {}).items())]
+    for t in tensors:
+        h.update(t.detach().to(torch.float32).contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _held_steps(job, mesh, refs) -> dict:
+    """This rank's slots of the job's batch through ``make_train_step``:
+    ``job['steps']`` steps of the smooth witness
+    (``layers.smooth_witness``: each kink and max-pool smoothed), each
+    step's logs, the first step's gradients and the final parameters as
+    each leaf's rel-L1 error against the references ``refs``
+    (``read_flat`` stems), and each gradient leaf's largest entry;
+    and one step of the net itself, its logs.  A digest of each final
+    state."""
+    cfg, spec = TW._cfg(job), TW._spec(job)
+    lo, hi = slot_range(len(job["images"]), mesh)
+    images = torch.from_numpy(np.ascontiguousarray(job["images"][lo:hi]))
+    labels = [torch.from_numpy(np.ascontiguousarray(lab[lo:hi]))
+              for lab in job["labels"]]
+    step = TT.make_train_step(spec, cfg, train_epoch_step=job["steps"],
+                              mesh=mesh)
+
+    def state_of(net):
+        return TT.shard_state(TT.create_train_state(net, cfg, "cpu"), mesh)
+
+    state = state_of(smooth_witness(TW._net(job, spec)))
+    logs = []
+    for i in range(job["steps"]):
+        state, lg = step(state, images, labels)
+        logs.append(TW._scalars(lg))
+        if i == 0:
+            grads = TC.flat_from_state_dict(
+                {n: p.grad for n, p in state.net.named_parameters()})
+    params = TC.flat_from_state_dict(dict(state.net.named_parameters()))
+    smooth = dict(logs=logs, digest=_digest(state),
+                  grads_err=leaf_rel_l1(grads, read_flat(refs["grads"])),
+                  grads_max={k: float(np.abs(g).max())
+                             for k, g in grads.items()},
+                  params_err=leaf_rel_l1(params, read_flat(refs["params"])),
+                  gspmd_params_err=leaf_rel_l1(
+                      params, read_flat(refs["gspmd_params"])))
+    del grads, params
+    state, lg = step(state_of(TW._net(job, spec)), images, labels)
+    return dict(smooth=smooth, kinked=dict(logs=[TW._scalars(lg)],
+                                           digest=_digest(state)))
+
+
+def _whole_rows(x: torch.Tensor, mesh, split: bool) -> Sharded:
+    """``x``'s rows as this rank holds them: its ``row_range`` where
+    ``split``, else whole; every channel."""
+    ctx = ShardContext(mesh)
+    if split:
+        x = x[:, :, slice(*row_range(x.shape[2], mesh))]
+    return Sharded(x.clone().requires_grad_(), ctx, rows=split)
+
+
+# (H, stride, the input's rows split): the -inf halo below at stride 1, no
+# halo at stride 2, a stride-2 pool whose 3 output rows do not divide (a
+# window would straddle the ranks: gathered), a replicated input cut
+# locally, an odd H pooled whole
+POOL_CASES = ((8, 1, True), (6, 1, True), (8, 2, True), (6, 2, True),
+              (8, 1, False), (7, 2, False))
+POOLS = {"max": max_pool_same, "smooth": smooth_max_pool_same}
+
+
+def _pools(job, mesh, device="cpu") -> dict:
+    """tp2sp2: ``max_pool_same`` and ``smooth_max_pool_same`` of this
+    rank's part of each ``POOL_CASES`` input (negative everywhere, so a
+    zero pad would win a window), and the gradient of sum(out * g) through
+    each, a rank's loss scaled by 1 / sp where its output is replicated
+    over space."""
+    out = {}
+    sp = ShardContext(mesh).sp
+    for name, pool in POOLS.items():
+        for h, stride, split in POOL_CASES:
+            x = torch.from_numpy(job["pool_x"][:, :, :h]).to(device)
+            g = torch.from_numpy(job["pool_g"][:, :, :-(-h // stride),
+                                               :-(-x.shape[3] // stride)]
+                                 ).to(device)
+            part = _whole_rows(x, mesh, split)
+            y = pool(part, stride)
+            rows = slice(*row_range(g.shape[2], mesh)) if y.rows \
+                else slice(None)
+            ((y.t * g[:, :, rows]).sum() / (1 if y.rows else sp)).backward()
+            out.setdefault(name, {})[(h, stride, split)] = dict(
+                y=TW._np(y.t), y_rows=y.rows, x_grad=TW._np(part.t.grad),
+                in_rows=row_range(h, mesh) if split else (0, h),
+                out_rows=row_range(g.shape[2], mesh) if y.rows
+                else (0, g.shape[2]))
+    return out
+
+
+def assert_pools_whole(ranks, job, case, pool) -> None:
+    """``_pools``'s records of a (1, 2, 2) world (``ranks``, by world rank)
+    against the whole tensor: each rank's output rows are the whole
+    pool's, split where the output rows divide by sp (at stride 1 the last
+    rank's bottom window takes the -inf pad, not a zero row; a stride-2
+    pool of 3 output rows is gathered and pooled whole), and the input
+    gradients of one model coordinate's two space ranks add up to the
+    whole pool's."""
+    h, stride, _ = case
+    x = torch.from_numpy(job["pool_x"][:, :, :h]).requires_grad_()
+    y = POOLS[pool](x, stride)
+    g = torch.from_numpy(job["pool_g"][:, :, :y.shape[2], :y.shape[3]])
+    (y * g).sum().backward()
+    y, want_grad = y.detach().numpy(), x.grad.numpy()
+    out_h = -(-h // stride)
+    for m in range(2):
+        grad = np.zeros_like(want_grad)
+        for rank in (2 * m, 2 * m + 1):
+            rec = ranks[rank]["pools"][pool][case]
+            assert rec["y_rows"] == (out_h * stride == h and out_h % 2 == 0)
+            lo, hi = rec["out_rows"]
+            np.testing.assert_allclose(rec["y"], y[:, :, lo:hi], rtol=1e-6,
+                                       atol=1e-6)
+            lo, hi = rec["in_rows"]
+            grad[:, :, lo:hi] += rec["x_grad"]
+        np.testing.assert_allclose(grad, want_grad, rtol=1e-6, atol=1e-6)
+
+
+def _adds(job, mesh) -> dict:
+    """tp2sp2: ``sharded.add`` of two activations of 128 channels and 4
+    rows in every pair of layouts (rows split or whole, channels this
+    model rank's half or whole): the sum, each side's gradient of
+    sum(out * g), and, without gradients, whether only ``fresh`` was
+    written."""
+    ctx = ShardContext(mesh)
+    a, b, g = (torch.from_numpy(job[k]) for k in ("add_a", "add_b",
+                                                  "add_g"))
+    clo, chi = ctx.channel_range(a.shape[1])
+    rlo, rhi = row_range(a.shape[2], mesh)
+
+    def part(t, rows, channels):
+        t = t[:, clo:chi] if channels else t
+        return t[:, :, rlo:rhi] if rows else t
+
+    out = {}
+    layouts = list(itertools.product((False, True), repeat=2))
+    for fresh_l, other_l in itertools.product(layouts, repeat=2):
+        fa = part(a, *fresh_l).clone().requires_grad_()
+        ob = part(b, *other_l).clone().requires_grad_()
+        y = add(Sharded(fa, ctx, *fresh_l), Sharded(ob, ctx, *other_l))
+        (y.t * part(g, y.rows, y.channels)).sum().backward()
+        with torch.no_grad():
+            fn, on = part(a, *fresh_l).clone(), part(b, *other_l).clone()
+            kept = on.clone()
+            yn = add(Sharded(fn, ctx, *fresh_l), Sharded(on, ctx, *other_l))
+            into_fresh = yn.t.untyped_storage().data_ptr() == \
+                fn.untyped_storage().data_ptr()
+        out[(fresh_l, other_l)] = dict(
+            y=TW._np(y.t), layout=(y.rows, y.channels),
+            fresh_grad=TW._np(fa.grad), other_grad=TW._np(ob.grad),
+            no_grad_equal=bool(torch.equal(yn.t, y.t.detach())),
+            other_untouched=bool(torch.equal(on, kept)),
+            into_fresh=bool(into_fresh))
+    return dict(cases=out, rows=(rlo, rhi), channels=(clo, chi))
+
+
+def _recalibrated(job, mesh) -> dict:
+    """``recalibrate_batch_stats(mesh=)`` over the job's host batches:
+    every BatchNorm's statistics after it, by module name."""
+    spec = TW._spec(job)
+    net = TW._net(job, spec)
+    hosts = [PL.HostBatch(*h) for h in job["recal_hosts"]]
+    TT.recalibrate_batch_stats(net, iter(hosts),
+                               PL.make_preprocess_fn(spec, False),
+                               num_batches=len(hosts), device="cpu",
+                               mesh=mesh)
+    return {name: (TW._np(m.running_mean), TW._np(m.running_var))
+            for name, m in net.named_modules() if isinstance(m, BatchNorm)}
+
+
+def builder(rank: int, world: int, init_file: str, job_file: str,
+            out_dir: str) -> None:
+    """The job's builder on each mesh: served through
+    ``make_sharded_runner``, then trained (``_held_steps``, against the
+    reference files ``job['refs']``, which the test process writes while
+    the ranks run); then, as the job asks, the sharded
+    pools (``pools``), adds (``adds``) and recalibration (``recalibrate``:
+    on dp2*sp2 and tp2*sp2)."""
+    job = _join(rank, world, init_file, job_file)
+    try:
+        seen = {"results": {}, "train": {}}
+        meshes = {_mesh_name(dims): make_mesh(*dims, device_type="cpu")
+                  for dims in job["meshes"]}
+        for name, mesh in meshes.items():
+            runner = SW._predictor(job).make_sharded_runner(mesh)
+            seen["results"][name] = [
+                t.numpy() for t in runner(job["canvases"], job["hws"])]
+            del runner
+        for name, mesh in meshes.items():
+            seen["train"][name] = _held_steps(job, mesh, job["refs"])
+        tpsp = make_mesh(1, 2, 2, device_type="cpu")
+        if job.get("pools"):
+            seen["pools"] = _pools(job, tpsp)
+        if job.get("adds"):
+            seen["adds"] = _adds(job, tpsp)
+        if job.get("recalibrate"):
+            seen["recalibrated"] = {
+                _mesh_name(dims): _recalibrated(
+                    job, make_mesh(*dims, device_type="cpu"))
+                for dims in ((2, 1, 2), (1, 2, 2))}
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()
@@ -242,6 +504,23 @@ def cuda_collectives(rank: int, world: int, init_file: str, job_file: str,
         dev = torch.device("cuda", 0)
         mesh = make_mesh(1, world // 2, 2, device_type="cuda")
         seen = _halo_and_gather(job, mesh, dev)
+        Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
+    finally:
+        dist.destroy_process_group()
+
+
+def cuda_pools(rank: int, world: int, init_file: str, job_file: str,
+               out_dir: str) -> None:
+    """``_pools`` on CUDA tensors over a gloo world of four processes
+    sharing card 0, on (1, 2, 2)."""
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    job = pickle.loads(Path(job_file).read_bytes())
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(1, 2, 2, device_type="cuda")
+        seen = {"pools": _pools(job, mesh, torch.device("cuda", 0))}
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()
