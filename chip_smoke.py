@@ -5,9 +5,10 @@ then the three other builders served and trained (phase 15), the
 command-line entry points (phase 16), quantized serving, the export and
 the ``Helper`` facade (phase 17), and the darknet53 yolo at 608x608 with
 the greedy kernels' global path, the stem modes and data-parallel serving
-(phase 18), data-parallel training (phase 19), and serving and training on
+(phase 18), data-parallel training (phase 19), serving and training on
 the model and space axes (phase 20: yolo_mobilev1; phase 21: the other
-three builders).
+three builders), and quantized and patches serving on those axes (phase
+22).
 
     python3 chip_smoke.py
 
@@ -217,7 +218,22 @@ Phases (any failure raises and the script exits non-zero):
      step at B=32 (one rotation launch) and, in the 4-rank world, its
      ``recalibrate_batch_stats(mesh=)`` on dp2*sp2 and tp2*sp2 against
      the single-process recalibration; the serve and step ms (gloo on one
-     card: not a scaling number) and the collectives a step.
+     card: not a scaling number) and the collectives a step;
+ 22. quantized and patches serving on the model and space axes, in phase
+     20's worlds after the cases of phases 20-21: yolo_mobilev1 (alpha
+     0.75) at 224x320 through ``make_sharded_runner`` in fp32 at B=32 in
+     ``int8``, ``patches`` and ``patches`` + ``int8`` (at most 0.5%
+     unmatched either way, matched scores within 1e-3), ``int8_act``,
+     ``int8_act_sym``, ``int8_act_cal`` (calibrated on the scene's
+     canvases) and ``nativeconv`` under ``int8_act`` (at most 1% and
+     2e-3, the CPU tests' pinned flip bound), each against the same
+     Predictor's ``_run_batch`` on the card; yolo_mobilev2 in ``patches``
+     and tiny_yolo and the darknet53 yolo in ``int8_act`` at phase 21's
+     batches.  Each rank: one head launch a call, the weight bytes it
+     holds equal to the single-process Predictor's (the weights stay
+     whole), the activation ranges' all-reduces in a call (none in
+     ``int8``, ``int8_act_cal`` and the float stems) and the ms of a call
+     (gloo on one card: not a scaling number).
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -2100,9 +2116,9 @@ def int8_convs_card_vs_cpu(pred, canvases, hws) -> list:
         captured.append((self, x, act, y))
         return y
 
-    def capture_product(self, xq, wq):
-        products.append((self, xq, wq))
-        return real_product(self, xq, wq)
+    def capture_product(self, xq, wq, *cout):
+        products.append((self, xq, wq, cout))
+        return real_product(self, xq, wq, *cout)
 
     products = []
     Conv.forward_int8 = capture_conv
@@ -2111,9 +2127,9 @@ def int8_convs_card_vs_cpu(pred, canvases, hws) -> list:
         pred.predict_batch(canvases, hws)
     finally:
         Conv.forward_int8, Conv._int8_product = real_conv, real_product
-    for conv, xq, wq in products:
-        if not torch.equal(real_product(conv, xq, wq).cpu(),
-                           real_product(conv, xq.cpu(), wq.cpu())):
+    for conv, xq, wq, cout in products:
+        if not torch.equal(real_product(conv, xq, wq, *cout).cpu(),
+                           real_product(conv, xq.cpu(), wq.cpu(), *cout)):
             raise AssertionError(f"{conv.scope}: _int_mm on the card "
                                  "differs from the CPU")
     for conv, x, act, y in captured:
@@ -2123,7 +2139,7 @@ def int8_convs_card_vs_cpu(pred, canvases, hws) -> list:
                                  "differs from the CPU on the same input")
     if len(captured) != len(products):
         raise AssertionError("int8 convs and products do not pair up")
-    return [conv.scope for conv, _, _ in products]
+    return [conv.scope for conv, *_ in products]
 
 
 def nudged_state(net):
@@ -3423,7 +3439,8 @@ class TpspCase(NamedTuple):
     smooth witness and one of the net itself where ``witness``; a fused
     bf16 step at ``fused_b`` (0: none); with ``recalibrate``,
     ``recalibrate_batch_stats(mesh=)`` on dp2*sp2 and tp2*sp2 in the
-    4-rank world."""
+    4-rank world; and phase 22's fp32 ``quantized`` serve calls
+    (``TPSP_QUANTIZED`` name, batch)."""
     tag: str
     phase: int
     model: str
@@ -3436,6 +3453,26 @@ class TpspCase(NamedTuple):
     witness: bool = False
     fused_b: int = 0
     recalibrate: bool = False
+    quantized: tuple = ()
+
+
+# Phase 22: the quantize and stem modes on the model and space axes, by
+# name: (quantize, stem_mode)
+TPSP_QUANTIZED = {"int8": ("int8", "default"),
+                  "patches": (None, "patches"),
+                  "patches_int8": ("int8", "patches"),
+                  "int8_act": ("int8_act", "default"),
+                  "int8_act_sym": ("int8_act_sym", "default"),
+                  "int8_act_cal": ("int8_act_cal", "default"),
+                  "nativeconv_int8_act": ("int8_act", "nativeconv")}
+# the int8-activation modes' bound against the same Predictor's
+# _run_batch, tests/test_torch_tpsp_quantize.py's pinned flip bound: at
+# most 1% unmatched either way, matched scores within 2e-3 (a cuDNN
+# algorithm on a slice moves an activation by ulps, which can flip its
+# rounding); the float-weight modes at test_sharded_serving.py's 0.5% and
+# 1e-3
+TPSP_ACT_BOUND = (0.01, 2e-3)
+TPSP_Q_B = 32              # phase 22's yolo_mobilev1 batch
 
 
 # Phase 20: yolo_mobilev1, the main path's model and width.  Phase 21:
@@ -3447,13 +3484,15 @@ class TpspCase(NamedTuple):
 # forward is staged through the host.
 TPSP_CASES = (
     TpspCase("v1", 20, "yolo_mobilev1", 0.75, 2, (224, 320),
-             (("fp32", 32), ("bf16", BATCH)), 32, 3, fused_b=BATCH),
+             (("fp32", 32), ("bf16", BATCH)), 32, 3, fused_b=BATCH,
+             quantized=tuple((q, TPSP_Q_B) for q in TPSP_QUANTIZED)),
     TpspCase("v2", 21, "yolo_mobilev2", 1.0, 2, (224, 320), (("fp32", 8),),
-             8, 2, witness=True),
+             8, 2, witness=True, quantized=(("patches", 8),)),
     TpspCase("tiny", 21, "tiny_yolo", 1.0, 2, (224, 320), (("fp32", 8),),
-             8, 2, witness=True, fused_b=32, recalibrate=True),
+             8, 2, witness=True, fused_b=32, recalibrate=True,
+             quantized=(("int8_act", 8),)),
     TpspCase("yolo", 21, "yolo", 1.0, 3, (224, 320), (("fp32", 4),), 2, 2,
-             witness=True),
+             witness=True, quantized=(("int8_act", 4),)),
     TpspCase("yolo608", 21, "yolo", 1.0, 3, (BIG_SIDE, BIG_SIDE),
              (("fp32", 2),)),
 )
@@ -3527,10 +3566,15 @@ def tpsp_rank(rank, world, init_file, dims, ann, out_dir):
         dist.destroy_process_group()
 
 
-def tpsp_serve(mesh, net0, spec, label, bsz, canvases, hws) -> dict:
-    """``make_sharded_runner`` in ``label``'s dtype against ``_run_batch``
-    on the card: the set-level statistic, the head launches of one call
-    (and those on the global path), the ms of a call."""
+def tpsp_serve(mesh, net0, spec, label, bsz, canvases, hws, cfg=None,
+               calib=None) -> dict:
+    """``make_sharded_runner`` in ``label``'s dtype (phase 22: in the
+    ``TPSP_QUANTIZED`` configuration ``cfg``, ``int8_act_cal`` calibrated
+    on ``calib``, numpy (canvases, sizes)) against ``_run_batch`` on the
+    card: the set-level statistic, the head launches of one call (and
+    those on the global path), its all-reduces (the activation ranges'),
+    the weight bytes the Predictor holds before and after the runner is
+    made, the ms of a call."""
     import torch
 
     from k210_yolo_framework_tpu_torch.inference import Predictor
@@ -3540,18 +3584,26 @@ def tpsp_serve(mesh, net0, spec, label, bsz, canvases, hws) -> dict:
         return NmsResult(*(t.cpu().numpy() for t in res))
 
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[label]
+    quantize, stem_mode = TPSP_QUANTIZED[cfg] if cfg else (None, "default")
     pred = Predictor(net0, None, spec, obj_thresh=MID_THRESH, iou_thresh=IOU,
-                     compute_dtype=dtype, device=canvases.device)
+                     compute_dtype=dtype, quantize=quantize,
+                     stem_mode=stem_mode, device=canvases.device)
+    if quantize == "int8_act_cal":
+        pred.calibrate(*calib)
+    single_bytes = pred.weight_bytes()
     runner = pred.make_sharded_runner(mesh)
     c, h = canvases[:bsz], hws[:bsz]
+    got = []
     zero_counts()
-    got = runner(c, h)
+    coll = counted_collectives(lambda: got.append(runner(c, h)))
     torch.cuda.synchronize()
     launches, global_launches = counts()[:2]
     want = pred._run_batch(c, h)
-    return dict(stats=set_level(host(got), host(want)),
-                valid_equal=bool(torch.equal(got.valid, want.valid)),
+    return dict(stats=set_level(host(got[0]), host(want)),
+                valid_equal=bool(torch.equal(got[0].valid, want.valid)),
                 launches=launches, global_launches=global_launches,
+                all_reduces=coll.get("all_reduce", 0),
+                bytes=(single_bytes, pred.weight_bytes()),
                 n=sum(a * b for a, b in spec.out_hws) * spec.nanchors,
                 ms=time_ms(lambda: runner(c, h), TPSP_TIMED, warmup=1))
 
@@ -3724,8 +3776,10 @@ def tpsp_work(dims, ann) -> dict:
     """Each TPSP_CASES builder in turn on the (dp, mp, sp) mesh ``dims``:
     served (``tpsp_serve``), trained (``tpsp_train``), its fused step
     (``tpsp_fused``) and, in the 4-rank world, its recalibration on
-    dp2*sp2 and tp2*sp2 (``tpsp_recalibrate``), as the case asks; the
-    wall seconds of each."""
+    dp2*sp2 and tp2*sp2 (``tpsp_recalibrate``), as the case asks; then
+    (phase 22) each case's quantize and stem modes served
+    (``tpsp_serve`` with a ``TPSP_QUANTIZED`` name); the wall seconds of
+    each."""
     import torch
 
     from k210_yolo_framework_tpu_torch.data import pipeline as PL
@@ -3763,6 +3817,22 @@ def tpsp_work(dims, ann) -> dict:
         seen[case.tag] = rec
         del net0
         torch.cuda.empty_cache()
+    for case in TPSP_CASES:       # phase 22, after every phase 20-21 case
+        if not case.quantized:
+            continue
+        t0 = time.perf_counter()
+        spec = builder_spec(case.layers, case.in_hw)
+        net0 = build_network(case.model, spec.in_hw, spec.nanchors,
+                             spec.class_num, alpha=case.alpha,
+                             generator=torch.Generator().manual_seed(0))
+        rec = seen[case.tag]
+        rec["quantized"] = {
+            cfg: tpsp_serve(mesh, net0, spec, "fp32", bsz, c_dev, h_dev, cfg,
+                            (canvases[:bsz], hws[:bsz]))
+            for cfg, bsz in case.quantized}
+        rec["quantized_wall_s"] = time.perf_counter() - t0
+        del net0
+        torch.cuda.empty_cache()
     seen["memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return seen
 
@@ -3777,10 +3847,25 @@ def tpsp_checks(seen) -> dict:
     gradients and final parameters within 10x the control, the leaves at
     rounding level kept there) and the net's own step-1 loss rtol 1e-5;
     one rotation launch a fused step; the recalibration within its
-    bound."""
+    bound; phase 22's quantized and patches serving (the int8-activation
+    modes within TPSP_ACT_BOUND, the others at the fp32 bounds), one head
+    launch a call, the int8 weight bytes the single-process Predictor's,
+    no range all-reduce where no range is reduced."""
     checks = {}
     for case in TPSP_CASES:
         t, rec = case.tag, seen[case.tag]
+        for cfg, q in rec.get("quantized", {}).items():
+            act = TPSP_QUANTIZED[cfg][0] in ("int8_act", "int8_act_sym",
+                                             "int8_act_cal")
+            share, diff = TPSP_ACT_BOUND if act else (0.005, 1e-3)
+            checks[f"{t} {cfg} serving at set level"] = within_share(
+                *q["stats"][:4], share) and q["stats"][4] <= diff
+            checks[f"{t} {cfg} one head launch a call"] = q["launches"] == 1
+            checks[f"{t} {cfg} weights held whole"] = \
+                q["bytes"][0] == q["bytes"][1]
+            if TPSP_QUANTIZED[cfg][0] not in ("int8_act", "int8_act_sym"):
+                checks[f"{t} {cfg} no range all-reduce"] = \
+                    q["all_reduces"] == 0
         for label, s in rec["serve"].items():
             share, diff = (0.005, 1e-3) if label == "fp32" else (0.01, 0.02)
             checks[f"{t} {label} serving at set level"] = within_share(
@@ -3815,8 +3900,8 @@ def tpsp_checks(seen) -> dict:
 
 
 def tpsp_lines(name, world, r, case, rec, tag):
-    """The two lines printed for ``case`` on rank ``r``: results, then
-    times."""
+    """The lines printed for ``case`` on rank ``r``: results, then times,
+    for phases 20-21 and, where the case has any, phase 22."""
     parts, times = [], []
     for label, s in rec["serve"].items():
         un_ab, n_a, un_ba, n_b, ds = s["stats"]
@@ -3854,14 +3939,31 @@ def tpsp_lines(name, world, r, case, rec, tag):
                      f"{rc['tensors']} statistics (largest "
                      f"{rc['largest']:.3g})")
     head = f"tp/sp {name} rank {r} {case.tag} (phase {case.phase})"
-    return (f"{head}: {'; '.join(parts)}",
-            f"{head} (gloo on one card, {world} processes sharing it: not a "
-            f"scaling number): {', '.join(times)}; wall "
-            f"{rec['wall_s']:.1f} s {tag}")
+    lines = [f"{head}: {'; '.join(parts)}",
+             f"{head} (gloo on one card, {world} processes sharing it: not "
+             f"a scaling number): {', '.join(times)}; wall "
+             f"{rec['wall_s']:.1f} s {tag}"]
+    q_parts, q_times = [], []
+    for (cfg, bsz), q in zip(case.quantized,
+                             rec.get("quantized", {}).values()):
+        un_ab, n_a, un_ba, n_b, ds = q["stats"]
+        q_parts.append(f"{cfg} fp32 b{bsz} unmatched {un_ab}/{n_a} and "
+                       f"{un_ba}/{n_b}, matched score diff {ds:.3g}, head "
+                       f"launches {q['launches']}, range all-reduces "
+                       f"{q['all_reduces']}, weight bytes {q['bytes'][1]} "
+                       f"(one process {q['bytes'][0]})")
+        q_times.append(f"{cfg} b{bsz} {q['ms']:.1f} ms")
+    if q_parts:
+        head = f"tp/sp {name} rank {r} {case.tag} (phase 22)"
+        lines += [f"{head}: {'; '.join(q_parts)}",
+                  f"{head} (gloo on one card, {world} processes sharing it: "
+                  f"not a scaling number): {', '.join(q_times)}; wall "
+                  f"{rec['quantized_wall_s']:.1f} s {tag}"]
+    return lines
 
 
 def tpsp_phase(tag, ann):
-    """Phases 20-21: the model and space axes on one card.  Each world of
+    """Phases 20-22: the model and space axes on one card.  Each world of
     ``TPSP_WORLDS`` (2 or 4 processes, gloo over CUDA tensors) is spawned
     once and runs every TPSP_CASES builder (``tpsp_work``), held by
     ``tpsp_checks``; then the refusal of ``keras_train --mesh 1,2`` on a
@@ -3889,9 +3991,10 @@ def tpsp_phase(tag, ann):
         for r, seen in enumerate(ranks):
             for case in TPSP_CASES:
                 rec = seen[case.tag]
-                head += sum(s["launches"] for s in rec["serve"].values())
-                head_global += sum(s["global_launches"]
-                                   for s in rec["serve"].values())
+                served = [*rec["serve"].values(),
+                          *rec.get("quantized", {}).values()]
+                head += sum(s["launches"] for s in served)
+                head_global += sum(s["global_launches"] for s in served)
                 rot += rec.get("fused", {}).get("launches", 0)
                 print(*tpsp_lines(name, world, r, case, rec, tag), sep="\n")
             print(f"tp/sp {name} rank {r}: peak {seen['memory_gib']:.1f} GiB")
@@ -3912,7 +4015,7 @@ def tpsp_phase(tag, ann):
           f"card(s): {refusal!r}")
     if torch.cuda.device_count() == 1 and "one a card" not in refusal:
         raise AssertionError("keras_train --mesh 1,2 did not refuse one card")
-    print(f"phases 20-21: wall seconds {time.perf_counter() - t_phase:.1f}")
+    print(f"phases 20-22: wall seconds {time.perf_counter() - t_phase:.1f}")
     return head, head_global, rot
 
 
@@ -4198,7 +4301,7 @@ def run(device) -> int:
                 device, tag, ann, canvases, hws, image)
         # ---- 19. training on the data axis --------------------------------
         p19_rot = mesh_training(device, tag, ann)
-        # ---- 20-21. the model and space axes, every builder ----------------
+        # ---- 20-22. the model and space axes, every builder and mode -------
         tpsp_head, tpsp_head_global, tpsp_rot = tpsp_phase(tag, ann)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]

@@ -24,9 +24,10 @@ stem conv's im2col patches instead of the canvas
 (``ops/letterbox.letterbox_stem_patches``) and the stem contracts them;
 ``'nativeconv'`` quantizes the stem too under the int8-activation modes.
 :meth:`Predictor.make_sharded_runner` serves a batch over a
-``parallel.make_mesh`` mesh, one process a device: a data shard a data
-rank, and on a mesh with a model or space axis each rank's channels and
-rows of the forward (``parallel/sharded.py``).
+``parallel.make_mesh`` mesh, one process a device, in every quantize and
+stem mode: a data shard a data rank, and on a mesh with a model or space
+axis each rank's channels and rows of the forward
+(``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -367,19 +368,31 @@ class Predictor:
         every rank calls with the whole batch (as JAX's one controller is
         given it), B divisible by the data axis's size dp.  Each rank
         copies only its data coordinate's contiguous B / dp shard to its
-        device.  On a pure data-parallel mesh it runs the whole serving
-        program on it (``_run_batch``, head kernel included, in every
-        quantize mode).  With a model or space axis (any builder, the
-        float modes, a stem other than ``patches``) it letterboxes the
-        shard's canvases and takes each image's 1/max whole, runs its part
-        of the forward (its channels and rows, ``parallel/sharded.py``),
-        whose head outputs come back whole, and runs the head kernel on the
-        shard.  The
-        fixed-shape result fields are all-gathered over the data axis, so
-        every rank returns the whole batch's result.  The parameters are
-        replicated: rank 0 of the data axis (of the world, with a model or
-        space axis) broadcasts its weights (and calibrated ranges) to the
-        others here."""
+        device; every quantize mode and stem mode serves.
+
+        On a pure data-parallel mesh each rank runs the whole serving
+        program on its shard (``_run_batch``, head kernel included), as
+        JAX's ``shard_map`` does: a dynamic int8 activation range is the
+        shard's own.  With a model or space axis it runs JAX's one GSPMD
+        program over the global batch: it makes the shard's net input
+        (letterboxed canvases, or the stem's patches) and takes each
+        image's 1/max whole, runs its part of the forward (its channels and
+        rows, ``parallel/sharded.py``; in the ``int8`` mode from the
+        dequantized kernels), whose head outputs come back whole, and runs
+        the head kernel on the shard.  There a dynamic int8 activation
+        range is that of the whole global tensor, every data shard, row
+        and channel of it (one max all-reduce a quantized conv whose
+        input is spread over ranks, ``parallel.sharded.tensor_range``).
+
+        The fixed-shape result fields are all-gathered over the data axis,
+        so every rank returns the whole batch's result.  The parameters
+        are replicated: rank 0 of the data axis (of the world, with a
+        model or space axis) broadcasts its weights, quantized kernels and
+        calibrated ranges to the others here.  So in ``int8_act_cal`` every
+        rank serves that rank's ranges: a rank that did not calibrate gets
+        them here (its own, where it has any, are replaced), and the check
+        that they were calibrated runs after the broadcast, on every rank
+        alike."""
         import torch.distributed as dist
 
         from k210_yolo_framework_tpu_torch.parallel import mesh as PM
@@ -387,24 +400,26 @@ class Predictor:
             ShardContext,
         )
 
-        self._require_calibrated()
         group = PM.data_group(mesh)
         dp = dist.get_world_size(group)
         shard = None
         if PM.axis_size(mesh, PM.MODEL_AXIS) * PM.axis_size(
                 mesh, PM.SPACE_AXIS) > 1:
-            if self.quantize is not None or self.stem_mode == "patches":
-                PM.require_data_parallel(
-                    mesh, f"serving with quantize={self.quantize!r} and "
-                    f"stem_mode={self.stem_mode!r}", 5)
             shard = ShardContext(mesh)
         held_by = PM.world_group(mesh) if shard is not None else group
         src = dist.get_global_rank(held_by, 0)
+        if self.quantize == "int8_act_cal":
+            # every rank holds the range buffers the broadcast fills
+            for conv in self.net.modules():
+                if isinstance(conv, Conv) and conv.int8_capable:
+                    conv.act_ranges(self.device)
         held = list(self.net.parameters()) + list(self.net.buffers())
         held += [t for v in self.qweights.values() for t in v]
         with torch.no_grad():
             for t in held:
                 dist.broadcast(t, src=src, group=held_by)
+        self._cal_checked = False
+        self._require_calibrated()
 
         def gather(t: torch.Tensor) -> torch.Tensor:
             # as uint8: gloo has no bool all-gather
@@ -430,8 +445,8 @@ class Predictor:
                     imgs = self._letterbox_for_stem(c, h,
                                                     self.compute_dtype)
                     res = self._head(folded_logits(
-                        self.net, {}, imgs, self.module_dtype, shard=shard),
-                        h)
+                        self.net, self._materialize(), imgs,
+                        self.module_dtype, shard=shard), h)
             return NmsResult(*(gather(t) for t in res))
 
         return run

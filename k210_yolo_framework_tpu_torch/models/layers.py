@@ -27,14 +27,17 @@ On a mesh with a model or space axis the layers take and return
 rows of each, ``parallel/sharded.py``): ``Conv``, ``ConvBN``,
 ``DarknetConvBN``, ``darknet_head_conv``, ``upsample2x``,
 ``cat_channels``, ``residual_add``, ``max_pool_same`` and
-``smooth_max_pool_same`` accept either.
+``smooth_max_pool_same`` accept either, and so do the int8 conv and the
+patches stem below.
 
 ``dtype`` may also be the :class:`Int8Act` sentinel (the JAX package's
 serving-only int8-activation modes): then every bias-free dense conv but
 the stem computes int8 x int8 -> int32 (``Conv.forward_int8``), and the
 stem, the depthwise convs and the biased head convs stay in the sentinel's
 ``out_dtype``.  A stem in the ``"nativeconv"`` stem mode computes int8 too,
-as the JAX dispatch gives it (``ConvBN.stem_mode``).
+as the JAX dispatch gives it (``ConvBN.stem_mode``).  On a TP/SP mesh a
+dynamic range is the whole global tensor's, as in JAX's one GSPMD program
+(``parallel.sharded.tensor_range``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from k210_yolo_framework_tpu_torch.parallel.sharded import (
     all_reduce_sum,
     conv_rows,
     gather,
+    tensor_range,
 )
 from k210_yolo_framework_tpu_torch.parallel.sharded import add as _add_sharded
 from k210_yolo_framework_tpu_torch.parallel.sharded import (
@@ -381,24 +385,38 @@ class Conv(nn.Module):
                      1 if self.groups == 1 else hi - lo)
         return Sharded(y, ctx, rows, sliced)
 
-    def forward_patches(self, x: torch.Tensor,
-                        dtype: torch.dtype) -> torch.Tensor:
+    def forward_patches(self, x, dtype: torch.dtype):
         """The conv over its im2col patches ``x`` [B, Ho, kh, Wo, kw, C]
         (``ops/letterbox.letterbox_stem_patches``, the padding already in
         them), the JAX ``_StemPatchesConv``: (kh, kw, C) contracted against
-        the OIHW ``weight`` in ``dtype``; an NCHW view out."""
+        the OIHW ``weight`` in ``dtype``; an NCHW view out.  A ``Sharded``
+        ``x`` (the whole patches on every rank of a TP/SP mesh) gives this
+        rank's part: output rows ``row_range(Ho)`` from those rows of the
+        patches (they carry their own padding: no halo; every row where Ho
+        does not divide by sp) and output channels ``channel_range`` from
+        ``weight[lo:hi]``."""
+        p = x.t if isinstance(x, Sharded) else x
         cout, cin, kh, kw = self.weight.shape
-        if self.bias is not None or self.groups != 1 or x.ndim != 6 \
-                or (x.shape[2], x.shape[4], x.shape[5]) != (kh, kw, cin):
+        if self.bias is not None or self.groups != 1 or p.ndim != 6 \
+                or (p.shape[2], p.shape[4], p.shape[5]) != (kh, kw, cin) \
+                or (isinstance(x, Sharded) and (x.rows or x.channels)):
             raise ValueError(
                 f"{self.scope}: the patches conv takes [N, Ho, {kh}, Wo, "
-                f"{kw}, {cin}] patches into a dense bias-free conv, got "
-                f"{tuple(x.shape)}")
-        b, ho, _, wo, _, _ = x.shape
-        cols = x.to(dtype).permute(0, 1, 3, 2, 4, 5).reshape(
+                f"{kw}, {cin}] patches, whole on every rank, into a dense "
+                f"bias-free conv, got {tuple(p.shape)}")
+        weight = self.weight
+        if isinstance(x, Sharded):
+            lo, hi = x.ctx.channel_range(cout)
+            rlo, rhi = x.ctx.row_range(p.shape[1])
+            p, weight = p[:, rlo:rhi], weight[lo:hi]
+        b, ho, _, wo, _, _ = p.shape
+        cols = p.to(dtype).permute(0, 1, 3, 2, 4, 5).reshape(
             b * ho * wo, kh * kw * cin)
-        k2 = self.weight.to(dtype).permute(0, 2, 3, 1).reshape(cout, -1)
-        return (cols @ k2.t()).reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
+        k2 = weight.to(dtype).permute(0, 2, 3, 1).reshape(len(weight), -1)
+        y = (cols @ k2.t()).reshape(b, ho, wo, -1).permute(0, 3, 1, 2)
+        if isinstance(x, Sharded):
+            return Sharded(y, x.ctx, rhi - rlo < x.t.shape[1], hi - lo < cout)
+        return y
 
     def act_ranges(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(act_min, act_max), made at zero on ``device`` if absent."""
@@ -409,38 +427,93 @@ class Conv(nn.Module):
                         name, torch.zeros((), device=device), persistent=False)
         return self.act_min, self.act_max
 
-    def forward_int8(self, x: torch.Tensor, act: Int8Act) -> torch.Tensor:
+    def forward_int8(self, x, act: Int8Act):
         """The JAX ``_Int8Conv`` on an NCHW tensor: per-channel weight
         scale ``sw``, per-tensor activation scale ``sx`` (affine: the zero
         point ``zp`` maps the range's min to -127), the int32 product of
         the quantized tensors, the exact correction ``- zp * sum(kq)`` and
         the fp32 rescale by ``sx * sw``; NHWC inside, an NCHW view out.
         Every padded position reads ``zp`` (0 when symmetric), as JAX's
-        zp padding and its zero-padded stride-2 input give."""
+        zp padding and its zero-padded stride-2 input give.  A ``Sharded``
+        input gives this rank's part (:meth:`_forward_int8_sharded`)."""
         if not self.int8_capable:
             raise ValueError(f"{self.scope}: no int8 path for a biased, "
                              "depthwise or <= 4-channel conv")
+        if isinstance(x, Sharded):
+            return self._forward_int8_sharded(x, act)
         xf = x.to(torch.float32)
-        if act.static:
+        if act.static and act.calibrate:
             rmin, rmax = self.act_ranges(x.device)
-            if act.calibrate:
-                # ranges of the float net's activations, widening; the
-                # calibration forward itself runs unquantized
-                rmin.copy_(torch.minimum(rmin, torch.amin(xf)))
-                rmax.copy_(torch.maximum(rmax, torch.amax(xf)))
-                return self._conv2d(xf, self.weight.to(torch.float32),
-                                    None).to(act.out_dtype)
-            xmin = torch.clamp_max(rmin, 0.0)
-            xmax = torch.clamp_min(rmax, 0.0)
-        elif act.affine:
-            xmin = torch.clamp_max(torch.amin(xf), 0.0)
-            xmax = torch.clamp_min(torch.amax(xf), 0.0)
-        else:
-            amax = torch.amax(xf.abs())
-            xmin, xmax = -amax, amax
+            # ranges of the float net's activations, widening; the
+            # calibration forward itself runs unquantized
+            rmin.copy_(torch.minimum(rmin, torch.amin(xf)))
+            rmax.copy_(torch.maximum(rmax, torch.amax(xf)))
+            return self._conv2d(xf, self.weight.to(torch.float32),
+                                None).to(act.out_dtype)
+        xmin, xmax = self.int8_range(xf, act)
         (top, bottom), (left, right) = self.pads
+        return self._int8_conv(xf, (left, right, top, bottom), xmin, xmax,
+                               act, *self.int8_weight())
+
+    def int8_range(self, xf: torch.Tensor, act: Int8Act, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The range :meth:`forward_int8` quantizes ``xf`` (fp32) with,
+        ``(xmin, xmax)`` with ``xmin <= 0 <= xmax`` (so a padded 0 leaves it
+        as it is): the calibrated ``act_min`` / ``act_max`` where
+        ``act.static``, else the range of the whole tensor ``xf`` is the
+        part of over ``group`` (``parallel.sharded.tensor_range``; None:
+        ``xf`` itself), symmetric about 0 unless ``act.affine``."""
+        if act.static:
+            rmin, rmax = self.act_ranges(xf.device)
+            return torch.clamp_max(rmin, 0.0), torch.clamp_min(rmax, 0.0)
+        if act.affine:
+            xmin, xmax = tensor_range(xf, group)
+            return torch.clamp_max(xmin, 0.0), torch.clamp_min(xmax, 0.0)
+        amax = tensor_range(xf, group, affine=False)
+        return -amax, amax
+
+    def _forward_int8_sharded(self, x: Sharded, act: Int8Act) -> Sharded:
+        """This rank's part of :meth:`forward_int8` on a TP/SP mesh: the
+        input's channels gathered (a dense conv reads them all); its range
+        the whole global tensor's, over ``ctx.batch_group(x.rows)`` (data x
+        space while the rows are split, data after: the group BatchNorm
+        sums over), or the calibrated one; this rank's output rows
+        (``conv_rows``: the halo's zeros past the image's edges, like the
+        conv's remaining padding, quantize to exactly ``zp``); and output
+        channels ``channel_range`` from rows [lo:hi] of the quantized
+        kernel, zero padded again to a multiple of 8 (``_int_mm``'s n).
+        Gathered, it is :meth:`forward_int8` of the whole tensor bit for
+        bit: the range is exact, the halo copies values and the int32 sums
+        are exact in any order."""
+        if act.calibrate:
+            raise ValueError(
+                f"{self.scope}: calibration records ranges on one process "
+                "(Predictor.calibrate); a sharded forward serves them")
+        ctx = x.ctx
+        cout, kh = self.weight.shape[0], self.weight.shape[2]
+        lo, hi = ctx.channel_range(cout)
+        xf = x.whole_channels(x.t.to(torch.float32))
+        xmin, xmax = self.int8_range(xf, act, ctx.batch_group(x.rows))
+        xf, (top, bottom), rows = conv_rows(x, xf, kh, self.strides[0],
+                                            self.pads[0])
+        left, right = self.pads[1]
+        wq, sw, wsum = self.int8_weight()
+        if hi - lo < cout:
+            wq = F.pad(wq[lo:hi], (0, 0, 0, -(hi - lo) % 8))
+            sw, wsum = sw[lo:hi], wsum[lo:hi]
+        y = self._int8_conv(xf, (left, right, top, bottom), xmin, xmax, act,
+                            wq, sw, wsum)
+        return Sharded(y, ctx, rows, hi - lo < cout)
+
+    def _int8_conv(self, xf: torch.Tensor, pads, xmin: torch.Tensor,
+                   xmax: torch.Tensor, act: Int8Act, wq: torch.Tensor,
+                   sw: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+        """The quantize, product and rescale steps of :meth:`forward_int8`:
+        fp32 NCHW rows ``xf``, ``F.pad``'s ``pads`` still to apply, the
+        range, and the quantized kernel's rows of the output channels
+        computed (``wq`` [n8, k8], ``sw`` and ``sum(kq)`` [n])."""
         # a padded 0 quantizes to exactly zp (affine) or 0 (symmetric)
-        xf = F.pad(xf, (left, right, top, bottom))
+        xf = F.pad(xf, pads)
         if act.affine:
             sx = exact_div(torch.clamp_min(xmax - xmin, 1e-6), 254.0)
             zp = torch.clamp(-127.0 - torch.round(xmin / sx), -127.0, 127.0)
@@ -449,8 +522,8 @@ class Conv(nn.Module):
             sx = exact_div(torch.clamp_min(torch.maximum(-xmin, xmax), 1e-6),
                            127.0)
             xq = torch.clamp(torch.round(xf / sx), -127, 127)
-        wq, sw, wsum = self.int8_weight()
-        y = self._int8_product(xq.to(torch.int8), wq)      # [B, Ho, Wo, O]
+        y = self._int8_product(xq.to(torch.int8), wq,
+                               len(sw))                    # [B, Ho, Wo, n]
         if act.affine:
             y = y - zp.to(torch.int32) * wsum
         y = (y.to(torch.float32) * (sx * sw)).to(act.out_dtype)
@@ -482,17 +555,19 @@ class Conv(nn.Module):
                            self.int8_weight()):
             self.register_buffer(name, t, persistent=False)
 
-    def _int8_product(self, xq: torch.Tensor, wq: torch.Tensor
-                      ) -> torch.Tensor:
+    def _int8_product(self, xq: torch.Tensor, wq: torch.Tensor,
+                      cout: Optional[int] = None) -> torch.Tensor:
         """Padded int8 NCHW input and :meth:`int8_weight`'s ``wq`` -> the
-        VALID conv's int32 [B, Ho, Wo, O]: one ``torch._int_mm`` over an
-        im2col built from the kh * kw shifted slices (``F.unfold`` has no
-        int8), columns in (kh, kw, cin) order.  ``_int_mm`` on a CUDA
-        tensor (cuBLASLt) takes more than 16 rows and k, n multiples of 8:
-        the columns are zero padded to ``wq``'s k, the rows to 17 where
-        fewer, and the result cut back; zeros leave an integer product
-        exactly as it was."""
-        cout, cin, kh, kw = self.weight.shape
+        VALID conv's int32 [B, Ho, Wo, cout] (``cout``: every output
+        channel, or the count of a slice's rows ``wq`` holds): one
+        ``torch._int_mm`` over an im2col built from the kh * kw shifted
+        slices (``F.unfold`` has no int8), columns in (kh, kw, cin) order.
+        ``_int_mm`` on a CUDA tensor (cuBLASLt) takes more than 16 rows and
+        k, n multiples of 8: the columns are zero padded to ``wq``'s k, the
+        rows to 17 where fewer, and the result cut back; zeros leave an
+        integer product exactly as it was."""
+        _, cin, kh, kw = self.weight.shape
+        cout = self.weight.shape[0] if cout is None else cout
         sh, sw = self.strides
         x = xq.permute(0, 2, 3, 1)                          # NHWC
         b, hp, wp, _ = x.shape
@@ -661,10 +736,10 @@ class ConvBN(nn.Module):
 
     def forward(self, x, dtype: torch.dtype = torch.float32,
                 post_conv_scale: Optional[torch.Tensor] = None):
+        """``x`` NCHW, or ``Sharded`` on a TP/SP mesh: then this rank's
+        part of the conv (``Conv.forward_sharded``, ``forward_int8`` or
+        ``forward_patches``), and the scale, BN and activation on it."""
         dtype, int8_act = split_dtype(dtype)
-        if isinstance(x, Sharded):
-            return self._forward_sharded(x, dtype, int8_act,
-                                         post_conv_scale)
         if int8_act is not None and self.training:
             # round() has no gradient: the conv stack would not train
             raise NotImplementedError(
@@ -675,40 +750,24 @@ class ConvBN(nn.Module):
             if int8_act is not None:
                 raise ValueError("stem_mode='patches' has no int8-activation "
                                  "path")
-            x = self.conv.forward_patches(x, dtype)
+            y = self.conv.forward_patches(x, dtype)
         elif int8_act is not None and self.conv.int8_capable:
-            x = self.conv.forward_int8(x, int8_act)
+            y = self.conv.forward_int8(x, int8_act)
         else:
-            x = self.conv(x, dtype)
+            y = self.conv(x, dtype)
+        layout = y if isinstance(y, Sharded) else None
+        t = y if layout is None else y.t
         if post_conv_scale is not None:
             # per-image scalar folded in after the conv: conv(x * s) ==
             # conv(x) * s, so raw 0..255 pixels can go in and the
             # reference's per-image /max normalisation happens here (the
             # identity needs the bias-free conv).  The scale is cast to the
             # conv output's dtype first, as in flax.
-            x = x * post_conv_scale.to(x.dtype)[:, None, None, None]
-        x = self.bn(x)
-        if self.act is not None:
-            x = self.act(x)
-        return x
-
-    def _forward_sharded(self, x: Sharded, dtype, int8_act,
-                         post_conv_scale) -> Sharded:
-        """This rank's part on a TP/SP mesh: the conv's
-        (``Conv.forward_sharded``), then the scale, BN and activation on
-        it."""
-        if int8_act is not None or self.stem_mode == "patches":
-            raise NotImplementedError(
-                "the int8-activation modes and the patches stem on a mesh "
-                "with a model or space axis (ROADMAP queue 1 item 5)")
-        y = self.conv(x, dtype)
-        t = y.t
-        if post_conv_scale is not None:
             t = t * post_conv_scale.to(t.dtype)[:, None, None, None]
-        t = self.bn(t, y)
+        t = self.bn(t, layout)
         if self.act is not None:
             t = self.act(t)
-        return y.like(t)
+        return t if layout is None else layout.like(t)
 
 
 class DarknetConvBN(nn.Module):

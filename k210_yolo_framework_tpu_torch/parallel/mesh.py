@@ -30,8 +30,7 @@ computes output channels :func:`channel_range` of each kernel
 of each activation whose rows divide; BatchNorm's moments are summed over
 :func:`pixel_group` (data x space) while a layer's rows are split, over
 the data group after they are gathered; state and gradients over
-:func:`world_group`.  What they do not cover yet raises through
-:func:`require_data_parallel`, naming the ROADMAP item that holds it.
+:func:`world_group`.
 """
 
 from __future__ import annotations
@@ -48,9 +47,9 @@ __all__ = ["DATA_AXIS", "MODEL_AXIS", "SPACE_AXIS", "axis_size",
            "batch_sharding", "channel_range", "data_group", "data_rank",
            "host_group", "image_sharding", "init_world", "make_mesh",
            "mean_over_data", "model_group", "model_rank", "param_shardings",
-           "pixel_group", "replicated", "require_data_parallel",
-           "row_range", "shards_channels", "slot_range", "space_group",
-           "space_rank", "sum_over_data", "world_group"]
+           "pixel_group", "replicated", "row_range", "shards_channels",
+           "slot_range", "space_group", "space_rank", "sum_over_data",
+           "world_group"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -143,17 +142,6 @@ def row_range(h: int, mesh: DeviceMesh) -> Tuple[int, int]:
         return 0, h
     s = space_rank(mesh)
     return s * h // sp, (s + 1) * h // sp
-
-
-def require_data_parallel(mesh: DeviceMesh, what: str, item: int) -> None:
-    """Raise ``NotImplementedError`` unless the mesh is pure data
-    parallelism (mp = sp = 1): for what the model and space axes do not
-    cover yet, ROADMAP queue 1 item ``item``."""
-    if axis_size(mesh, MODEL_AXIS) != 1 or axis_size(mesh, SPACE_AXIS) != 1:
-        raise NotImplementedError(
-            f"{what} needs a pure data-parallel mesh (mp = sp = 1); the "
-            "model and space axes do not cover it yet (ROADMAP queue 1 "
-            f"item {item})")
 
 
 def data_group(mesh: DeviceMesh) -> dist.ProcessGroup:

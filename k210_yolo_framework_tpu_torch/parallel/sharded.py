@@ -28,7 +28,11 @@ what that program computes for its mesh coordinate:
   * train-mode BatchNorm sums its moments over data x space while the
     layer's rows are split and over data once they are gathered
     (:meth:`ShardContext.batch_group`), never over ``model``: a rank holds
-    every pixel of its channels.
+    every pixel of its channels;
+  * a conv quantized with a dynamic per-tensor range (the int8-activation
+    serving modes) takes the range of the whole tensor its input is a part
+    of (:func:`tensor_range`), over the same group as BatchNorm: JAX's
+    GSPMD program reduces it over the whole global batch.
 
 The weights stay whole on every rank: TP shards the compute, not the
 storage.  Each collective is an ``autograd.Function`` whose backward is its
@@ -40,7 +44,8 @@ world of each parameter's gradient, divided by dp, is the gradient of the
 global batch's loss (``training/train.py``).
 
 The collectives are ``all_gather`` in its list form and ``all_reduce``
-only.
+only: a sum for BatchNorm's moments and the gradients, a max for
+:func:`tensor_range`.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import torch.distributed as dist
 from k210_yolo_framework_tpu_torch.parallel import mesh as PM
 
 __all__ = ["ShardContext", "Sharded", "add", "all_reduce_sum",
-           "cat_channels", "conv_rows", "gather", "halo"]
+           "cat_channels", "conv_rows", "gather", "halo", "tensor_range"]
 
 
 def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
@@ -157,6 +162,23 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group``, differentiable (BatchNorm's moments)."""
     return _AllReduceSum.apply(t, group)
+
+
+def tensor_range(t: torch.Tensor, group, affine: bool = True):
+    """The range of the whole tensor that ``t`` is this rank's part of:
+    ``(min, max)`` where ``affine``, else the largest magnitude ``amax``
+    (0-d fp32 tensors).  One ``all_reduce`` with ``MAX`` over ``group``
+    (None: ``t`` is the whole tensor) of ``[-min, max]`` or ``[amax]``:
+    a max is idempotent, so ranks holding the same rows or channels leave
+    it as it is, and it equals ``amin`` / ``amax`` of the whole tensor bit
+    for bit (negation is exact).  Serving only: no gradient."""
+    if affine:
+        r = torch.stack([-torch.amin(t), torch.amax(t)])
+    else:
+        r = torch.amax(t.abs()).reshape(1)
+    if group is not None:
+        dist.all_reduce(r, op=dist.ReduceOp.MAX, group=group)
+    return (-r[0], r[1]) if affine else r[0]
 
 
 class ShardContext:

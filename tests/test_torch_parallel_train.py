@@ -354,14 +354,14 @@ def test_a_stop_on_one_rank_stops_every_rank_after_the_same_step(world2):
 
 
 def test_model_and_space_axes_are_refused(world2):
-    """What the model axis does not train yet refuses: the patches stem's
-    forward on a tp2 mesh, naming queue 1 item 5 (every builder trains on
-    both axes: ``tests/test_torch_tpsp_*.py``).  ``recalibrate_batch_stats``
-    on an sp2 mesh no longer refuses (fault u): both ranks, each with the
-    whole net on the whole batch, leave the same statistics."""
+    """What the model axis refuses to train: a train-mode forward under
+    Int8Act on a tp2 mesh, a serving mode, as JAX refuses it (every
+    builder trains on both axes, the patches stem too:
+    ``tests/test_torch_tpsp_*.py``).  ``recalibrate_batch_stats`` on an
+    sp2 mesh no longer refuses (fault u): both ranks, each with the whole
+    net on the whole batch, leave the same statistics."""
     for s in world2:
-        assert "the patches stem" in s["model_error"]
-        assert "ROADMAP queue 1 item 5" in s["model_error"]
+        assert "Int8Act is a serving-only" in s["model_error"]
         assert s["space_error"] == ""
         for name, (mean, var) in world2[0]["space_stats"].items():
             np.testing.assert_array_equal(s["space_stats"][name][0], mean)

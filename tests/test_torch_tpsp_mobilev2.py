@@ -1,5 +1,6 @@
 """yolo_mobilev2 (alpha 1.0) on the model and space axes: served
-(``Predictor.make_sharded_runner``) and trained (``make_train_step``) on a
+(``Predictor.make_sharded_runner``, in fp32, ``int8_act`` and the
+``patches`` stem) and trained (``make_train_step``) on a
 mesh with mp or sp above 1, against the JAX package's single-device
 programs and, on tp2*sp2, its GSPMD programs (``tests/
 torch_tpsp_parity.py``: the bounds of ``tests/test_sharded_serving.py`` and
@@ -28,7 +29,8 @@ torch.set_num_threads(1)
 
 CASE = P.Case("yolo_mobilev2", 1.0, (96, 96), ((3, 3), (6, 6)),
               (((0.7, 0.6), (0.5, 0.5), (0.4, 0.3)),
-               ((0.3, 0.3), (0.2, 0.2), (0.15, 0.15))))
+               ((0.3, 0.3), (0.2, 0.2), (0.15, 0.15))),
+              quantized=("int8_act", "patches"), act_bound=(0.025, 5e-3))
 LAYOUTS = list(itertools.product((False, True), repeat=2))   # rows, chans
 
 
@@ -61,6 +63,27 @@ def test_tp_sp_runner_matches_the_jax_sharded_program(world4):
     want = P.references(CASE)["served_gspmd"]
     for s in world4:
         P.assert_served_alike(NmsResult(*s["results"][P.GSPMD]), want)
+
+
+@pytest.mark.parametrize("mesh", list(P.MESHES))
+@pytest.mark.parametrize("cfg", CASE.quantized)
+def test_quantized_runner_matches_the_jax_single_device_program(world4, cfg,
+                                                                mesh):
+    """``int8_act`` (the dense convs of the inverted residuals int8 around
+    sliced and split residual adds) and the ``patches`` stem: against the
+    port's own single-process program at the fp32 bounds (measured: no
+    flip, scores equal), and against JAX's single-device program, the
+    patches at the fp32 bounds (2.7e-7) and ``int8_act`` at its pinned
+    flip bound (``torch_tpsp_parity.assert_quantized_alike``): 29 of 1,200
+    detections unmatched each way and matched scores within 4.8e-3 on
+    every mesh, the port's single-process distance from JAX exactly;
+    held at 2.5% and 5e-3."""
+    want = P.references(CASE)["quantized"][cfg]
+    own = P.port_served(CASE, cfg)
+    for s in world4:
+        got = NmsResult(*s["results"][(mesh, cfg)])
+        P.assert_served_alike(got, own)
+        P.assert_quantized_alike(cfg, got, want, CASE.act_bound)
 
 
 @pytest.mark.parametrize("mesh", list(P.MESHES))

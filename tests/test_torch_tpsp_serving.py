@@ -140,11 +140,13 @@ def test_tensor_parallelism_engages(world4):
 
 
 def test_what_the_axes_do_not_serve_yet_refuses(world4):
-    """On tp2*sp2 an ``int8`` Predictor and a ``patches`` one refuse,
-    naming queue 1 item 5 (every builder serves in the float modes:
-    ``tests/test_torch_tpsp_{mobilev2,tiny,yolo}.py``)."""
+    """What is left to refuse on tp2*sp2 is a train-mode forward under
+    Int8Act (a serving mode, as in JAX).  The ``int8`` and ``patches``
+    Predictors it used to refuse serve there, each rank's result the same
+    Predictor's single-process ``_run_batch`` at the JAX test's bounds
+    (every quantize and stem mode: ``tests/test_torch_tpsp_quantize.py``)."""
     for s in world4:
-        assert "ROADMAP queue 1 item 5" in s["quantize_error"]
-        assert "quantize='int8'" in s["quantize_error"]
-        assert "ROADMAP queue 1 item 5" in s["patches_error"]
-        assert "stem_mode='patches'" in s["patches_error"]
+        assert "Int8Act is a serving-only" in s["train_int8_error"]
+        assert sorted(s["served_on_tpsp"]) == ["int8", "patches"]
+        for got, want in s["served_on_tpsp"].values():
+            assert_served_alike(NmsResult(*got), NmsResult(*want))

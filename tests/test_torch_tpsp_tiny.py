@@ -1,6 +1,6 @@
 """tiny_yolo on the model and space axes: served
-(``Predictor.make_sharded_runner``) and trained (``make_train_step``) on a
-mesh with mp or sp above 1, against the JAX package's single-device
+(``Predictor.make_sharded_runner``, in fp32 and ``int8_act``) and
+trained (``make_train_step``) on a mesh with mp or sp above 1, against the JAX package's single-device
 programs and, on tp2*sp2, its GSPMD programs (``tests/
 torch_tpsp_parity.py``: the bounds of ``tests/test_sharded_serving.py`` and
 ``tests/test_parallel_equivalence.py``); the sharded SAME pools alone; and
@@ -36,7 +36,8 @@ torch.set_num_threads(1)
 
 CASE = P.Case("tiny_yolo", 1.0, (128, 128), ((4, 4), (8, 8)),
               (((0.7, 0.6), (0.5, 0.5), (0.4, 0.3)),
-               ((0.3, 0.3), (0.2, 0.2), (0.15, 0.15))))
+               ((0.3, 0.3), (0.2, 0.2), (0.15, 0.15))),
+              quantized=("int8_act",), act_bound=(0.01, 0.03))
 
 
 def _hosts():
@@ -95,6 +96,26 @@ def test_tp_sp_runner_matches_the_jax_sharded_program(world4):
     want = P.references(CASE)["served_gspmd"]
     for s in world4:
         P.assert_served_alike(NmsResult(*s["results"][P.GSPMD]), want)
+
+
+@pytest.mark.parametrize("mesh", list(P.MESHES))
+@pytest.mark.parametrize("cfg", CASE.quantized)
+def test_quantized_runner_matches_the_jax_single_device_program(world4, cfg,
+                                                                mesh):
+    """``int8_act`` (the dense convs int8 between the sharded SAME
+    max-pools, the stride-1 pool's -inf halo among them): against the
+    port's own single-process program at the fp32 bounds (measured: no
+    flip, scores within 6e-8), and against JAX's single-device program at
+    its pinned flip bound (``torch_tpsp_parity.assert_quantized_alike``):
+    10 of 1,200 detections unmatched each way, matched scores within
+    0.0288 on every mesh, the port's single-process distance from JAX;
+    held at 1% and 0.03."""
+    want = P.references(CASE)["quantized"][cfg]
+    own = P.port_served(CASE, cfg)
+    for s in world4:
+        got = NmsResult(*s["results"][(mesh, cfg)])
+        P.assert_served_alike(got, own)
+        P.assert_quantized_alike(cfg, got, want, CASE.act_bound)
 
 
 @pytest.mark.parametrize("mesh", list(P.MESHES))

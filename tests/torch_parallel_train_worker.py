@@ -25,7 +25,7 @@ import torch.distributed as dist
 from k210_yolo_framework_tpu_torch import config as TConfig
 from k210_yolo_framework_tpu_torch.data import pipeline as PL
 from k210_yolo_framework_tpu_torch.models import build_network
-from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
+from k210_yolo_framework_tpu_torch.models.layers import BatchNorm, Int8Act
 from k210_yolo_framework_tpu_torch.ops.augment import AugmentParams
 from k210_yolo_framework_tpu_torch.parallel import (
     data_group,
@@ -218,13 +218,13 @@ def run(rank: int, world: int, init_file: str, job_file: str,
                 spec = _spec(job)
                 tp = make_mesh(dp=world // 2, mp=2, device_type="cpu")
                 sp = make_mesh(dp=world // 2, sp=2, device_type="cpu")
-                # what the model axis does not train yet: the patches
-                # stem; recalibrate_batch_stats on the space axis runs
-                patches = _net(job, spec)
-                patches.stem_mode = "patches"
+                # what the model axis refuses to train: a forward under
+                # Int8Act (a serving mode); recalibrate_batch_stats on the
+                # space axis runs
                 seen["model_error"] = _raised(
-                    lambda: patches(torch.zeros(1, *spec.in_hw, 3),
-                                    shard=ShardContext(tp)),
+                    lambda: _net(job, spec)(torch.zeros(1, *spec.in_hw, 3),
+                                            dtype=Int8Act(torch.float32),
+                                            shard=ShardContext(tp)),
                     NotImplementedError)
                 net = _net(job, spec)
                 seen["space_error"] = _raised(

@@ -86,15 +86,20 @@ def run(rank: int, world: int, init_file: str, job_file: str,
             seen["model_marked"] = sorted(
                 name for name, pl in param_shardings(state, tp).items()
                 if any(isinstance(p, Shard) for p in pl))
-            # what the model axis does not serve yet: a quantize mode
+            # a quantize mode the model axis used to refuse: int8 on tp2,
+            # against the same Predictor's single-process program
             quantized = Predictor(
                 build_network(job["model"], pred.spec.in_hw,
                               pred.spec.nanchors, pred.spec.class_num,
                               alpha=job["alpha"]),
-                None, pred.spec, quantize="int8", device="cpu")
-            seen["model_error"] = _raised(
-                lambda: quantized.make_sharded_runner(tp),
-                NotImplementedError)
+                None, pred.spec, quantize="int8", device="cpu",
+                **job["predictor"])
+            got = quantized.make_sharded_runner(tp)(job["canvases"],
+                                                    job["hws"])
+            want = quantized._run_batch(torch.from_numpy(job["canvases"]),
+                                        torch.from_numpy(job["hws"]))
+            seen["model_int8"] = ([t.numpy() for t in got],
+                                  [t.numpy() for t in want])
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()

@@ -93,7 +93,8 @@ VANISHING = 1e-6
 @dataclasses.dataclass(frozen=True)
 class Case:
     """One builder at one size: ``out_hws`` its grids (coarsest first),
-    ``anchors`` [layers, 3, 2]; ``serve_batch`` canvases served,
+    ``anchors`` [layers, 3, 2]; ``serve_batch`` canvases served (in fp32,
+    and in each of the ``quantized`` configurations),
     ``train_batch`` images trained on for ``steps`` steps."""
     model: str
     alpha: float
@@ -104,6 +105,9 @@ class Case:
     train_batch: int = 8
     steps: int = 3
     class_num: int = 5
+    quantized: tuple = ()     # torch_tpsp_worker.QUANTIZED names served too
+    # the int8-activation flip bound against JAX (assert_quantized_alike)
+    act_bound: tuple = (0.01, 2e-3)
 
     @property
     def spec_args(self):
@@ -158,21 +162,26 @@ def make_job(case: Case, **extra) -> dict:
                 spec_args=case.spec_args, flat=case.weights()[2],
                 canvases=canvases, hws=hws, predictor=THRESH,
                 images=images, labels=labels, lr=LR, steps=case.steps,
-                meshes=list(MESHES.values()), **extra)
+                meshes=list(MESHES.values()), quantized=case.quantized,
+                **extra)
 
 
 # ---- JAX's programs ------------------------------------------------------
 
-def _jax_predictor(case: Case):
+def _jax_predictor(case: Case, cfg=None):
+    """JAX's Predictor of ``case``, in the ``W.QUANTIZED`` configuration
+    ``cfg`` (None: fp32, the default stem)."""
+    quantize, stem_mode = W.QUANTIZED[cfg] if cfg else (None, "default")
     jnet, variables, _ = case.weights()
     return JaxPredictor(jnet, dict(variables),
                         JConfig.YoloSpec.create(*case.spec_args),
-                        compute_dtype=jnp.float32, **THRESH)
+                        compute_dtype=jnp.float32, quantize=quantize,
+                        stem_mode=stem_mode, **THRESH)
 
 
-def _served(case: Case, dims=None) -> NmsResult:
+def _served(case: Case, dims=None, cfg=None) -> NmsResult:
     canvases, hws = _canvases(case)
-    jp = _jax_predictor(case)
+    jp = _jax_predictor(case, cfg)
     if dims is None:
         res = jp._run_batch(jp.variables, jnp.asarray(canvases),
                             jnp.asarray(hws))
@@ -288,7 +297,8 @@ def worst_leaf(errors: dict, vanishing) -> float:
 
 @functools.lru_cache(maxsize=None)
 def references(case: Case) -> dict:
-    """Every JAX reference of ``case`` (module docstring); cached.
+    """Every JAX reference of ``case`` (module docstring), its serving in
+    each ``case.quantized`` configuration among them; cached.
     ``vanishing`` lists the leaves whose first-step gradient is at rounding
     level on JAX's single-device step, ``grad_top`` is that gradient's
     largest entry."""
@@ -310,6 +320,7 @@ def references(case: Case) -> dict:
 
     return dict(
         served=_served(case), served_gspmd=_served(case, MESHES[GSPMD]),
+        quantized={cfg: _served(case, cfg=cfg) for cfg in case.quantized},
         train=train, vanishing=vanishing, grad_top=top,
         floors=dict(grads=max(worst(ctl["grads"], single["grads"]), 1e-6),
                     params=max(worst(ctl["params"], single["params"]), 1e-6),
@@ -368,6 +379,42 @@ def assert_served_alike(got: NmsResult, want: NmsResult) -> None:
     assert un_ab <= max(1, int(np.ceil(0.005 * n_a))), (un_ab, n_a)
     assert un_ba <= max(1, int(np.ceil(0.005 * n_b))), (un_ba, n_b)
     assert max(ds_ab, ds_ba) <= 1e-3, (ds_ab, ds_ba)
+
+
+def assert_quantized_alike(cfg: str, got: NmsResult, want: NmsResult,
+                           bound=(0.01, 2e-3)) -> None:
+    """A ``W.QUANTIZED`` configuration's result against JAX's: at
+    :func:`assert_served_alike`'s bounds, or in the int8-activation modes
+    at ``bound``, (the share of the detections unmatched either way, the
+    largest matched score difference), with and without a score tolerance
+    of 0.05 on a match: JAX's float path and the port's differ by ulps,
+    which now and then flips an activation's rounding, and a flip moves
+    every later layer.  Each caller pins ``bound`` at the flip rate it
+    measured, never past JAX's own 10% (``tests/test_sharded_serving.py::
+    test_sharded_int8_act_runner_matches_local``)."""
+    if W.QUANTIZED[cfg][0] not in ("int8_act", "int8_act_sym",
+                                   "int8_act_cal"):
+        assert_served_alike(got, want)
+        return
+    unmatched, score = bound
+    assert unmatched <= 0.1
+    for tol in (None, 0.05):
+        un_ab, n_a, ds_ab = match_stats(want, got, score_tol=tol)
+        un_ba, n_b, ds_ba = match_stats(got, want, score_tol=tol)
+        assert n_a > 0 and n_b > 0
+        assert un_ab <= unmatched * n_a, (un_ab, n_a)
+        assert un_ba <= unmatched * n_b, (un_ba, n_b)
+        assert max(ds_ab, ds_ba) <= score, (ds_ab, ds_ba)
+
+
+@functools.lru_cache(maxsize=None)
+def port_served(case: Case, cfg: str) -> NmsResult:
+    """The port's single-process ``_run_batch`` of ``case``'s serving batch
+    in the ``W.QUANTIZED`` configuration ``cfg``; cached."""
+    job = make_job(case)
+    res = W.quantized_predictor(job, *W.QUANTIZED[cfg])._run_batch(
+        torch.from_numpy(job["canvases"]), torch.from_numpy(job["hws"]))
+    return NmsResult(*(t.numpy() for t in res))
 
 
 def assert_trained_alike(got: dict, case: Case, gspmd: bool = False) -> None:

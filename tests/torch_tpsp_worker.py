@@ -1,11 +1,12 @@
 """One rank of a four-rank gloo world for ``tests/test_torch_tpsp_serving.py``,
-``tests/test_torch_tpsp_train.py`` and the builders' files
-``tests/test_torch_tpsp_{mobilev2,tiny,yolo}.py``: the model and space
-axes.
+``tests/test_torch_tpsp_train.py``, ``tests/test_torch_tpsp_quantize.py``
+and the builders' files ``tests/test_torch_tpsp_{mobilev2,tiny,yolo}.py``:
+the model and space axes.
 
-Started by ``torch_parallel_worker.spawn_world(..., target=serve, train
-or builder)``; imports torch, numpy and the port only, never JAX.  Each
-rank joins through ``parallel.init_world`` (``file://``) and runs every
+Started by ``torch_parallel_worker.spawn_world(..., target=serve, train,
+quantized or builder)``; imports torch, numpy and the port only, never
+JAX.  Each rank joins through ``parallel.init_world`` (``file://``) and
+runs every
 case of its job on the meshes ``job['meshes']`` (dp, mp, sp), one after
 another on the same world, then writes what it saw to
 ``<out_dir>/rank<r>.pkl``.
@@ -19,6 +20,7 @@ import json
 import pickle
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -30,6 +32,8 @@ from k210_yolo_framework_tpu_torch.inference import Predictor
 from k210_yolo_framework_tpu_torch.models import build_network
 from k210_yolo_framework_tpu_torch.models.layers import (
     BatchNorm,
+    Conv,
+    Int8Act,
     max_pool_same,
     smooth_max_pool_same,
     smooth_witness,
@@ -81,8 +85,9 @@ def _join(rank, world, init_file, job_file):
 def serve(rank: int, world: int, init_file: str, job_file: str,
           out_dir: str) -> None:
     """The job's Predictor through ``make_sharded_runner`` on each mesh;
-    what a model or space axis still refuses; the kernels each rank's
-    model coordinate computes a slice of."""
+    the int8 and patches Predictors on tp2*sp2 and the int8-activation
+    train-mode refusal there; the kernels each rank's model coordinate
+    computes a slice of."""
     job = _join(rank, world, init_file, job_file)
     try:
         seen = {"results": {}, "ranges": {}}
@@ -101,25 +106,184 @@ def serve(rank: int, world: int, init_file: str, job_file: str,
                 name: channel_range(
                     pred.net.get_parameter(name).shape[0], mesh)
                 for name in marked}
+        # what the axes used to refuse: int8 and the patches stem serve on
+        # tp2*sp2, against the same Predictor's own program; a train-mode
+        # forward under Int8Act refuses, as in JAX
         tp = make_mesh(1, 2, 2, device_type="cpu")
-        quantized = Predictor(
-            build_network(job["model"], spec.in_hw, spec.nanchors,
-                          spec.class_num, alpha=job["alpha"]),
-            None, spec, quantize="int8", device="cpu")
-        seen["quantize_error"] = _raised(
-            lambda: quantized.make_sharded_runner(tp), NotImplementedError)
-        patches = Predictor(
-            build_network(job["model"], spec.in_hw, spec.nanchors,
-                          spec.class_num, alpha=job["alpha"]),
-            None, spec, stem_mode="patches", device="cpu")
-        seen["patches_error"] = _raised(
-            lambda: patches.make_sharded_runner(tp), NotImplementedError)
+        seen["served_on_tpsp"] = {}
+        for quantize, stem_mode in (("int8", "default"), (None, "patches")):
+            pred = quantized_predictor(job, quantize, stem_mode)
+            got = pred.make_sharded_runner(tp)(job["canvases"], job["hws"])
+            want = pred._run_batch(torch.from_numpy(job["canvases"]),
+                                   torch.from_numpy(job["hws"]))
+            seen["served_on_tpsp"][quantize or stem_mode] = (
+                [t.numpy() for t in got], [t.numpy() for t in want])
+        net = build_network(job["model"], spec.in_hw, spec.nanchors,
+                            spec.class_num, alpha=job["alpha"]).train()
+        seen["train_int8_error"] = _raised(
+            lambda: net(torch.zeros(1, *spec.in_hw, 3),
+                        dtype=Int8Act(torch.float32),
+                        shard=ShardContext(tp)), NotImplementedError)
+        Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---- quantized serving and the patches stem ------------------------------
+
+# the int8 conv kinds held bit for bit, (cin, kernel, strides, pads): 1x1,
+# 3x3 SAME (zp read past every edge) and the 3x3 stride-2 stem of three
+# input channels padded by 1, int8 as in the nativeconv stem mode
+INT8_CONVS = {"1x1": (128, (1, 1), (1, 1), ((0, 0), (0, 0))),
+              "3x3": (128, (3, 3), (1, 1), ((1, 1), (1, 1))),
+              "stem": (3, (3, 3), (2, 2), ((1, 1), (1, 1)))}
+INT8_ACTS = {"affine": Int8Act(torch.float32),
+             "symmetric": Int8Act(torch.float32, affine=False),
+             "static": Int8Act(torch.float32, static=True)}
+# the served configurations: (quantize, stem_mode)
+QUANTIZED = {"int8": ("int8", "default"),
+             "int8_act": ("int8_act", "default"),
+             "int8_act_sym": ("int8_act_sym", "default"),
+             "int8_act_cal": ("int8_act_cal", "default"),
+             "patches": (None, "patches"),
+             "patches_int8": ("int8", "patches"),
+             "nativeconv_int8_act": ("int8_act", "nativeconv")}
+
+
+def int8_conv(job, kind: str) -> Conv:
+    """The job's conv of ``kind`` (``INT8_CONVS``), int8-capable, its
+    weights ``job['conv_w'][kind]`` and calibrated range
+    ``job['conv_static'][kind]``."""
+    cin, kernel, strides, pads = INT8_CONVS[kind]
+    w = torch.from_numpy(job["conv_w"][kind])
+    conv = Conv(cin, w.shape[0], kernel, strides, pads).requires_grad_(False)
+    conv.weight.copy_(w)
+    conv.int8_capable = conv.int8_rule("nativeconv")
+    for buf, v in zip(conv.act_ranges("cpu"), job["conv_static"][kind]):
+        buf.fill_(float(v))
+    return conv
+
+
+def _sharded_int8_convs(job, mesh) -> dict:
+    """Each ``INT8_CONVS`` kind in each ``INT8_ACTS`` mode on this rank's
+    part of ``job['conv_x'][kind]`` (its slots; the 128-channel inputs as
+    their model rank's channel slice and space rank's rows, the stem's
+    whole, as an image comes), gathered whole; and again with each range
+    taken over the rank's own part alone (the group patched away)."""
+    ctx = ShardContext(mesh)
+
+    def whole(y: Sharded) -> np.ndarray:
+        t = y.full()
+        return TW._np(gather(t, ctx.data_group, 0) if ctx.data_group
+                      else t)
+
+    out = {}
+    for kind in INT8_CONVS:
+        x = torch.from_numpy(job["conv_x"][kind])[slice(*slot_range(
+            len(job["conv_x"][kind]), mesh))]
+        image = kind == "stem"
+        rows, channels = not image and ctx.sp > 1, not image and ctx.mp > 1
+        if channels:
+            x = x[:, slice(*ctx.channel_range(x.shape[1]))]
+        if rows:
+            x = x[:, :, slice(*row_range(x.shape[2], mesh))]
+        conv = int8_conv(job, kind)
+        for mode, act in INT8_ACTS.items():
+            with torch.no_grad():
+                y = conv.forward_int8(Sharded(x, ctx, rows, channels), act)
+                with mock.patch.object(ShardContext, "batch_group",
+                                       lambda self, rows: None):
+                    own = whole(conv.forward_int8(
+                        Sharded(x, ctx, rows, channels), act))
+            out[(kind, mode)] = dict(y=whole(y), own=own,
+                                     layout=(y.rows, y.channels))
+    return out
+
+
+def quantized_predictor(job, quantize, stem_mode) -> Predictor:
+    """``torch_parallel_worker._predictor`` in ``quantize`` and
+    ``stem_mode``."""
+    return SW._predictor(dict(job, predictor={
+        **job["predictor"], "quantize": quantize, "stem_mode": stem_mode}))
+
+
+def act_ranges_of(pred: Predictor) -> dict:
+    """Each int8 conv's calibrated (act_min, act_max), by scope."""
+    return {m.scope: (float(m.act_min), float(m.act_max))
+            for m in pred.net.modules() if hasattr(m, "act_min")}
+
+
+def recorded(fn) -> tuple:
+    """``fn()``'s result; each ``Conv.int8_range`` it took (scope, xmin,
+    xmax), in call order; and the ``all_reduce`` calls it made."""
+    ranges, reduces = [], [0]
+    int8_range, all_reduce = Conv.int8_range, dist.all_reduce
+
+    def record(self, xf, act, group=None):
+        r = int8_range(self, xf, act, group)
+        ranges.append((self.scope, float(r[0]), float(r[1])))
+        return r
+
+    def count(*args, **kwargs):
+        reduces[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    with mock.patch.object(Conv, "int8_range", record), \
+            mock.patch.object(dist, "all_reduce", count):
+        out = fn()
+    return out, ranges, reduces[0]
+
+
+def quantized(rank: int, world: int, init_file: str, job_file: str,
+              out_dir: str) -> None:
+    """On each mesh of ``job['meshes']``: the int8 convs alone
+    (``_sharded_int8_convs``), and each ``QUANTIZED`` configuration served
+    through ``make_sharded_runner`` (its result, the ranges each int8 conv
+    took and the all-reduces of one call; in ``int8_act_cal`` world rank 0
+    calibrates on ``job['calib']``, ranks 1-2 on ``job['calib_other']``,
+    rank 3 not at all, and each rank's ranges before and after the runner
+    is made are kept).  Then ``int8_act`` on the pure data-parallel mesh
+    of the four ranks: its result and ranges."""
+    job = _join(rank, world, init_file, job_file)
+    try:
+        seen = {"convs": {}, "served": {}}
+        for dims in job["meshes"]:
+            mesh = make_mesh(*dims, device_type="cpu")
+            name = _mesh_name(dims)
+            seen["convs"][name] = _sharded_int8_convs(job, mesh)
+            for cfg, (quantize, stem_mode) in QUANTIZED.items():
+                pred = quantized_predictor(job, quantize, stem_mode)
+                rec = {}
+                if quantize == "int8_act_cal":
+                    calib = job["calib"] if rank == 0 else job["calib_other"]
+                    if rank < 3:
+                        pred.calibrate(*calib)
+                    rec["own_ranges"] = act_ranges_of(pred)
+                runner = pred.make_sharded_runner(mesh)
+                rec["served_ranges"] = act_ranges_of(pred)
+                res, rec["ranges"], rec["all_reduces"] = recorded(
+                    lambda: runner(job["canvases"], job["hws"]))
+                rec["result"] = [t.numpy() for t in res]
+                seen["served"][(name, cfg)] = rec
+        dp = make_mesh(world, 1, 1, device_type="cpu")
+        runner = quantized_predictor(job, "int8_act", "default") \
+            .make_sharded_runner(dp)
+        res, ranges, _ = recorded(lambda: runner(job["canvases"],
+                                                 job["hws"]))
+        seen["dp"] = dict(result=[t.numpy() for t in res], ranges=ranges)
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()
 
 
 # ---- training ------------------------------------------------------------
+
+def stem_patches(images: torch.Tensor) -> torch.Tensor:
+    """NHWC images [B, H, W, C] -> the 3x3 stride-2 stem's zero-padded
+    patches [B, H / 2, 3, W / 2, 3, C] (``stem_mode='patches'``'s input)."""
+    xp = torch.nn.functional.pad(images, (0, 0, 1, 1, 1, 1))
+    return xp.unfold(1, 3, 2).unfold(2, 3, 2).permute(0, 1, 4, 2, 5, 3)
+
 
 def _halo_and_gather(job, mesh, device="cpu") -> dict:
     """The collectives alone on (1, 2, 2): this rank's rows with their halo,
@@ -212,8 +376,9 @@ def train(rank: int, world: int, init_file: str, job_file: str,
           out_dir: str) -> None:
     """``make_train_step`` on each mesh; the collectives alone; the
     BatchNorm group rule; the ranges; ``fit``'s state and a stop raised on
-    a model or space rank; what the axes still refuse (the patches stem),
-    and the recalibration on dp2*sp2, which no longer refuses."""
+    a model or space rank; on tp2*sp2 the train-mode forward of the patches
+    stem and the refusal of a train-mode one under Int8Act; and the
+    recalibration on dp2*sp2."""
     job = _join(rank, world, init_file, job_file)
     try:
         seen = {"plain": {}}
@@ -230,9 +395,15 @@ def train(rank: int, world: int, init_file: str, job_file: str,
         spec = TW._spec(job)
         patches = TW._net(job, spec)
         patches.stem_mode = "patches"
-        seen["patches_error"] = _raised(
-            lambda: patches(torch.zeros(1, *spec.in_hw, 3),
-                            shard=ShardContext(tpsp)), NotImplementedError)
+        with torch.no_grad():
+            seen["patches_heads"] = [TW._np(h) for h in patches(
+                stem_patches(torch.from_numpy(job["images"])),
+                shard=ShardContext(tpsp))]
+        seen["train_int8_error"] = _raised(
+            lambda: TW._net(job, spec)(torch.zeros(1, *spec.in_hw, 3),
+                                       dtype=Int8Act(torch.float32),
+                                       shard=ShardContext(tpsp)),
+            NotImplementedError)
         seen["recalibrated"] = _recalibrated(
             dict(job, recal_hosts=[job["host"]]), dpsp)
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
@@ -456,7 +627,8 @@ def _recalibrated(job, mesh) -> dict:
 def builder(rank: int, world: int, init_file: str, job_file: str,
             out_dir: str) -> None:
     """The job's builder on each mesh: served through
-    ``make_sharded_runner``, then trained (``_held_steps``, against the
+    ``make_sharded_runner`` in fp32 and in each ``job['quantized']``
+    configuration, then trained (``_held_steps``, against the
     reference files ``job['refs']``, which the test process writes while
     the ranks run); then, as the job asks, the sharded
     pools (``pools``), adds (``adds``) and recalibration (``recalibrate``:
@@ -470,6 +642,11 @@ def builder(rank: int, world: int, init_file: str, job_file: str,
             runner = SW._predictor(job).make_sharded_runner(mesh)
             seen["results"][name] = [
                 t.numpy() for t in runner(job["canvases"], job["hws"])]
+            for cfg in job["quantized"]:
+                runner = quantized_predictor(
+                    job, *QUANTIZED[cfg]).make_sharded_runner(mesh)
+                seen["results"][(name, cfg)] = [
+                    t.numpy() for t in runner(job["canvases"], job["hws"])]
             del runner
         for name, mesh in meshes.items():
             seen["train"][name] = _held_steps(job, mesh, job["refs"])
