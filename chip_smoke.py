@@ -7,8 +7,8 @@ the ``Helper`` facade (phase 17), and the darknet53 yolo at 608x608 with
 the greedy kernels' global path, the stem modes and data-parallel serving
 (phase 18), data-parallel training (phase 19), serving and training on
 the model and space axes (phase 20: yolo_mobilev1; phase 21: the other
-three builders), and quantized and patches serving on those axes (phase
-22).
+three builders), quantized and patches serving on those axes (phase 22),
+and the benchmark program and the entry contracts (phase 23).
 
     python3 chip_smoke.py
 
@@ -233,7 +233,21 @@ Phases (any failure raises and the script exits non-zero):
      holds equal to the single-process Predictor's (the weights stay
      whole), the activation ranges' all-reduces in a call (none in
      ``int8``, ``int8_act_cal`` and the float stems) and the ms of a call
-     (gloo on one card: not a scaling number).
+     (gloo on one card: not a scaling number);
+ 23. the benchmark program ``k210_yolo_framework_tpu_torch.bench`` in this
+     process at its own settings: ``--mode all`` (serve, serve512,
+     serve_int8, serve_scan, loader, train, train_e2e) and the five modes
+     it leaves out (serve_dual, serve_dense, serve_int8act[_sym|_cal]),
+     each line parsed and held to its metric, the card's name, power limit
+     and count; ``serve_scan`` must have run as a captured CUDA graph and
+     ``serve_dense`` must have filled every class list (its own check);
+     the head kernel launched and the rotation kernel once a train_e2e
+     step; ``serve`` printed beside phase 5's imgs/s, ``train`` and
+     ``train_e2e`` beside phase 9's step and fused step.  Then
+     ``entry.entry()`` on the card against the same forward on the CPU
+     (fp32, rtol and atol 1e-5, on the contract's zeros and on uniform
+     images) and ``entry.dryrun_multichip`` on the card: 8 ranks (gloo
+     processes sharing the card) and 1 (NCCL).
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -740,7 +754,7 @@ def ptxas_lines(log: str, kernel: str) -> list:
 def train_phases(device, tag, ann, rot_log):
     """Phases 7-9 on the synthetic JPEGs of ``ann``; ``rot_log`` is the
     rotation kernel's build log.  Returns the rotation kernel's JSON
-    fields."""
+    fields, and phase 9's train step and fused step ms."""
     import copy
 
     import torch
@@ -913,8 +927,8 @@ def train_phases(device, tag, ann, rot_log):
             print(f"  {ms:8.3f} ms  x{count:<4g} {name[:100]}")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {tag}")
-    return {"launches": rot_launches, "max_abs_err": rot_err,
-            **rot["bfloat16"], "library_ms": None}
+    return ({"launches": rot_launches, "max_abs_err": rot_err,
+             **rot["bfloat16"], "library_ms": None}, step_ms, fused_ms)
 
 # ---- bounds: the least time the card could take for a kernel's work -------
 # NVIDIA's H100 SXM data sheet, at its 700 W limit (the card's own limit is
@@ -3550,15 +3564,14 @@ def tpsp_rank(rank, world, init_file, dims, ann, out_dir):
     import torch
     import torch.distributed as dist
 
+    from k210_yolo_framework_tpu_torch.parallel import init_world
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     # the plain step and its control repeat exactly (as in phase 19)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    torch.cuda.set_device(0)
-    torch.zeros(1, device="cuda")
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
+    init_world("cuda", f"file://{init_file}", rank, world, backend="gloo")
     try:
         seen = tpsp_work(dims, ann)
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
@@ -3972,9 +3985,9 @@ def tpsp_phase(tag, ann):
     import pickle
 
     import torch
-    import torch.multiprocessing as mp
 
     from k210_yolo_framework_tpu_torch.cli import keras_train as KT
+    from k210_yolo_framework_tpu_torch.parallel import spawn_ranks
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3983,8 +3996,8 @@ def tpsp_phase(tag, ann):
         world = dims[0] * dims[1] * dims[2]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
-            mp.spawn(tpsp_rank, args=(world, f"{tmp}/init", dims, ann, tmp),
-                     nprocs=world)
+            spawn_ranks(tpsp_rank, world,
+                        (world, f"{tmp}/init", dims, ann, tmp))
             ranks = [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
                      for r in range(world)]
         name = tpsp_name(dims)
@@ -4017,6 +4030,152 @@ def tpsp_phase(tag, ann):
         raise AssertionError("keras_train --mesh 1,2 did not refuse one card")
     print(f"phases 20-22: wall seconds {time.perf_counter() - t_phase:.1f}")
     return head, head_global, rot
+
+
+# ---- 23. the benchmark program and the entry contracts -----------------------
+# every mode of ``python -m k210_yolo_framework_tpu_torch.bench`` once: "all"
+# (7 lines) and the five modes "all" leaves out, in process at the module's
+# settings
+BENCH_RUNS = ("all", "serve_dual", "serve_dense", "serve_int8act",
+              "serve_int8act_sym", "serve_int8act_cal")
+BENCH_ALL = ("e2e_infer_imgs_per_sec_per_chip",
+             "e2e_infer_512canvas_imgs_per_sec_per_chip",
+             "e2e_infer_int8w_imgs_per_sec_per_chip",
+             "device_roofline_infer_imgs_per_sec_per_chip",
+             "loader_e2e_imgs_per_sec_per_chip",
+             "train_imgs_per_sec_per_chip",
+             "train_e2e_imgs_per_sec_per_chip")
+ENTRY_TOL = dict(rtol=1e-5, atol=1e-5)   # test_forward_matches_jax_fp32's
+
+
+def bench_lines(argv) -> list:
+    """``bench.main(argv)`` in this process: the JSON lines it printed,
+    each parsed, beside what it returned."""
+    import contextlib
+    import io
+
+    from k210_yolo_framework_tpu_torch import bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        lines = bench.main(argv)
+    printed = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    if printed != lines:
+        raise AssertionError(f"bench {argv}: printed {printed}, returned "
+                             f"{lines}")
+    return printed
+
+
+def bench_entry_phase(device, tag, serve_ips, step_ms, fused_ms):
+    """Phase 23: every bench mode (``BENCH_RUNS``) on the card, each line
+    parsed, its keys checked and printed; ``serve`` beside phase 5's imgs/s
+    and ``train`` / ``train_e2e`` beside phase 9's step and fused step;
+    ``entry()`` on the card against the same forward on the CPU (zeros,
+    the contract's input, and uniform images; fp32, ENTRY_TOL); and
+    ``dryrun_multichip`` on the card: 8 ranks (gloo processes sharing the
+    one card) and 1 (NCCL).  Returns the head and rotation kernels'
+    launches that ran eagerly (the ``serve_scan`` graph's are printed
+    apart)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch import bench
+    from k210_yolo_framework_tpu_torch import entry as TE
+    from k210_yolo_framework_tpu_torch.ops import rotate_pallas as TR
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    TH.fused_decode_nms.launches = 0
+    TR.rotate_3shear.launches = 0
+    lines = {}
+    for mode in BENCH_RUNS:
+        t0 = time.perf_counter()
+        got = bench_lines(["--mode", mode])
+        metrics = [line["metric"] for line in got]
+        if len(got) != (len(BENCH_ALL) if mode == "all" else 1) or (
+                mode == "all" and metrics != list(BENCH_ALL)):
+            raise AssertionError(f"bench --mode {mode}: {metrics}")
+        for line in got:
+            dev = line["device"]
+            if dev["name"] != name \
+                    or dev["count"] != torch.cuda.device_count() \
+                    or not (dev["power_limit_w"] or 0) > 0 \
+                    or not np.isfinite(line["value"]) or line["value"] <= 0:
+                raise AssertionError(f"bench --mode {mode}: {line}")
+            lines[line["metric"]] = line
+            print(f"bench {mode}: {json.dumps(line)}")
+        print(f"bench {mode}: wall seconds {time.perf_counter() - t0:.1f}")
+    head, rot = TH.fused_decode_nms.launches, TR.rotate_3shear.launches
+    scan = lines["device_roofline_infer_imgs_per_sec_per_chip"]
+    print(f"bench: head kernel launches {head} eager (the serve_scan "
+          f"graph's {scan['graph_replays']} replays launched it "
+          f"{scan['graph_replays'] * scan['scan_k']} times more, outside the "
+          f"wrapper's count), rotation kernel launches {rot}")
+    # train_e2e: one launch a step, its warm-up and its timed steps
+    if head == 0 or rot != 1 + bench.ROUNDS * bench.TRAIN_ITERS:
+        raise AssertionError(f"bench: head {head}, rotation {rot} launches")
+    dense = lines["e2e_infer_dense_scene_imgs_per_sec_per_chip"]
+    if not scan["cuda_graph"] or scan["graph_replays"] \
+            != 1 + bench.ROUNDS * bench.SCAN_ITERS \
+            or not dense.get("dense_scene"):
+        raise AssertionError(f"bench: serve_scan {scan}, dense {dense}")
+    serve = lines["e2e_infer_imgs_per_sec_per_chip"]
+    train = lines["train_imgs_per_sec_per_chip"]
+    e2e = lines["train_e2e_imgs_per_sec_per_chip"]
+    print(f"bench serve {serve['value']} imgs/s beside phase 5's "
+          f"{serve_ips:.1f} ({serve['value'] / serve_ips:.3f}x); "
+          f"serve_scan {scan['value']} ({scan['value'] / serve['value']:.3f}x "
+          f"serve); all rounds {serve['window_value']} / "
+          f"{scan['window_value']}; b128 device {serve['batch_device_ms']} "
+          f"ms, b1 {serve['single_frame_device_ms']} ms by events {tag}")
+    print(f"bench train {train['ms_per_step']} ms a step beside phase 9's "
+          f"step {step_ms:.3f} ms ({train['ms_per_step'] / step_ms:.3f}x), "
+          f"{train['model_tflops_per_sec']} TFLOP/s of convs, MFU "
+          f"{train['mfu_vs_h100_989tflops']}; train_e2e "
+          f"{e2e['ms_per_step']} ms beside phase 9's fused step "
+          f"{fused_ms:.3f} ms ({e2e['ms_per_step'] / fused_ms:.3f}x) {tag}")
+
+    # entry(): the forward on the card against the same one on the CPU
+    forward, (net, images) = TE.entry()
+    cpu_forward, (cpu_net, cpu_images) = TE.entry("cpu")
+    noise = np.random.default_rng(7).uniform(
+        0, 1, tuple(images.shape)).astype(np.float32)
+    worst = 0.0
+    for x, x_cpu in ((images, cpu_images),
+                     (torch.from_numpy(noise).to(device),
+                      torch.from_numpy(noise))):
+        with torch.no_grad():
+            got = [t.cpu() for t in forward(net, x)]
+            want = cpu_forward(cpu_net, x_cpu)
+        for g, w in zip(got, want, strict=True):
+            worst = max(worst, float((g - w).abs().max()))
+            if not torch.allclose(g, w, **ENTRY_TOL):
+                raise AssertionError(f"entry(): card against CPU, max abs "
+                                     f"{float((g - w).abs().max()):.3g}")
+    print(f"entry(): {len(got)} head outputs {[tuple(t.shape) for t in got]}"
+          f", card against CPU max abs {worst:.3g} (fp32, zeros and uniform "
+          f"images) {tag}")
+    # the virtual mesh (8 ranks, gloo over CUDA tensors, sharing the card)
+    # and the NCCL world (one rank a card)
+    cards = torch.cuda.device_count()
+    for n, on in ((8, f"8 gloo processes sharing {cards} {name}"),
+                  (1, f"1 NCCL ranks on {name}")):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            TE.dryrun_multichip(n)
+        said = out.getvalue().strip()
+        print(f"{said}; wall seconds {time.perf_counter() - t0:.1f}")
+        if not said.startswith(f"dryrun_multichip({n}) OK") \
+                or not said.endswith(on):
+            raise AssertionError(f"dryrun_multichip({n}): {said!r}")
+    print(f"phase 23: wall seconds {time.perf_counter() - t_phase:.1f}")
+    return head, rot
 
 
 def main() -> int:
@@ -4269,7 +4428,8 @@ def run(device) -> int:
         ann = synthetic_ann_list(tmp, n=256, class_num=spec.class_num)
         print(f"data: {len(ann)} synthetic JPEGs written in "
               f"{time.perf_counter() - t0:.1f} s")
-        rot = train_phases(device, tag, ann, built["rotate3shear"][1])
+        rot, step_ms, fused_ms = train_phases(device, tag, ann,
+                                              built["rotate3shear"][1])
         # ---- 10. NMS alone: kernel against its plain version -----------
         nms_err = nms_kernel_phase(spec, spec3, device)
         # ---- 11. the two-stage head on the serving scenes --------------
@@ -4303,6 +4463,9 @@ def run(device) -> int:
         p19_rot = mesh_training(device, tag, ann)
         # ---- 20-22. the model and space axes, every builder and mode -------
         tpsp_head, tpsp_head_global, tpsp_rot = tpsp_phase(tag, ann)
+        # ---- 23. the benchmark program and the entry contracts -----------
+        p23_head, p23_rot = bench_entry_phase(
+            device, tag, BATCH * 1e3 / serve_ms, step_ms, fused_ms)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
@@ -4310,7 +4473,7 @@ def run(device) -> int:
         "route": "cuda",
         "source": "k210_yolo_framework_tpu_torch/csrc/yolo_head.cu",
         "replaces": "k210_yolo_framework_tpu/ops/yolo_head_pallas.py:140",
-        "launches": launches + q_launches + p18_head + tpsp_head,
+        "launches": launches + q_launches + p18_head + tpsp_head + p23_head,
         "global_launches": p18_head_global + tpsp_head_global,
         "max_abs_err": max(max_err, slice_err),
         "ms": k_ms,
@@ -4326,7 +4489,7 @@ def run(device) -> int:
         "source": "k210_yolo_framework_tpu_torch/csrc/rotate3shear.cu",
         "replaces": "k210_yolo_framework_tpu/ops/rotate_pallas.py:113",
         **rot,
-        "launches": rot["launches"] + q_rot + p19_rot + tpsp_rot,
+        "launches": rot["launches"] + q_rot + p19_rot + tpsp_rot + p23_rot,
     }, {
         "name": "nms_select",
         "route": "cuda",

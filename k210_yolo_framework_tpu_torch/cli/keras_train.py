@@ -96,9 +96,9 @@ def main(args) -> Path:
         if world == 1:
             _rank_main(0, 1, *spawn)
         else:
-            import torch.multiprocessing as mp
+            from k210_yolo_framework_tpu_torch.parallel import spawn_ranks
 
-            mp.spawn(_rank_main, args=(world, *spawn), nprocs=world)
+            spawn_ranks(_rank_main, world, (world, *spawn))
     return run_dir
 
 

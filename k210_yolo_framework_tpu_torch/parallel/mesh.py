@@ -22,7 +22,8 @@ slots ``[r * B / dp, (r + 1) * B / dp)`` (:func:`slot_range`), and what
 GSPMD reduces over the whole batch is summed over the data axis here
 (:func:`sum_over_data`; gloo has no average, so a mean is a sum divided by
 dp).  :func:`init_world` joins a process group the way the entry points
-do: from torchrun's environment, or from an explicit ``file://`` URL.
+do: from torchrun's environment, or from an explicit ``file://`` URL;
+:func:`spawn_ranks` starts a world's processes and waits for them.
 
 The model and space axes (``parallel/sharded.py``): rank m of ``model``
 computes output channels :func:`channel_range` of each kernel
@@ -36,7 +37,8 @@ the data group after they are gathered; state and gradients over
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional, Tuple
+import time
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -48,8 +50,8 @@ __all__ = ["DATA_AXIS", "MODEL_AXIS", "SPACE_AXIS", "axis_size",
            "host_group", "image_sharding", "init_world", "make_mesh",
            "mean_over_data", "model_group", "model_rank", "param_shardings",
            "pixel_group", "replicated", "row_range", "shards_channels",
-           "slot_range", "space_group", "space_rank", "sum_over_data",
-           "world_group"]
+           "slot_range", "space_group", "space_rank", "spawn_ranks",
+           "sum_over_data", "world_group"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -232,7 +234,8 @@ def host_group(mesh: DeviceMesh) -> Tuple[dist.ProcessGroup, bool]:
 
 
 def init_world(device, init_method: Optional[str] = None, rank: int = 0,
-               world_size: int = 1) -> torch.device:
+               world_size: int = 1,
+               backend: Optional[str] = None) -> torch.device:
     """Join the process group and return this rank's device.  Under
     torchrun (``RANK`` and ``WORLD_SIZE`` set) the group comes from its
     environment (``MASTER_ADDR`` / ``MASTER_PORT``, ``env://``) and the
@@ -240,7 +243,9 @@ def init_world(device, init_method: Optional[str] = None, rank: int = 0,
     ``file://`` URL every rank is given) with ``rank`` and ``world_size``,
     the device index being the rank.  A CUDA ``device`` joins over NCCL
     (and raises where there is none: nothing falls back to gloo or to the
-    CPU), ``"cpu"`` over gloo."""
+    CPU), ``"cpu"`` over gloo.  ``backend="gloo"`` with a CUDA ``device``
+    asks for gloo over CUDA tensors instead: more ranks than cards, rank r
+    on card ``r % device_count`` (NCCL refuses two ranks on one card)."""
     device = torch.device(device)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank = int(os.environ["RANK"])
@@ -252,16 +257,24 @@ def init_world(device, init_method: Optional[str] = None, rank: int = 0,
                          "file:// URL), rank and world_size")
     else:
         local = rank
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"init_world: backend {backend!r} is neither nccl "
+                         "nor gloo")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("init_world: no CUDA device is available")
-        if not dist.is_nccl_available():
+        backend = backend or "nccl"
+        if backend == "nccl" and not dist.is_nccl_available():
             raise RuntimeError("init_world: this torch has no NCCL; a CUDA "
                                "mesh does not fall back to gloo")
+        if backend == "gloo":
+            local %= torch.cuda.device_count()
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
-        backend = "nccl"
+        torch.zeros(1, device=device)     # the context before the group
     elif device.type == "cpu":
+        if backend == "nccl":
+            raise ValueError("init_world: NCCL needs a CUDA device")
         backend = "gloo"
     else:
         raise ValueError(f"init_world: device {str(device)!r} is neither "
@@ -271,3 +284,30 @@ def init_world(device, init_method: Optional[str] = None, rank: int = 0,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size, **bound)
     return device
+
+
+def spawn_ranks(target: Callable, world: int, args: tuple = (),
+                timeout: Optional[float] = None,
+                meanwhile: Optional[Callable[[], None]] = None) -> None:
+    """Run ``target(rank, *args)`` in ``world`` spawned processes and wait
+    for all of them; each joins its world itself (:func:`init_world`).
+    ``meanwhile()``, where given, runs here while the ranks do.  Raises,
+    and ends the ranks still running, if a rank fails, ``meanwhile``
+    raises or the ranks have not finished in ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(target, args=args, nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        while not ctx.join(timeout=1.0):      # raises if a rank failed
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"the world of {world} ranks did not "
+                                   f"finish in {timeout} s")
+    except BaseException:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+        raise

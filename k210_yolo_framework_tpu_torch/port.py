@@ -308,7 +308,8 @@ def save_reference_h5(h5_path: str, flat: Mapping[str, np.ndarray],
 
 
 def port_reference_h5(h5_path: str, model_def: str,
-                      template: Mapping[str, np.ndarray]
+                      template: Mapping[str, np.ndarray],
+                      allow_missing: bool = True
                       ) -> Tuple[Dict[str, np.ndarray], List[str]]:
     """A reference Keras ``.h5`` -> (native flat weights, missing layers).
 
@@ -316,9 +317,10 @@ def port_reference_h5(h5_path: str, model_def: str,
     net) gives the shapes and the values of the layers the file lacks;
     shape mismatches follow the model's policy (exact for the mobilenet
     builders, the first output channels of a wider head for tiny_yolo, the
-    overlap for yolo).  Missing layers (a backbone-only file) keep the
-    template's values; a file holding no layer of the map at all raises
-    ``ValueError``.
+    overlap for yolo).  With ``allow_missing`` (the default) absent layers
+    (a backbone-only file, or a file with none of the map's layers) keep
+    the template's values and are listed in ``missing``; with
+    ``allow_missing=False`` any absent layer raises ``KeyError``.
     """
     import h5py
 
@@ -339,10 +341,8 @@ def port_reference_h5(h5_path: str, model_def: str,
                 if transform is not None:
                     arr = transform(arr)
                 _set_leaf(out, f"{coll}/{module_path}/{leaf}", arr, policy)
-        if len(missing) == len(table):
-            raise ValueError(
-                f"{h5_path}: no layer of the {model_def} reference map "
-                f"(top-level keys {list(f.keys())[:8]})")
+    if missing and not allow_missing:
+        raise KeyError(f"layers missing from {h5_path}: {missing}")
     return out, missing
 
 

@@ -282,7 +282,8 @@ def load_variables(path: str, model_def: str, net: nn.Module
     Keras ``.h5`` (``model_weights`` layout, through
     ``port.port_reference_h5`` for ``model_def``; layers the file lacks stay
     at ``net``'s values and are named) or a :func:`save_state` directory.
-    An orbax directory written by the JAX package raises ``ValueError``."""
+    An orbax directory written by the JAX package, and an ``.h5`` holding
+    no layer of ``model_def``'s reference map, raise ``ValueError``."""
     p = Path(path)
     if p.is_dir():
         sd = OrderedDict(_load_payload(path)["net"])
@@ -295,13 +296,18 @@ def load_variables(path: str, model_def: str, net: nn.Module
 
         with h5py.File(path, "r") as f:
             is_native = "params" in f
+            top_keys = list(f.keys())[:8]
         if is_native:
             return load_h5(path, net)
-        from k210_yolo_framework_tpu_torch.port import port_reference_h5
+        from k210_yolo_framework_tpu_torch.port import _table, port_reference_h5
         from k210_yolo_framework_tpu_torch.utils.console import NOTE
 
         flat, missing = port_reference_h5(
             path, model_def, flat_from_state_dict(net.state_dict()))
+        if len(missing) == len(_table(model_def)):
+            raise ValueError(
+                f"{path}: no layer of the {model_def} reference map "
+                f"(top-level keys {top_keys})")
         if missing:
             print(NOTE, f"ported reference Keras weights from {path} "
                   f"({len(missing)} layers absent, left as they were: "

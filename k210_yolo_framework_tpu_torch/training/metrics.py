@@ -3,10 +3,11 @@
 Counterpart of ``k210_yolo_framework_tpu/training/metrics.py``: TP/FP/FN of
 the confidence channel per output layer, thresholded, accumulated across
 steps; results divide with div_no_nan.  The prediction is thresholded after
-``sigmoid`` of its fp32 cast (the JAX package's default; its
-``compat_logits`` quirk is not ported).  On a data-parallel mesh each
-rank's increments are summed over the data axis, so every rank's counters
-are the global batch's.
+``sigmoid`` of its fp32 cast; ``compat_logits=True`` thresholds the raw
+fp32 logit instead, the reference's quirk (``tools/custom.py:33-69``
+computes the sigmoid and then compares the logits).  On a data-parallel
+mesh each rank's increments are summed over the data axis, so every
+rank's counters are the global batch's.
 """
 
 from __future__ import annotations
@@ -30,12 +31,15 @@ def init_pr_state(n_layers: int = 1, device=None) -> Dict[str, torch.Tensor]:
 def update_pr_state(state: Dict[str, torch.Tensor],
                     y_trues: Sequence[torch.Tensor],
                     y_preds: Sequence[torch.Tensor], thresh: float = 0.7,
+                    compat_logits: bool = False,
                     group=None) -> Dict[str, torch.Tensor]:
     """A new state with one batch's per-layer counts added; with ``group``
     (a data-parallel process group) the counts of every rank's shard."""
     tps, fps, fns = [], [], []
     for yt, yp in zip(y_trues, y_preds):
-        pred_conf = torch.sigmoid(yp[..., 4].to(torch.float32))
+        pred_conf = yp[..., 4].to(torch.float32)
+        if not compat_logits:
+            pred_conf = torch.sigmoid(pred_conf)
         t = yt[..., 4] > thresh
         p = pred_conf > thresh
         tps.append(torch.sum((t & p).to(torch.float32)))

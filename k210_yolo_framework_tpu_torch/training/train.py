@@ -315,7 +315,7 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
 
         state.pr = M.update_pr_state(state.pr, labels,
                                      [o.detach() for o in outs],
-                                     cfg.obj_thresh, group)
+                                     cfg.obj_thresh, group=group)
         p, r = M.pr_results(state.pr)
         main, layer_losses = _mean_losses(main, layer_losses, group)
         logs = {"loss": main, "p": p, "r": r, "lr": lr}
@@ -350,7 +350,8 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
                                                fwd_axes)
         finally:
             net.train(was_training)
-        pr = M.update_pr_state(pr, labels, outs, cfg.obj_thresh, group)
+        pr = M.update_pr_state(pr, labels, outs, cfg.obj_thresh,
+                               group=group)
         loss, layer_losses = _mean_losses(loss, layer_losses, group)
         p, r = M.pr_results(pr)
         logs = {"val_loss": loss, "val_p": p, "val_r": r}

@@ -170,6 +170,38 @@ def test_reference_h5_loads_like_jax(tmp_path, name, alpha):
             np.testing.assert_array_equal(a[n][()], b[n][()], err_msg=n)
 
 
+@pytest.mark.parametrize("kept", ["backbone", "none"])
+def test_port_reference_h5_allow_missing_like_jax(tmp_path, kept):
+    """``tests/test_port.py::test_port_backbone_only`` on both packages: a
+    backbone-only file (the 8 head layers absent) and a file with none of
+    the map's layers.  With the default every absent layer keeps the
+    template's values and is listed, as JAX's are; ``allow_missing=False``
+    raises ``KeyError`` in both."""
+    _, variables, flat = jax_net_and_flat()
+    path = str(tmp_path / "ref.h5")
+    JPort.save_reference_h5(path, variables, "yolo_mobilev1")
+    with h5py.File(path, "a") as f:
+        for layer in [k for k in f if kept == "none" or k.startswith(
+                ("conv2d", "batch_normalization"))]:
+            del f[layer]
+    template = {"params": variables["params"],
+                "batch_stats": variables["batch_stats"]}
+    want, want_missing = JPort.port_reference_h5(path, "yolo_mobilev1",
+                                                 template)
+    got, missing = TPort.port_reference_h5(path, "yolo_mobilev1", flat)
+    assert missing == want_missing
+    assert len(missing) == (8 if kept == "backbone" else 62)
+    want = _flat_of(want)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for port_reference_h5, tmpl in ((JPort.port_reference_h5, template),
+                                    (TPort.port_reference_h5, flat)):
+        with pytest.raises(KeyError, match="layers missing"):
+            port_reference_h5(path, "yolo_mobilev1", tmpl,
+                              allow_missing=False)
+
+
 def test_reference_h5_missing_layers_are_named(tmp_path, capsys):
     """A backbone-only file: the head stays as the net had it."""
     _, variables, flat = jax_net_and_flat()

@@ -194,6 +194,44 @@ def test_predictor_on_card_uses_the_kernel(dev):
            TH.fused_decode_nms_reference(preds, spec, h, 0.2, 0.3, 30), 0.2)
 
 
+def test_run_batch_replays_from_a_cuda_graph_bit_for_bit(dev):
+    """``_run_batch`` (letterbox, bf16 net, the head kernel) captured in a
+    CUDA graph after a warm-up, then replayed on two other batches copied
+    into its input: every result field equals the eager call's bit for
+    bit (what ``bench --mode serve_scan`` replays)."""
+    spec = voc_spec()
+    net = build_network("yolo_mobilev1", spec.in_hw, 3, 20, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    pred = Predictor(net, None, spec, obj_thresh=0.25,
+                     compute_dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(6)
+
+    def batch():
+        c = rng.integers(0, 256, (8, 240, 320, 3)).astype(np.uint8)
+        h = np.stack([rng.integers(60, 241, 8), rng.integers(60, 321, 8)],
+                     -1).astype(np.int32)
+        return torch.from_numpy(c).to(dev), torch.from_numpy(h).to(dev)
+
+    static_c, static_h = batch()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        pred._run_batch(static_c, static_h)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pred._run_batch(static_c, static_h)
+    for _ in range(2):
+        c, h = batch()
+        static_c.copy_(c)
+        static_h.copy_(h)
+        graph.replay()
+        want = pred._run_batch(c, h)
+        assert int(want.valid.sum()) > 0
+        for field, got, ref in zip(want._fields, captured, want):
+            assert torch.equal(got, ref), field
+
+
 # (builder, alpha, spec): yolo_mobilev2 at the Makefile's DEPTHMUL, tiny_yolo,
 # and the darknet53 yolo on three scales
 BUILDERS = [("yolo_mobilev2", 0.75, 2), ("tiny_yolo", 1.0, 2),

@@ -225,7 +225,7 @@ for mod in ("native", "models.mobilenet_v2", "models.darknet", "port",
             "anchors.kmeans", "utils.tboard", "utils.console",
             "training.pruning", "cli.keras_train", "cli.keras_inference",
             "cli.keras_eval", "cli.make_anchor_list", "cli.make_voc_list",
-            "parallel.mesh", "parallel.sharded"):
+            "parallel.mesh", "parallel.sharded", "bench", "entry"):
     assert f"k210_yolo_framework_tpu_torch.{mod}" in names, names
 for name in names:
     importlib.import_module(name)

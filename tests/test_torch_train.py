@@ -270,6 +270,70 @@ def test_layer_loss_ignore_mask_and_metrics_match_jax():
     assert [float(v) for v in TM.pr_results(empty)] == [0.0, 0.0]
 
 
+_jax_update_pr_compat = jax.jit(JM.update_pr_state, static_argnums=4)
+
+
+@pytest.mark.parametrize("compat_logits", [False, True])
+def test_update_pr_state_compat_logits_like_jax(compat_logits):
+    """``tests/test_metrics.py``'s reference quirk: a logit of 0.71 over a
+    threshold of 0.7 is a detection only where the raw logit is
+    thresholded (sigmoid(0.71) ~ 0.67); and on random logits the counters
+    equal JAX's in both modes."""
+    yt = np.zeros((1, 1, 1, 1, 25), np.float32)
+    yp = np.zeros((1, 1, 1, 1, 25), np.float32)
+    yt[..., 4], yp[..., 4] = 1.0, 0.71
+    got = TM.update_pr_state(TM.init_pr_state(), [_t(yt)], [_t(yp)], 0.7,
+                             compat_logits=compat_logits)
+    assert [float(got[k][0]) for k in ("tp", "fn")] == (
+        [1.0, 0.0] if compat_logits else [0.0, 1.0])
+
+    rng = np.random.default_rng(5)
+    _, labels = _batch(1)
+    preds = [rng.normal(0, 1.5, lab.shape).astype(np.float32)
+             for lab in labels]
+    want = _jax_update_pr_compat(JM.init_pr_state(2), labels, preds, 0.5,
+                                 compat_logits)
+    got = TM.update_pr_state(TM.init_pr_state(2), [_t(l) for l in labels],
+                             [_t(p) for p in preds], 0.5, compat_logits)
+    for k in ("tp", "fp", "fn"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+def test_steps_count_pr_on_the_sigmoid_and_pass_their_group(monkeypatch):
+    """The train and eval steps hand ``update_pr_state`` their process group
+    as ``group=`` (in ``compat_logits``'s place it would be a truthy
+    flag on a mesh) and count on the sigmoid: the eval step's counters are
+    ``update_pr_state`` of its own outputs, which the raw logits'
+    (``compat_logits``) are not."""
+    _, _, flat = jax_net_and_flat()
+    calls = []
+    real = TM.update_pr_state
+
+    def spy(*args, **kwargs):
+        calls.append((len(args), kwargs))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(TT.M, "update_pr_state", spy)
+    images, labels = _batch(3)
+    images, labels = _t(images), [_t(l) for l in labels]
+    state = TT.create_train_state(torch_net(flat), CFG, "cpu")
+    state, _ = TT.make_train_step(TSPEC, CFG)(state, images, labels)
+    pr, _ = TT.make_eval_step(TSPEC, CFG)(state.net, TM.init_pr_state(2),
+                                          images, labels)
+    assert calls == [(4, {"group": None})] * 2
+    with torch.no_grad():
+        outs = state.net.eval()(images)
+    thresh = 0.1     # sigmoid(logit) > 0.1 and logit > 0.1 part ways
+    pr, _ = TT.make_eval_step(TSPEC, dataclasses.replace(
+        CFG, obj_thresh=thresh))(state.net, TM.init_pr_state(2), images,
+                                 labels)
+    want = real(TM.init_pr_state(2), labels, outs, thresh)
+    raw = real(TM.init_pr_state(2), labels, outs, thresh, compat_logits=True)
+    for k in ("tp", "fp", "fn"):
+        assert torch.equal(pr[k], want[k]), k
+    assert any(not torch.equal(want[k], raw[k]) for k in ("tp", "fp"))
+
+
 def test_loss_gradient_at_zero_logit_splits_like_jax():
     """At a logit of exactly 0 the BCE's gradient is JAX's: ``max`` splits
     the tie and ``|x|`` has slope 1 (``torch.abs`` alone would give

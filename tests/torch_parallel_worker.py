@@ -1,6 +1,6 @@
 """One rank of a gloo world for ``tests/test_torch_parallel.py``.
 
-Started by ``torch.multiprocessing.spawn`` (``run``); imports torch, numpy
+Started by :func:`spawn_world` (``parallel.spawn_ranks``); imports torch, numpy
 and the port only, never JAX: the children start no JAX.  The job (a
 pickle written by the test) names the weights, the batch, a rank whose
 stem kernel is put off by one before its runner is made, and what to
@@ -10,7 +10,6 @@ check; each rank writes what it saw to ``<out_dir>/rank<r>.pkl``.
 from __future__ import annotations
 
 import pickle
-import time
 from pathlib import Path
 
 import torch
@@ -23,9 +22,11 @@ from k210_yolo_framework_tpu_torch.models import build_network
 from k210_yolo_framework_tpu_torch.parallel import (
     batch_sharding,
     image_sharding,
+    init_world,
     make_mesh,
     param_shardings,
     replicated,
+    spawn_ranks,
 )
 from k210_yolo_framework_tpu_torch.training import checkpoint as TC
 
@@ -50,8 +51,7 @@ def _predictor(job):
 def run(rank: int, world: int, init_file: str, job_file: str,
         out_dir: str) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            world_size=world, rank=rank)
+    init_world("cpu", f"file://{init_file}", rank, world)
     try:
         job = pickle.loads(Path(job_file).read_bytes())
         seen = {}
@@ -108,29 +108,15 @@ def run(rank: int, world: int, init_file: str, job_file: str,
 def spawn_world(world: int, job: dict, tmp: Path,
                 timeout: float = 300.0, target=run, meanwhile=None) -> list:
     """Run ``target`` (default ``run``; any function of the same arguments
-    that writes ``<out_dir>/rank<r>.pkl``) on ``world`` gloo ranks; returns
-    each rank's record.  ``meanwhile()``, where given, runs here while the
-    ranks do.  Raises (and ends the ranks) if ``meanwhile`` raises or the
-    ranks have not finished in ``timeout`` seconds."""
-    import torch.multiprocessing as mp
-
+    that writes ``<out_dir>/rank<r>.pkl``) on ``world`` gloo ranks
+    (``parallel.spawn_ranks``); returns each rank's record.
+    ``meanwhile()``, where given, runs here while the ranks do.  Raises
+    (and ends the ranks) if ``meanwhile`` raises or the ranks have not
+    finished in ``timeout`` seconds."""
     job_file = tmp / "job.pkl"
     job_file.write_bytes(pickle.dumps(job))
-    ctx = mp.spawn(target, args=(world, str(tmp / "init"), str(job_file),
-                                 str(tmp)), nprocs=world, join=False)
-    deadline = time.monotonic() + timeout
-    try:
-        if meanwhile is not None:
-            meanwhile()
-        while not ctx.join(timeout=1.0):      # raises if a rank failed
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"the gloo world of {world} ranks did "
-                                   f"not finish in {timeout} s")
-    except BaseException:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.terminate()
-        raise
+    spawn_ranks(target, world, (world, str(tmp / "init"), str(job_file),
+                                str(tmp)), timeout, meanwhile)
     return [pickle.loads((tmp / f"rank{r}.pkl").read_bytes())
             for r in range(world)]
 

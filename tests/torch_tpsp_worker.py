@@ -670,15 +670,13 @@ def builder(rank: int, world: int, init_file: str, job_file: str,
 def cuda_collectives(rank: int, world: int, init_file: str, job_file: str,
                      out_dir: str) -> None:
     """The halo and the channel gather on CUDA tensors over a gloo world
-    of processes sharing card 0 (NCCL refuses two ranks on one card): the
+    of processes sharing the card (``init_world(backend="gloo")``: NCCL
+    refuses two ranks on one card): the
     forward and the backward of sum(out * g), as ``_halo_and_gather``."""
-    torch.cuda.set_device(0)
-    torch.zeros(1, device="cuda")
+    dev = init_world("cuda", f"file://{init_file}", rank, world,
+                     backend="gloo")
     job = pickle.loads(Path(job_file).read_bytes())
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
     try:
-        dev = torch.device("cuda", 0)
         mesh = make_mesh(1, world // 2, 2, device_type="cuda")
         seen = _halo_and_gather(job, mesh, dev)
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
@@ -689,15 +687,13 @@ def cuda_collectives(rank: int, world: int, init_file: str, job_file: str,
 def cuda_pools(rank: int, world: int, init_file: str, job_file: str,
                out_dir: str) -> None:
     """``_pools`` on CUDA tensors over a gloo world of four processes
-    sharing card 0, on (1, 2, 2)."""
-    torch.cuda.set_device(0)
-    torch.zeros(1, device="cuda")
+    sharing the card, on (1, 2, 2)."""
+    dev = init_world("cuda", f"file://{init_file}", rank, world,
+                     backend="gloo")
     job = pickle.loads(Path(job_file).read_bytes())
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
     try:
         mesh = make_mesh(1, 2, 2, device_type="cuda")
-        seen = {"pools": _pools(job, mesh, torch.device("cuda", 0))}
+        seen = {"pools": _pools(job, mesh, dev)}
         Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(seen))
     finally:
         dist.destroy_process_group()
