@@ -29,6 +29,7 @@ from k210_yolo_framework_tpu_torch.data.annotations import read_image
 from k210_yolo_framework_tpu_torch.ops import augment as A
 from k210_yolo_framework_tpu_torch.ops import codec as C
 from k210_yolo_framework_tpu_torch.ops import letterbox as LB
+from k210_yolo_framework_tpu_torch.utils.trace import span
 
 __all__ = ["CANVAS_HW", "HostBatch", "stage_image", "make_preprocess_fn",
            "DataPipeline", "synthetic_ann_list"]
@@ -92,7 +93,10 @@ def make_preprocess_fn(spec: YoloSpec, is_training: bool,
     ``slots``, so every rank's generator stays in step), and only the
     slots' source images (``augment.slot_draws``) are copied to
     ``device``, letterboxed and augmented with the slots' draws; without
-    augment the sources are the contiguous rows ``[lo, hi)``."""
+    augment the sources are the contiguous rows ``[lo, hi)``.  Its stages
+    are spans (``utils.trace``): ``preprocess.letterbox``,
+    ``preprocess.augment``, ``preprocess.normalize``,
+    ``preprocess.encode``."""
     dtype = dtype or torch.float32
 
     def rank_share(batch, generator, params, slots, device):
@@ -116,15 +120,19 @@ def make_preprocess_fn(spec: YoloSpec, is_training: bool,
             (canvases, img_hws, boxes, valid), params = rank_share(
                 (canvases, img_hws, boxes, valid), generator, params, slots,
                 device)
-        imgs = LB.letterbox_image(canvases, img_hws, spec.in_hw, dtype)
-        boxes = LB.letterbox_boxes(boxes.to(torch.float32), img_hws,
-                                   spec.in_hw)
+        with span("preprocess.letterbox"):
+            imgs = LB.letterbox_image(canvases, img_hws, spec.in_hw, dtype)
+            boxes = LB.letterbox_boxes(boxes.to(torch.float32), img_hws,
+                                       spec.in_hw)
         if is_training:
-            imgs, boxes, valid = A.augment_batch(imgs, boxes, valid,
-                                                 generator=generator,
-                                                 params=params)
-        return (LB.normalize_images(imgs),
-                tuple(C.encode_labels_batch(boxes, valid, spec)))
+            with span("preprocess.augment"):
+                imgs, boxes, valid = A.augment_batch(imgs, boxes, valid,
+                                                     generator=generator,
+                                                     params=params)
+        with span("preprocess.normalize"):
+            imgs = LB.normalize_images(imgs)
+        with span("preprocess.encode"):
+            return imgs, tuple(C.encode_labels_batch(boxes, valid, spec))
 
     return preprocess
 

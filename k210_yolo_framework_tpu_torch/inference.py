@@ -28,6 +28,12 @@ stem conv's im2col patches instead of the canvas
 stem mode: a data shard a data rank, and on a mesh with a model or space
 axis each rank's channels and rows of the forward
 (``parallel/sharded.py``).
+
+Each stage of a serving call is a ``utils.trace.span``, a
+``torch.profiler`` range while a profiler records and nothing otherwise:
+``serve.batch`` over ``serve.h2d``, ``serve.letterbox``, ``serve.net``,
+``serve.head``, ``serve.d2h`` and ``serve.detections`` (the sharded
+runner: ``serve.batch`` over ``serve.h2d`` and the three between).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from k210_yolo_framework_tpu_torch.ops import letterbox as LB
 from k210_yolo_framework_tpu_torch.ops.nms import NmsResult
 from k210_yolo_framework_tpu_torch.ops.yolo_head_pallas import fused_decode_nms
 from k210_yolo_framework_tpu_torch.quantize import QTensor, quantize_state
+from k210_yolo_framework_tpu_torch.utils.trace import span
 
 __all__ = ["Detections", "Predictor", "QUANTIZE_MODES", "VOC_LABELS",
            "draw_detections", "folded_logits", "net_call",
@@ -120,12 +127,13 @@ def stem_input(canvases_u8: torch.Tensor, img_hws: torch.Tensor,
     im2col patches [B, Ho, 3, Wo, 3, 3] (the stems that take patches are
     3x3, stride 2, padded by 1).  Either is exact as uint8: the values are
     truncated integers.  ``dtype`` is that of the resample products."""
-    if stem_mode == "patches":
-        out = LB.letterbox_stem_patches(canvases_u8, img_hws, in_hw,
-                                        dtype=dtype)
-    else:
-        out = LB.letterbox_image(canvases_u8, img_hws, in_hw, dtype)
-    return out.to(torch.uint8)
+    with span("serve.letterbox"):
+        if stem_mode == "patches":
+            out = LB.letterbox_stem_patches(canvases_u8, img_hws, in_hw,
+                                            dtype=dtype)
+        else:
+            out = LB.letterbox_image(canvases_u8, img_hws, in_hw, dtype)
+        return out.to(torch.uint8)
 
 
 def folded_logits(net: YoloNet, weights: Mapping[str, torch.Tensor],
@@ -136,11 +144,13 @@ def folded_logits(net: YoloNet, weights: Mapping[str, torch.Tensor],
     fp32 head logits, each image's 1/max folded in after the stem conv
     (``dtype``: the net's compute dtype or an ``Int8Act``; ``forward``:
     the net's other keywords, ``shard``)."""
-    inv_scale = 1.0 / torch.clamp_min(torch.amax(
-        imgs_u8, dim=tuple(range(1, imgs_u8.ndim))).to(torch.float32), 1e-12)
-    preds = net_call(net, weights, imgs_u8, input_scale=inv_scale,
-                     dtype=dtype, **forward)
-    return [p.to(torch.float32) for p in preds]
+    with span("serve.net"):
+        inv_scale = 1.0 / torch.clamp_min(torch.amax(
+            imgs_u8, dim=tuple(range(1, imgs_u8.ndim))).to(torch.float32),
+            1e-12)
+        preds = net_call(net, weights, imgs_u8, input_scale=inv_scale,
+                         dtype=dtype, **forward)
+        return [p.to(torch.float32) for p in preds]
 
 
 class Predictor:
@@ -309,9 +319,10 @@ class Predictor:
 
     def _head(self, preds: List[torch.Tensor],
               img_hws: torch.Tensor) -> NmsResult:
-        return fused_decode_nms(preds, self.spec, img_hws, self.obj_thresh,
-                                self.iou_thresh, self.max_out,
-                                self.class_softmax)
+        with span("serve.head"):
+            return fused_decode_nms(preds, self.spec, img_hws,
+                                    self.obj_thresh, self.iou_thresh,
+                                    self.max_out, self.class_softmax)
 
     def _forward(self, imgs_u8: torch.Tensor) -> List[torch.Tensor]:
         """Letterboxed uint8 [B, h, w, 3] -> per-layer fp32 head logits
@@ -338,11 +349,18 @@ class Predictor:
 
     def predict_image(self, img: np.ndarray) -> Detections:
         """img: [h, w, 3] uint8 original image."""
-        self._require_calibrated()
-        img_t = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        hw = torch.tensor(img.shape[:2], dtype=torch.int32, device=self.device)
-        res = self._run_single(img_t, hw)
-        return _detections(NmsResult(*(t.cpu().numpy() for t in res)), 0)
+        with span("serve.batch"):
+            self._require_calibrated()
+            with span("serve.h2d"):
+                img_t = torch.from_numpy(np.ascontiguousarray(img)).to(
+                    self.device)
+                hw = torch.tensor(img.shape[:2], dtype=torch.int32,
+                                  device=self.device)
+            res = self._run_single(img_t, hw)
+            with span("serve.d2h"):
+                res = NmsResult(*(t.cpu().numpy() for t in res))
+            with span("serve.detections"):
+                return _detections(res, 0)
 
     # ---- batched serving path (fixed canvas) ------------------------------
 
@@ -430,37 +448,46 @@ class Predictor:
             return out.to(torch.bool) if t.dtype == torch.bool else out
 
         def run(canvases, img_hws) -> NmsResult:
-            part = slice(*PM.slot_range(canvases.shape[0], mesh))
-            c = torch.as_tensor(np.ascontiguousarray(canvases[part])
-                                if isinstance(canvases, np.ndarray)
-                                else canvases[part]).to(self.device)
-            h = torch.as_tensor(np.asarray(img_hws[part])
-                                if isinstance(img_hws, np.ndarray)
-                                else img_hws[part],
-                                dtype=torch.int32).to(self.device)
-            if shard is None:
-                res = self._run_batch(c, h)
-            else:
-                with torch.inference_mode():
-                    imgs = self._letterbox_for_stem(c, h,
-                                                    self.compute_dtype)
-                    res = self._head(folded_logits(
-                        self.net, self._materialize(), imgs,
-                        self.module_dtype, shard=shard), h)
-            return NmsResult(*(gather(t) for t in res))
+            with span("serve.batch"):
+                part = slice(*PM.slot_range(canvases.shape[0], mesh))
+                with span("serve.h2d"):
+                    c = torch.as_tensor(
+                        np.ascontiguousarray(canvases[part])
+                        if isinstance(canvases, np.ndarray)
+                        else canvases[part]).to(self.device)
+                    h = torch.as_tensor(np.asarray(img_hws[part])
+                                        if isinstance(img_hws, np.ndarray)
+                                        else img_hws[part],
+                                        dtype=torch.int32).to(self.device)
+                if shard is None:
+                    res = self._run_batch(c, h)
+                else:
+                    with torch.inference_mode():
+                        imgs = self._letterbox_for_stem(c, h,
+                                                        self.compute_dtype)
+                        res = self._head(folded_logits(
+                            self.net, self._materialize(), imgs,
+                            self.module_dtype, shard=shard), h)
+                return NmsResult(*(gather(t) for t in res))
 
         return run
 
     def predict_batch(self, canvases: np.ndarray,
                       img_hws: np.ndarray) -> List[Detections]:
         """canvases [B, H, W, 3] uint8; img_hws [B, 2] true (h, w) sizes."""
-        self._require_calibrated()
-        c = torch.from_numpy(np.ascontiguousarray(canvases)).to(self.device)
-        h = torch.as_tensor(np.asarray(img_hws), dtype=torch.int32).to(
-            self.device)
-        res = self._run_batch(c, h)
-        res = NmsResult(*(t.cpu().numpy() for t in res))
-        return [_detections(res, b) for b in range(canvases.shape[0])]
+        with span("serve.batch"):
+            self._require_calibrated()
+            with span("serve.h2d"):
+                c = torch.from_numpy(np.ascontiguousarray(canvases)).to(
+                    self.device)
+                h = torch.as_tensor(np.asarray(img_hws),
+                                    dtype=torch.int32).to(self.device)
+            res = self._run_batch(c, h)
+            with span("serve.d2h"):
+                res = NmsResult(*(t.cpu().numpy() for t in res))
+            with span("serve.detections"):
+                return [_detections(res, b)
+                        for b in range(canvases.shape[0])]
 
 
 def draw_detections(img: np.ndarray, det: Detections,

@@ -68,6 +68,7 @@ from k210_yolo_framework_tpu_torch.parallel.sharded import ShardContext
 from k210_yolo_framework_tpu_torch.training import loss as L
 from k210_yolo_framework_tpu_torch.training import metrics as M
 from k210_yolo_framework_tpu_torch.training import pruning as P
+from k210_yolo_framework_tpu_torch.utils.trace import span
 
 __all__ = ["keras_adam_schedule", "make_optimizer", "adam_update",
            "TrainState", "create_train_state", "make_train_step",
@@ -239,23 +240,26 @@ def _layer_logs(logs: dict, prefix: str, layer_losses, pr) -> dict:
     return logs
 
 
-def _losses(net, spec, cfg, images, labels, dtype, axes=None):
-    """(outputs, per-layer losses, their sum); on a mesh (``axes``)
-    BatchNorm takes the global batch's statistics, and with a model or
-    space axis the forward is this rank's part, its outputs whole.  The
-    normaliser is this batch's (a rank's shard's) size."""
+def _forward(net, images, dtype, axes=None):
+    """The net's outputs; on a mesh (``axes``) BatchNorm takes the global
+    batch's statistics, and with a model or space axis the forward is this
+    rank's part, its outputs whole."""
     if axes is not None and axes.shard is not None:
-        outs = net(images, dtype=dtype, shard=axes.shard)
-    else:
-        set_data_group(net, None if axes is None else axes.data)
-        try:
-            outs = net(images, dtype=dtype)
-        finally:
-            set_data_group(net, None)
+        return net(images, dtype=dtype, shard=axes.shard)
+    set_data_group(net, None if axes is None else axes.data)
+    try:
+        return net(images, dtype=dtype)
+    finally:
+        set_data_group(net, None)
+
+
+def _losses(spec, cfg, outs, labels, batch: int):
+    """(per-layer losses, their sum); the normaliser ``batch`` is this
+    batch's (a rank's shard's) size."""
     layer_losses = L.yolo_loss_layers(
-        labels, outs, spec, images.shape[0], cfg.obj_thresh, cfg.iou_thresh,
+        labels, outs, spec, batch, cfg.obj_thresh, cfg.iou_thresh,
         cfg.obj_weight, cfg.noobj_weight, cfg.wh_weight)
-    return outs, layer_losses, sum(layer_losses[1:], layer_losses[0])
+    return layer_losses, sum(layer_losses[1:], layer_losses[0])
 
 
 def _mean_losses(main, layer_losses, group):
@@ -272,7 +276,8 @@ def _mean_losses(main, layer_losses, group):
 def make_train_step(spec: YoloSpec, cfg: TrainConfig,
                     compute_dtype: torch.dtype = torch.float32,
                     train_epoch_step: Optional[int] = None, mesh=None):
-    """(state, images [B, H, W, 3], labels per layer) -> (state, logs).
+    """(state, images [B, H, W, 3], labels per layer) -> (state, logs),
+    in a ``train.step`` span (``utils.trace``).
     ``compute_dtype`` is the convs' dtype (the JAX net's ``dtype``); the
     parameters stay fp32.  After the step every parameter's ``.grad`` holds
     the gradient of ``loss + l2`` that the update used.  With
@@ -282,6 +287,22 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
     of zeros.  With ``mesh`` each rank is given its data coordinate's
     slots of the global batch and the step is the global batch's (module
     docstring); the state must be replicated (:func:`shard_state`)."""
+    body = _train_body(spec, cfg, compute_dtype, train_epoch_step, mesh)
+
+    def step(state: TrainState, images: torch.Tensor, labels):
+        with span("train.step"):
+            return body(state, images, labels)
+
+    return step
+
+
+def _train_body(spec: YoloSpec, cfg: TrainConfig,
+                compute_dtype: torch.dtype, train_epoch_step: Optional[int],
+                mesh):
+    """:func:`make_train_step`'s step outside its ``train.step`` span, its
+    stages in spans of their own: ``train.forward``, ``train.loss``,
+    ``train.backward``, ``train.grad_allreduce`` (on a mesh),
+    ``train.optimizer``, ``train.metrics``."""
     axes = _axes(mesh)
     group = None if axes is None else axes.data
     if cfg.is_prune and train_epoch_step is None:
@@ -292,40 +313,50 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
     schedule = keras_adam_schedule(cfg.init_learning_rate,
                                    cfg.learning_rate_decay_factor)
 
-    def step(state: TrainState, images: torch.Tensor, labels):
+    def body(state: TrainState, images: torch.Tensor, labels):
         net, opt = state.net, state.optimizer
         net.train()
-        outs, layer_losses, main = _losses(net, spec, cfg, images, labels,
-                                           compute_dtype, axes)
-        opt.zero_grad(set_to_none=True)
-        total = main + L.l2_penalty(net)
-        if axes is not None and axes.loss_scale != 1.0:
-            # replicated over the model and space peers: each backs 1/(mp sp)
-            total = total * axes.loss_scale
-        total.backward()
+        with span("train.forward"):
+            outs = _forward(net, images, compute_dtype, axes)
+        with span("train.loss"):
+            layer_losses, main = _losses(spec, cfg, outs, labels,
+                                         images.shape[0])
+            total = main + L.l2_penalty(net)
+            if axes is not None and axes.loss_scale != 1.0:
+                # replicated over the model and space peers: each backs
+                # 1/(mp sp)
+                total = total * axes.loss_scale
+        with span("train.backward"):
+            # the grads are set to None (no device work): the l2 penalty
+            # above reads none of them
+            opt.zero_grad(set_to_none=True)
+            total.backward()
         if axes is not None:
-            # each rank's sum already holds every rank's share through the
-            # collectives' backwards: the world's sum over dp is the global
-            # gradient
-            _mean_grads(net.parameters(), axes.world, axes.dp)
-        lr = schedule(state.step)
-        adam_update(opt, lr)
-        if cfg.is_prune:
-            prune_step(state, cfg, prune_end)
+            with span("train.grad_allreduce"):
+                # each rank's sum already holds every rank's share through
+                # the collectives' backwards: the world's sum over dp is
+                # the global gradient
+                _mean_grads(net.parameters(), axes.world, axes.dp)
+        with span("train.optimizer"):
+            lr = schedule(state.step)
+            adam_update(opt, lr)
+            if cfg.is_prune:
+                prune_step(state, cfg, prune_end)
 
-        state.pr = M.update_pr_state(state.pr, labels,
-                                     [o.detach() for o in outs],
-                                     cfg.obj_thresh, group=group)
-        p, r = M.pr_results(state.pr)
-        main, layer_losses = _mean_losses(main, layer_losses, group)
-        logs = {"loss": main, "p": p, "r": r, "lr": lr}
-        _layer_logs(logs, "", layer_losses, state.pr)
-        if cfg.is_prune:
-            logs["sparsity"] = state.sparsity
+        with span("train.metrics"):
+            state.pr = M.update_pr_state(state.pr, labels,
+                                         [o.detach() for o in outs],
+                                         cfg.obj_thresh, group=group)
+            p, r = M.pr_results(state.pr)
+            main, layer_losses = _mean_losses(main, layer_losses, group)
+            logs = {"loss": main, "p": p, "r": r, "lr": lr}
+            _layer_logs(logs, "", layer_losses, state.pr)
+            if cfg.is_prune:
+                logs["sparsity"] = state.sparsity
         state.step += 1
         return state, logs
 
-    return step
+    return body
 
 
 def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
@@ -345,9 +376,9 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
         was_training = net.training
         net.eval()
         try:
-            outs, layer_losses, loss = _losses(net, spec, cfg, images,
-                                               labels, compute_dtype,
-                                               fwd_axes)
+            outs = _forward(net, images, compute_dtype, fwd_axes)
+            layer_losses, loss = _losses(spec, cfg, outs, labels,
+                                         images.shape[0])
         finally:
             net.train(was_training)
         pr = M.update_pr_state(pr, labels, outs, cfg.obj_thresh,
@@ -379,18 +410,20 @@ def make_fused_train_step(spec: YoloSpec, cfg: TrainConfig, preprocess,
     draws (``generator`` in step on every rank, or ``params``); it
     preprocesses its slots (``make_preprocess_fn``'s ``slots``), copying
     only their source images to its device, then takes the sharded
-    step."""
-    step = make_train_step(spec, cfg, compute_dtype, train_epoch_step, mesh)
+    step.  One ``train.step`` span holds the preprocess
+    (``train.preprocess``) and the step's stages."""
+    body = _train_body(spec, cfg, compute_dtype, train_epoch_step, mesh)
 
     def fused(state, canvases, img_hws, boxes, valid, generator=None,
               params=None):
-        shard = {} if mesh is None else dict(
-            slots=PM.slot_range(len(img_hws), mesh),
-            device=_device_of(state.net))
-        with torch.no_grad():
-            images, labels = preprocess(canvases, img_hws, boxes, valid,
-                                        generator, params, **shard)
-        return step(state, images, labels)
+        with span("train.step"):
+            shard = {} if mesh is None else dict(
+                slots=PM.slot_range(len(img_hws), mesh),
+                device=_device_of(state.net))
+            with torch.no_grad(), span("train.preprocess"):
+                images, labels = preprocess(canvases, img_hws, boxes, valid,
+                                            generator, params, **shard)
+            return body(state, images, labels)
 
     return fused
 
@@ -538,7 +571,8 @@ def fit(net: YoloNet, spec: YoloSpec, cfg: TrainConfig,
                 if profile_dir and state.step + 1 == profile_step:
                     prof = _start_profiler(device, log_fn)
                 try:
-                    hb = on_device(next(train_batches))
+                    with span("fit.load"):
+                        hb = on_device(next(train_batches))
                     state, logs = train_step(state, *hb, generator)
                 finally:
                     if prof is not None:
