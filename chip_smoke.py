@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and eval paths, and each of
-its four CUDA kernels on the path that runs it, once on one NVIDIA GPU;
+its five CUDA kernels on the path that runs it, once on one NVIDIA GPU;
 then the three other builders served and trained (phase 15), the
 command-line entry points (phase 16), quantized serving, the export and
 the ``Helper`` facade (phase 17), and the darknet53 yolo at 608x608 with
@@ -8,7 +8,8 @@ the greedy kernels' global path, the stem modes and data-parallel serving
 (phase 18), data-parallel training (phase 19), serving and training on
 the model and space axes (phase 20: yolo_mobilev1; phase 21: the other
 three builders), quantized and patches serving on those axes (phase 22),
-and the benchmark program and the entry contracts (phase 23).
+the benchmark program and the entry contracts (phase 23), and the conv
+epilogue on the served nets (phase 24).
 
     python3 chip_smoke.py
 
@@ -18,7 +19,8 @@ Phases (any failure raises and the script exits non-zero):
      and power limit as nvidia-smi reports them;
   2. build: compiles the port's CUDA kernels from the sources in this
      checkout (``k210_yolo_framework_tpu_torch/csrc/yolo_head.cu``,
-     ``rotate3shear.cu``, ``nms.cu`` and ``dwsep.cu``; the first and third
+     ``rotate3shear.cu``, ``nms.cu``, ``dwsep.cu`` and
+     ``conv_epilogue.cu``; the first and third
      share ``greedy_select.cuh``, the selection loop that runs a class row
      in one warp over a list of its live candidates), one nvcc each,
      started together, prints
@@ -95,8 +97,9 @@ Phases (any failure raises and the script exits non-zero):
  14. times: NMS alone on the three scenes and the fused block on each of
      the nine blocks, each against its plain version (plain, kernel,
      kernel, plain; NMS also by ``device_ms``); beside the fused block,
-     the served net's own block (BN and activations in fp32, fp32 output)
-     and a bf16 cuDNN pair with BN folded, on the same input;
+     the served net's own block (two cuDNN convs, each with its conv
+     epilogue; bf16 output) and a bf16 cuDNN pair with BN folded, on the
+     same input;
  15. the builders: yolo_mobilev2 (alpha 0.75), tiny_yolo and the darknet53
      yolo (three scales, 4,410 candidates), seeded, at 224x320.  Each is
      served in bf16 at B=128 through ``predict_batch`` (0.7 and dense-bias
@@ -247,7 +250,17 @@ Phases (any failure raises and the script exits non-zero):
      ``entry.entry()`` on the card against the same forward on the CPU
      (fp32, rtol and atol 1e-5, on the contract's zeros and on uniform
      images) and ``entry.dryrun_multichip`` on the card: 8 ranks (gloo
-     processes sharing the card) and 1 (NCCL).
+     processes sharing the card) and 1 (NCCL);
+ 24. the conv epilogue (``ops.conv_epilogue``, ``csrc/conv_epilogue.cu``)
+     on the benchmark's served shapes: yolo_mobilev1 (alpha 0.75) at
+     224x320, B=128, and the darknet53 yolo at 608x608, B=32, bf16, every
+     BatchNorm drawn.  One ``predict_batch`` each, the launch count zeroed
+     just before it: one launch per ConvBN (30 and 72), and each call's
+     output bit for bit ``conv_epilogue_reference``'s on its arguments;
+     then all of a forward's calls timed against their plain versions and
+     the bytes bound, the profiler's tie of each kernel to its
+     ``k210::conv_epilogue`` op (every one must hold its kernel), and the
+     wrapper's host microseconds a call.
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -256,7 +269,8 @@ Greedy NMS counts only the candidates each step has to test.
 
 The next-to-last line is one JSON object describing each kernel (``ms``
 by CUDA events; the head, the rotation and NMS also carry ``device_ms``;
-the head and NMS also their launches and times on the global path);
+the head and NMS also their launches and times on the global path; the
+epilogue its 608x608 times under ``yolo608``);
 the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
 script imports only the port, which imports nothing of the JAX package.
@@ -367,6 +381,7 @@ KERNEL_CATEGORIES = (
     ("nccl", ("nccl",)),
     ("head kernel", ("yolo_head",)),
     ("rotate kernel", ("rotate_kernel",)),
+    ("epilogue kernel", ("epilogue_kernel",)),
     ("conv/matmul", ("conv2d", "convolve", "depthwise", "gemm",
                      "cudnn", "xmma", "cutlass", "fprop")),
 )
@@ -396,7 +411,8 @@ def kernel_profile(fn, iters: int):
             continue
         count, us = per_name.get(ev.name, (0, 0.0))
         per_name[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
-    by_cat = {"head kernel": 0.0, "rotate kernel": 0.0, "conv/matmul": 0.0,
+    by_cat = {"head kernel": 0.0, "rotate kernel": 0.0,
+              "epilogue kernel": 0.0, "conv/matmul": 0.0,
               "nccl": 0.0, "elementwise/other": 0.0, "memcpy/memset": 0.0}
     n_kernels = 0
     for name, (count, us) in per_name.items():
@@ -1184,8 +1200,8 @@ def capture_blocks(net, forward):
 def dwsep_phase(pred, fp32_pred, c_dev, h_dev, part, tag):
     """Phase 12: the fused block on the nine stride-1 blocks of the served
     net.  Each block's input comes from the serving forward at B=128 in
-    bf16 (the block casts it to bf16 for its conv; the kernel takes that
-    cast's NHWC view), its BN folded by ``block_params``.  Kernel against
+    bf16 (the previous block's epilogue stores bf16; the kernel takes its
+    NHWC view), its BN folded by ``block_params``.  Kernel against
     ``fused_dwsep_reference`` and against the block's own output (bf16
     0.05: folding rounds the BN differently); then the same at B=8 in fp32
     (2e-5 against the plain version).  Returns the kernel's JSON fields and
@@ -1384,8 +1400,9 @@ def cudnn_pair(x, dw_k, dw_mul, dw_add, pw_k, pw_mul, pw_add):
 def new_kernel_times(scenes, scene_preds, spec, h_dev, dw_inputs, pred, tag):
     """Phase 14: NMS alone and the fused block, each against its plain
     version on the same inputs (plain, kernel, kernel, plain); for the
-    block also the served net's own block on the same input (BN and
-    activations in fp32, fp32 output) and the bytes-equal baseline, an
+    block also the served net's own block on the same input (two cuDNN
+    convs, each with its conv epilogue; bf16 output) and the bytes-equal
+    baseline, an
     unfused bf16 cuDNN pair with BN folded.  Returns the two kernels' JSON
     fields (time, plain time, bound)."""
     import torch
@@ -1443,14 +1460,14 @@ def new_kernel_times(scenes, scene_preds, spec, h_dev, dw_inputs, pred, tag):
             b, h, w, c = x.shape
             print(f"dwsep b{b} block_{i:<2} {h}x{w}x{c}->{params[3].shape[1]}"
                   f" bf16: kernel {k1:.4f}/{k2:.4f} ms, plain "
-                  f"{p1:.4f}/{p2:.4f} ms, served block (fp32 BN, fp32 out) "
+                  f"{p1:.4f}/{p2:.4f} ms, served block (epilogues, bf16 out) "
                   f"{blk_ms:.4f} ms, bf16 cuDNN pair {pair_ms:.4f} ms "
                   f"(max_abs_err vs plain {pair_err:.3g}), bound "
                   f"{b_ms:.4f} ms ({by}) {tag}")
     dw["bound_by"] = "operations" if 2 * ops_bound > len(dw_inputs) \
         else "bytes"
     print(f"dwsep b{BATCH} nine blocks: kernel {dw['ms']:.4f} ms, plain "
-          f"{dw['plain_ms']:.4f} ms, served blocks (fp32 BN, fp32 out) "
+          f"{dw['plain_ms']:.4f} ms, served blocks (epilogues, bf16 out) "
           f"{dw['block_ms']:.4f} ms, bf16 cuDNN pairs {dw['pair_ms']:.4f} ms, "
           f"bound {dw['bound_ms']:.4f} ms ({ops_bound} of "
           f"{len(dw_inputs)} blocks bound by operations) {tag}")
@@ -1578,7 +1595,8 @@ def builder_serve(name, net, spec, device, canvases, hws, image, tag):
           f"{dev_ms:.3f} ms/call (busy share {dev_ms / serve_ms:.3f}), "
           f"elementwise/other {elementwise:.3f} ms "
           f"({elementwise / max(dev_ms, 1e-9):.1%}), conv/matmul "
-          f"{by_cat['conv/matmul']:.3f} ms, head kernel "
+          f"{by_cat['conv/matmul']:.3f} ms, epilogue kernel "
+          f"{by_cat['epilogue kernel']:.3f} ms, head kernel "
           f"{by_cat['head kernel']:.3f} ms {tag}")
     return logits, h_dev
 
@@ -4178,6 +4196,198 @@ def bench_entry_phase(device, tag, serve_ips, step_ms, fused_ms):
     return head, rot
 
 
+# ---- 24. the conv epilogue ------------------------------------------------
+# (builder, alpha, input, batch, canvas, ConvBNs): the served shapes of the
+# benchmark's two serving cells
+EPILOGUE_NETS = (("yolo_mobilev1", 0.75, (224, 320), BATCH, CANVAS_HW, 30),
+                 ("yolo", 1.0, (BIG_SIDE, BIG_SIDE), EVAL_BATCH, (512, 512),
+                  72))
+
+
+def bits(t):
+    """``t``'s bits as integers: NaN payloads, -0 and inf compare exactly."""
+    import torch
+
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def drawn_bn(net, seed: int):
+    """Draw every BatchNorm's statistics and affine terms, so that no BN is
+    the identity."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.3, generator=g)
+                m.running_var.uniform_(0.3, 2.0, generator=g)
+                m.weight.uniform_(0.4, 0.6, generator=g)
+                m.bias.normal_(0.3, 0.3, generator=g)
+    return net
+
+
+def recorded_epilogues(pred, canvases, hws):
+    """``pred.predict_batch(canvases, hws)`` with the launch count zeroed
+    just before it: (the launches it made, each ConvBN epilogue call of it
+    as (keyword arguments, a copy of the kernel's output))."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.models import layers as L
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    calls, real = [], L.conv_epilogue
+
+    def record(x, mean, mul, bias, act, alpha, scale=None, residual=None,
+               store=torch.float32):
+        kw = dict(x=x, mean=mean, mul=mul, bias=bias, act=act, alpha=alpha,
+                  scale=scale, residual=residual, store=store)
+        out = real(**kw)
+        calls.append((kw, out.clone()))
+        return out
+
+    L.conv_epilogue = record
+    try:
+        TE.conv_epilogue.launches = 0
+        pred.predict_batch(canvases, hws)
+        torch.cuda.synchronize()
+        launches = TE.conv_epilogue.launches
+    finally:
+        L.conv_epilogue = real
+    return launches, calls
+
+
+def epilogue_profile(fn) -> tuple:
+    """One ``fn()`` under torch.profiler: (``k210::conv_epilogue`` host
+    ops, those holding an epilogue kernel, epilogue kernels on the card,
+    their device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = [e for e in events if e.name == "k210::conv_epilogue"]
+    held = sum(any("epilogue_kernel" in k.name for k in e.kernels)
+               for e in ops)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and "epilogue_kernel" in e.name]
+    return (len(ops), held, len(dev),
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+
+
+def epilogue_host_us(device, n: int = 2000) -> tuple:
+    """Host microseconds a call of the wrapper and of its plain version on
+    a [1, 64, 8, 8] bf16 tensor the card finishes at once, no profiler
+    running."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    x = torch.randn((1, 64, 8, 8), device=device).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    terms = [torch.rand(64, device=device) for _ in range(3)]
+    out = []
+    for fn in (TE.conv_epilogue, TE.conv_epilogue_reference):
+        with torch.inference_mode():
+            for _ in range(50):
+                fn(x, *terms, "leaky_relu", 0.3, store=torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(x, *terms, "leaky_relu", 0.3, store=torch.bfloat16)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+        out.append((t1 - t0) / n * 1e6)
+    return tuple(out)
+
+
+def epilogue_phase(device, tag) -> dict:
+    """Phase 24: the conv epilogue on the served nets, yolo_mobilev1 (alpha
+    0.75) at 224x320, B=128, and the darknet53 yolo at 608x608, B=32, bf16,
+    seeded, every BatchNorm drawn.  Each is served once through
+    ``predict_batch``: one launch per ConvBN, and every call's output bit
+    for bit its plain version's on the same arguments.  Then the times
+    over all of a forward's calls (plain, kernel, kernel, plain), against
+    the bytes bound (x read once in its dtype, the residual once in fp32,
+    the output written once in its store dtype); whether the profiler ties
+    each kernel to its ``k210::conv_epilogue`` op; and the wrapper's host
+    cost a call.  Returns the kernel's JSON fields (yolo_mobilev1's at the
+    top, yolo's under ``yolo608``)."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.inference import Predictor
+    from k210_yolo_framework_tpu_torch.models import build_network
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    fields, launches = {}, 0
+    for name, alpha, in_hw, bsz, canvas, n_convbn in EPILOGUE_NETS:
+        spec = builder_spec(2 if name != "yolo" else 3, in_hw)
+        net = drawn_bn(build_network(
+            name, in_hw, spec.nanchors, spec.class_num, alpha=alpha,
+            generator=torch.Generator().manual_seed(0)), seed=1)
+        pred = Predictor(net, None, spec, obj_thresh=0.7, iou_thresh=IOU,
+                         compute_dtype=torch.bfloat16, device=device)
+        rng = np.random.default_rng(5)
+        canvases = rng.integers(0, 256, (bsz, *canvas, 3)).astype(np.uint8)
+        hws = np.tile(np.asarray(canvas, np.int32), (bsz, 1))
+        hws[bsz // 2:] = [canvas[0] * 3 // 4, canvas[1]]
+        with torch.inference_mode():
+            n, calls = recorded_epilogues(pred, canvases, hws)
+            launches += n
+            differ = 0
+            for kw, got in calls:
+                want = TE.conv_epilogue_reference(**kw)
+                differ += not (got.dtype == want.dtype
+                               and torch.equal(bits(got), bits(want)))
+            print(f"epilogue {name} {in_hw[0]}x{in_hw[1]} b{bsz} bf16: "
+                  f"{n} launches in one predict_batch, {len(calls)} ConvBN "
+                  f"calls, {differ} differing from the plain version "
+                  f"(bit for bit)")
+            if n != n_convbn or len(calls) != n_convbn or differ:
+                raise AssertionError(f"epilogue {name}: {n} launches, "
+                                     f"{len(calls)} calls, {differ} differ")
+            args = [kw for kw, _ in calls]
+            del calls
+            k_ms, p_ms, (p1, k1, k2, p2) = alternating(
+                lambda: [TE.conv_epilogue_reference(**kw) for kw in args],
+                lambda: [TE.conv_epilogue(**kw) for kw in args], 3, 10)
+            c_dev = torch.from_numpy(canvases).to(device)
+            h_dev = torch.from_numpy(hws).to(device)
+            ops, held, kernels, dev_ms = epilogue_profile(
+                lambda: pred._forward_batch(c_dev, h_dev))
+        nbytes = sum(kw["x"].numel() * (
+            kw["x"].element_size() + kw["store"].itemsize
+            + (4 if kw["residual"] is not None else 0)) for kw in args)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"epilogue {name} b{bsz}: {len(args)} calls, "
+              f"{sum(kw['x'].numel() for kw in args)} elements, "
+              f"{nbytes / 1e9:.3f} GB: kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms (bytes; "
+              f"{100 * b_ms / k_ms:.1f}% of it); profiler: {held} of {ops} "
+              f"k210::conv_epilogue ops hold their kernel, {kernels} "
+              f"kernels, {dev_ms:.4f} ms {tag}")
+        if ops != n_convbn or held != n_convbn or kernels != n_convbn:
+            raise AssertionError(f"epilogue {name}: the profiler tied "
+                                 f"{held} of {ops} ops to {kernels} kernels")
+        fields[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by="bytes", profiled_ms=dev_ms,
+                            calls=n_convbn)
+        del pred, net, args, c_dev, h_dev
+        torch.cuda.empty_cache()
+    wrap_us, plain_us = epilogue_host_us(device)
+    print(f"epilogue host cost a call, no profiler: wrapper {wrap_us:.1f} us, "
+          f"plain version {plain_us:.1f} us {tag}")
+    return {"launches": launches, "max_abs_err": 0.0,
+            **fields["yolo_mobilev1"], "library_ms": None,
+            "host_us": wrap_us, "yolo608": fields["yolo"]}
+
+
 def main() -> int:
     import torch
 
@@ -4265,7 +4475,7 @@ def run(device) -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("yolo_head", "rotate3shear", "nms", "dwsep")
+    names = ("yolo_head", "rotate3shear", "nms", "dwsep", "conv_epilogue")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc each, together
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s")
@@ -4466,6 +4676,8 @@ def run(device) -> int:
         # ---- 23. the benchmark program and the entry contracts -----------
         p23_head, p23_rot = bench_entry_phase(
             device, tag, BATCH * 1e3 / serve_ms, step_ms, fused_ms)
+    # ---- 24. the conv epilogue on the served nets -------------------------
+    epilogue = epilogue_phase(device, tag)
 
     k_ms, p_ms, b_ms, b_by = head_times["slice"]
     print(json.dumps({"kernels": [{
@@ -4512,6 +4724,12 @@ def run(device) -> int:
         "bound_ms": dw_t["bound_ms"],
         "bound_by": dw_t["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "k210_yolo_framework_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,
+        **epilogue,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

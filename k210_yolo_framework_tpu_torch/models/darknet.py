@@ -9,6 +9,12 @@ blocks take their widths as constructor arguments, so tests can build them
 narrow.  On a TP/SP mesh every block takes and returns ``Sharded``
 activations: the pools and the residual adds take them
 (``layers.max_pool_same``, ``layers.residual_add``).
+
+A ConvBN's eval output is stored in the compute dtype
+(``layers.ConvBN.forward``'s ``narrow``) where it reaches convs only,
+through pools (rounding commutes with max), upsamples and concats: every
+conv here but darknet53's ``down`` convs and residual sums, which enter
+the next fp32 sum.
 """
 
 from __future__ import annotations
@@ -21,7 +27,6 @@ from torch import nn
 from k210_yolo_framework_tpu_torch.models.layers import (
     DarknetConvBN,
     max_pool_same,
-    residual_add,
 )
 
 __all__ = ["TinyYoloBody", "Darknet53", "LastLayers"]
@@ -54,12 +59,13 @@ class TinyYoloBody(nn.Module):
         after the stem conv."""
         for i in range(4):
             x = getattr(self, f"conv_{i}")(x, dtype,
-                                           input_scale if i == 0 else None)
+                                           input_scale if i == 0 else None,
+                                           narrow=True)
             x = self.pool(x, 2)
-        x1 = self.conv_4(x, dtype)
-        x = self.conv_5(self.pool(x1, 2), dtype)
-        x = self.conv_6(self.pool(x, 1), dtype)
-        return x1, self.conv_7(x, dtype)
+        x1 = self.conv_4(x, dtype, narrow=True)
+        x = self.conv_5(self.pool(x1, 2), dtype, narrow=True)
+        x = self.conv_6(self.pool(x, 1), dtype, narrow=True)
+        return x1, self.conv_7(x, dtype, narrow=True)
 
 
 class _ResBlockBody(nn.Module):
@@ -77,13 +83,14 @@ class _ResBlockBody(nn.Module):
         self.num_blocks = num_blocks
 
     def forward(self, x, dtype: torch.dtype):
+        # ``down`` and each unit's sum enter the next fp32 sum: stored wide;
+        # the 1x1 feeds the 3x3 alone
         x = self.down(x, dtype)
         for i in range(self.num_blocks):
-            y = getattr(self, f"res_{i}_1x1")(x, dtype)
-            y = getattr(self, f"res_{i}_3x3")(y, dtype)
-            # without gradients the sum goes into y, the 3x3's fresh
-            # output: x may be a tap the caller keeps
-            x = residual_add(y, x)
+            y = getattr(self, f"res_{i}_1x1")(x, dtype, narrow=True)
+            # the sum is a new tensor, or without gradients written into
+            # the 3x3's fresh output: x may be a tap the caller keeps
+            x = getattr(self, f"res_{i}_3x3")(y, dtype, residual=x)
         return x
 
 
@@ -105,7 +112,7 @@ class Darknet53(nn.Module):
                 input_scale: Optional[torch.Tensor] = None):
         """x: NCHW.  ``input_scale`` [B]: per-image normalisation folded in
         after the stem conv."""
-        x = self.stem(x, dtype, input_scale)
+        x = self.stem(x, dtype, input_scale, narrow=True)
         x = self.stage_2(self.stage_1(x, dtype), dtype)
         tap8 = self.stage_3(x, dtype)
         tap16 = self.stage_4(tap8, dtype)
@@ -128,5 +135,5 @@ class LastLayers(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype):
         for i in range(5):
-            x = getattr(self, f"trunk_{i}")(x, dtype)
-        return x, self.branch(x, dtype)
+            x = getattr(self, f"trunk_{i}")(x, dtype, narrow=True)
+        return x, self.branch(x, dtype, narrow=True)

@@ -12,9 +12,12 @@ weights to the compute ``dtype`` and returns that dtype; BatchNorm runs in
 fp32 (eps 1e-3, momentum per module: 0.99 unless a builder says
 otherwise) and so do the activations.  ``module.train()`` puts
 BatchNorm on batch statistics (flax's ``train=True``), ``.eval()`` on the
-running ones.  Under ``torch.no_grad()`` / ``inference_mode`` BatchNorm and
-the activations work in place on the fresh conv output, which serving
-relies on; with gradients on they are out of place, as autograd needs.
+running ones.  In eval mode under ``torch.no_grad()`` / ``inference_mode``
+a ``ConvBN`` runs its post-conv scale, BN, activation and residual add as
+one pass (``ops.conv_epilogue``: one kernel on a card), and may store in
+the compute dtype where its owner says every consumer casts to it
+(``ConvBN.forward``); with gradients on they are out of place, as
+autograd needs.
 Parameter names follow the flax scopes (``conv.weight`` for ``conv/kernel``,
 ``bn.weight`` for ``bn/scale``), so ``training/checkpoint.py`` maps a native
 checkpoint mechanically.
@@ -50,6 +53,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from k210_yolo_framework_tpu_torch.ops.conv_epilogue import conv_epilogue
 from k210_yolo_framework_tpu_torch.parallel.sharded import (
     Sharded,
     all_reduce_sum,
@@ -156,6 +160,7 @@ def leaky_relu(alpha: float) -> Callable[[torch.Tensor], torch.Tensor]:
             return _LeakyReLU.apply(x, alpha)
         return F.leaky_relu(x, alpha, inplace=True)
 
+    act.leaky_alpha = alpha     # what ``ConvBN``'s fused epilogue reads
     return act
 
 
@@ -662,11 +667,22 @@ class BatchNorm(nn.Module):
                                        + (1 - m) * new_var)
         else:
             mean, var = running
-        mul = torch.rsqrt(var + _BN_EPS) * weight
+        mul = _bn_mul(var, weight)
         y = x - mean[:, None, None]
         if torch.is_grad_enabled():
             return y * mul[:, None, None] + bias[:, None, None]
         return y.mul_(mul[:, None, None]).add_(bias[:, None, None])
+
+    def eval_terms(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, mul, bias) of the eval-mode forward, ``(x - mean) * mul +
+        bias``: the running mean, ``rsqrt(running_var + eps) * weight`` (as
+        :meth:`forward` computes it) and the shift."""
+        return (self.running_mean, _bn_mul(self.running_var, self.weight),
+                self.bias)
+
+
+def _bn_mul(var: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    return torch.rsqrt(var + _BN_EPS) * weight
 
 
 def set_data_group(net: nn.Module, group) -> nn.Module:
@@ -735,10 +751,24 @@ class ConvBN(nn.Module):
         self.conv.int8_capable = self.conv.int8_rule(mode)
 
     def forward(self, x, dtype: torch.dtype = torch.float32,
-                post_conv_scale: Optional[torch.Tensor] = None):
+                post_conv_scale: Optional[torch.Tensor] = None,
+                residual=None, narrow: bool = False):
         """``x`` NCHW, or ``Sharded`` on a TP/SP mesh: then this rank's
         part of the conv (``Conv.forward_sharded``, ``forward_int8`` or
-        ``forward_patches``), and the scale, BN and activation on it."""
+        ``forward_patches``), and the scale, BN and activation on it.
+        ``residual`` (like the output) is added after the activation
+        (:func:`residual_add`).
+
+        In eval mode with no gradient recorded, outside ``torch.compile``
+        and ``torch.export``, on a tensor that is not ``Sharded`` and with
+        no activation but ReLU, ReLU6 or LeakyReLU, the scale, BN,
+        activation and residual add run as one pass
+        (``ops.conv_epilogue``), bit for bit the steps they replace.  It
+        stores in the compute dtype where the owner passes ``narrow``
+        (every consumer of the output casts to that dtype first, so the
+        values are the same) and not under Int8Act (the int8 convs
+        quantize from fp32); in fp32 otherwise, as the other path
+        returns."""
         dtype, int8_act = split_dtype(dtype)
         if int8_act is not None and self.training:
             # round() has no gradient: the conv stack would not train
@@ -755,6 +785,14 @@ class ConvBN(nn.Module):
             y = self.conv.forward_int8(x, int8_act)
         else:
             y = self.conv(x, dtype)
+        act = _epilogue_act(self.act)
+        if act is not None and not isinstance(y, Sharded) \
+                and not self.bn.training and not torch.is_grad_enabled() \
+                and not torch.compiler.is_compiling():
+            store = dtype if narrow and int8_act is None else torch.float32
+            return conv_epilogue(y, *self.bn.eval_terms(), *act,
+                                 scale=post_conv_scale, residual=residual,
+                                 store=store)
         layout = y if isinstance(y, Sharded) else None
         t = y if layout is None else y.t
         if post_conv_scale is not None:
@@ -767,7 +805,21 @@ class ConvBN(nn.Module):
         t = self.bn(t, layout)
         if self.act is not None:
             t = self.act(t)
-        return t if layout is None else layout.like(t)
+        out = t if layout is None else layout.like(t)
+        return out if residual is None else residual_add(out, residual)
+
+
+def _epilogue_act(act) -> Optional[Tuple[str, float]]:
+    """``(kind, alpha)`` of ``ops.conv_epilogue`` for a ConvBN's activation,
+    or None for one it does not compute (``smooth_witness``'s)."""
+    if act is None:
+        return "none", 0.0
+    if act is relu:
+        return "relu", 0.0
+    if act is relu6:
+        return "relu6", 0.0
+    alpha = getattr(act, "leaky_alpha", None)
+    return None if alpha is None else ("leaky_relu", alpha)
 
 
 class DarknetConvBN(nn.Module):
@@ -794,8 +846,9 @@ class DarknetConvBN(nn.Module):
         self.dark_conv_bn.stem_mode = mode
 
     def forward(self, x, dtype: torch.dtype = torch.float32,
-                post_conv_scale: Optional[torch.Tensor] = None):
-        return self.dark_conv_bn(x, dtype, post_conv_scale)
+                post_conv_scale: Optional[torch.Tensor] = None,
+                residual=None, narrow: bool = False):
+        return self.dark_conv_bn(x, dtype, post_conv_scale, residual, narrow)
 
 
 class darknet_head_conv(nn.Module):  # noqa: N801 (the JAX package's name)

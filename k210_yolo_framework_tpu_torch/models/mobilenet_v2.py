@@ -27,7 +27,6 @@ from torch import nn
 from k210_yolo_framework_tpu_torch.models.layers import (
     ConvBN,
     relu6,
-    residual_add,
 )
 
 __all__ = ["MobileNetV2", "make_divisible"]
@@ -84,20 +83,21 @@ class _InvertedResBlock(nn.Module):
         self.expand_channels = c
         self.out_channels = pointwise
 
-    def forward(self, x, dtype: torch.dtype):
+    def forward(self, x, dtype: torch.dtype, narrow: bool = False):
         """-> (output, the expand conv's output or None); ``x`` a tensor
         or a ``Sharded`` one.  Both BN outputs are fp32, so the residual add
         is fp32.  Without gradients the add writes into ``project``'s fresh
         output, never into ``x`` or the expand output, which the caller may
-        keep as a tap."""
+        keep as a tap.  ``narrow``: the output may be stored in the compute
+        dtype (it enters no residual add); the expand and depthwise outputs
+        reach convs only."""
         inputs = x
         expand_out = None
         if self.expand is not None:
-            x = expand_out = self.expand(x, dtype)
-        x = self.project(self.depthwise(x, dtype), dtype)
-        if self.residual:
-            x = residual_add(x, inputs)
-        return x, expand_out
+            x = expand_out = self.expand(x, dtype, narrow=True)
+        return self.project(self.depthwise(x, dtype, narrow=True), dtype,
+                            residual=inputs if self.residual else None,
+                            narrow=narrow), expand_out
 
 
 class MobileNetV2(nn.Module):
@@ -127,10 +127,13 @@ class MobileNetV2(nn.Module):
                 input_scale: Optional[torch.Tensor] = None):
         """x: NCHW.  ``input_scale`` [B]: per-image normalisation folded in
         after the stem conv."""
-        x = self.stem(x, dtype, input_scale)
+        # an output that enters the next block's residual add stays fp32
+        blocks = [getattr(self, f"block_{bid}") for bid in range(len(_BLOCKS))]
+        feeds_sum = [b.residual for b in blocks[1:]] + [False]
+        x = self.stem(x, dtype, input_scale, narrow=not blocks[0].residual)
         tap16 = None
-        for bid in range(len(_BLOCKS)):
-            x, expand_out = getattr(self, f"block_{bid}")(x, dtype)
+        for bid, block in enumerate(blocks):
+            x, expand_out = block(x, dtype, narrow=not feeds_sum[bid])
             if bid == 13:   # 'block_13_expand_relu'
                 tap16 = expand_out
-        return tap16, self.conv_last(x, dtype)
+        return tap16, self.conv_last(x, dtype, narrow=True)

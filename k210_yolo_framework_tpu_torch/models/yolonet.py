@@ -62,10 +62,10 @@ class _TwoScaleHead(nn.Module):
 
     def forward(self, tap16: torch.Tensor, trunk32: torch.Tensor,
                 dtype: torch.dtype) -> List[torch.Tensor]:
-        y1 = self.y1_out(self.y1_conv(trunk32, dtype), dtype)
-        x = upsample2x(self.up_conv(trunk32, dtype))
+        y1 = self.y1_out(self.y1_conv(trunk32, dtype, narrow=True), dtype)
+        x = upsample2x(self.up_conv(trunk32, dtype, narrow=True))
         x = cat_channels([x, tap16])
-        y2 = self.y2_out(self.y2_conv(x, dtype), dtype)
+        y2 = self.y2_out(self.y2_conv(x, dtype, narrow=True), dtype)
         return [y1, y2]
 
 
@@ -214,10 +214,12 @@ class Yolo(YoloNet):
         tap8, tap16, tap32 = self.backbone(x, dtype, input_scale)
         x, y = self.last_512(tap32, dtype)
         y1 = self.y1_out(y, dtype)
-        x = cat_channels([upsample2x(self.up1_conv(x, dtype)), tap16])
+        x = cat_channels([upsample2x(self.up1_conv(x, dtype, narrow=True)),
+                          tap16])
         x, y = self.last_256(x, dtype)
         y2 = self.y2_out(y, dtype)
-        x = cat_channels([upsample2x(self.up2_conv(x, dtype)), tap8])
+        x = cat_channels([upsample2x(self.up2_conv(x, dtype, narrow=True)),
+                          tap8])
         _, y = self.last_128(x, dtype)
         return [y1, y2, self.y3_out(y, dtype)]
 

@@ -1,3 +1,3 @@
-"""Plain-torch ops and the four CUDA-backed ones: the fused decode+NMS head,
-NMS alone, the fused depthwise-separable block and the augment's 3-shear
-rotation."""
+"""Plain-torch ops and the five CUDA-backed ones: the fused decode+NMS head,
+NMS alone, the fused depthwise-separable block, the augment's 3-shear
+rotation and the conv epilogue."""

@@ -3,7 +3,9 @@ the fused decode+NMS head, NMS alone, the fused depthwise-separable block
 and the augment's 3-shear rotation; each builder served on the card
 through the head kernel; a train step of each builder on the card against
 the same step on the CPU; and the build naming a new library when only
-the shared header changes.
+the shared header changes; the conv epilogue against its plain version
+bit for bit, and each builder served through it bit for bit against the
+plain path.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports nothing of JAX, so it also runs where JAX is not
@@ -1300,3 +1302,197 @@ def test_keras_train_mesh_needs_one_card_a_rank(dev):
                        match="2 processes, one a card, but 1 visible"):
         KT.main(KT.parse_args(["--model_def", "yolo_mobilev1",
                                "--mesh", "1,2"]))
+
+
+# the epilogue's (x dtype, store) pairs, and shapes [B, C, H, W] with their
+# memory format: 8 channels a thread (C % 8 == 0, channels last) and the
+# scalar path (C = 20, or NCHW), pixel counts that are no multiple of a
+# block among them
+EPILOGUE_TYPES = [(torch.float32, torch.float32),
+                  (torch.bfloat16, torch.float32),
+                  (torch.bfloat16, torch.bfloat16)]
+EPILOGUE_SHAPES = [((3, 24, 7, 10), torch.channels_last),
+                   ((1, 768, 7, 10), torch.channels_last),
+                   ((2, 20, 5, 7), torch.channels_last),
+                   ((2, 6, 8, 16), torch.contiguous_format),
+                   ((3, 5, 3, 5), torch.contiguous_format),
+                   ((2, 128, 57, 77), torch.channels_last)]
+
+
+def _epilogue_case(shape, fmt, dtype, dev, seed):
+    """x with NaN, +-inf, -0, +0 and 6.0 planted, and per-channel terms
+    whose channel 0 is the identity with a -0 shift, so a -0 input comes
+    out of the BN as -0 and 6.0 as 6.0; a residual with the same
+    specials; a per-image scale."""
+    g = torch.Generator().manual_seed(seed)
+    b, c, h, w = shape
+    x = torch.randn(shape, generator=g) * 3
+    flat = x.view(-1)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                            0.0, 6.0, -1e-40, 1e-40])
+    idx = torch.randint(0, flat.numel(), (64,), generator=g)
+    flat[idx] = special[torch.arange(64) % len(special)]
+    x[:, 0] = special[torch.arange(h * w) % len(special)].view(h, w)
+    mean = torch.randn(c, generator=g) * 0.5
+    mul = torch.rand(c, generator=g) + 0.5
+    bias = torch.randn(c, generator=g) * 0.5
+    mean[0], mul[0], bias[0] = 0.0, 1.0, -0.0
+    res = torch.randn(shape, generator=g)
+    res.view(-1)[idx.flip(0)] = special[torch.arange(64) % len(special)]
+    scale = torch.rand(b, generator=g) + 0.5
+    to = dict(device=dev, memory_format=fmt)
+    return (x.to(dtype=dtype, **to), mean.to(dev), mul.to(dev), bias.to(dev),
+            scale.to(dev), res.to(**to))
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "relu6", "leaky_relu"])
+@pytest.mark.parametrize("dtype,store", EPILOGUE_TYPES)
+def test_conv_epilogue_kernel_matches_plain_bit_for_bit(dev, dtype, store,
+                                                        act):
+    """The kernel against its plain version on the card, bit for bit, on
+    every layout path, with and without the scale and the residual: NaN,
+    +-inf, -0 and the ReLU6 bound included.  One launch a call, and the
+    output keeps x's strides."""
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    for k, (shape, fmt) in enumerate(EPILOGUE_SHAPES + [(None, None)]):
+        if shape is None:   # channels last, 2 bytes off 16: the scalar path
+            shape, fmt = EPILOGUE_SHAPES[0]
+            x, mean, mul, bias, scale, res = _epilogue_case(shape, fmt, dtype,
+                                                            dev, seed=k)
+            b, c, h, w = shape
+            off = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:]
+            x = off.view(b, h, w, c).permute(0, 3, 1, 2).copy_(x)
+            assert x.is_contiguous(memory_format=fmt)
+        else:
+            x, mean, mul, bias, scale, res = _epilogue_case(shape, fmt, dtype,
+                                                            dev, seed=k)
+        for s in (None, scale):
+            for r in (None, res):
+                kw = dict(act=act, alpha=0.1, scale=s, residual=r,
+                          store=store)
+                before = TE.conv_epilogue.launches
+                got = TE.conv_epilogue(x, mean, mul, bias, **kw)
+                assert TE.conv_epilogue.launches == before + 1
+                want = TE.conv_epilogue_reference(x, mean, mul, bias, **kw)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype == store
+                assert got.stride() == x.stride()
+                assert torch.equal(_bits(got), _bits(want)), (
+                    shape, fmt, s is not None, r is not None)
+
+
+def test_conv_epilogue_wrapper_rejects_bad_inputs(dev):
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    x, mean, mul, bias, scale, res = _epilogue_case(
+        (2, 16, 4, 4), torch.channels_last, torch.bfloat16, dev, seed=0)
+    with pytest.raises(ValueError, match="store"):
+        TE.conv_epilogue(x, mean, mul, bias, store=torch.float16)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        TE.conv_epilogue(x.half(), mean, mul, bias)
+    with pytest.raises(ValueError, match="mean"):
+        TE.conv_epilogue(x, mean[:8], mul, bias)
+    with pytest.raises(ValueError, match="dense"):
+        TE.conv_epilogue(x[:, :, :, :2], mean, mul, bias)
+    with pytest.raises(ValueError, match="residual"):
+        TE.conv_epilogue(x, mean, mul, bias, residual=res[:1])
+    with pytest.raises(ValueError, match="act"):
+        TE.conv_epilogue(x, mean, mul, bias, act="gelu")
+
+
+def _random_bn(net, seed):
+    """BatchNorm statistics and affine terms drawn, so that no BN is the
+    identity."""
+    from k210_yolo_framework_tpu_torch.models.layers import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.3, generator=g)
+                m.running_var.uniform_(0.3, 2.0, generator=g)
+                m.weight.uniform_(0.4, 0.6, generator=g)
+                m.bias.normal_(0.3, 0.3, generator=g)
+    return net
+
+
+# (builder, alpha, output layers, ConvBNs): yolo_mobilev1 at the served
+# alpha and the darknet53 yolo name their counts
+EPILOGUE_BUILDERS = [("yolo_mobilev1", 0.75, 2, 30), ("yolo_mobilev2", 0.75,
+                                                      2, None),
+                     ("tiny_yolo", 1.0, 2, None), ("yolo", 1.0, 3, 72)]
+
+
+@pytest.mark.parametrize("name,alpha,layers,convbns", EPILOGUE_BUILDERS)
+def test_builder_served_through_the_epilogue_bit_for_bit(dev, name, alpha,
+                                                         layers, convbns):
+    """Each builder served on the card in bf16: one epilogue launch per
+    ConvBN a call, and the logits equal the plain path's bit for bit (the
+    same forward with gradients on, where every ConvBN runs BatchNorm, the
+    activation and the residual add as their own passes)."""
+    from k210_yolo_framework_tpu_torch.inference import folded_logits
+    from k210_yolo_framework_tpu_torch.models.layers import ConvBN
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    spec = _builder_spec(layers)
+    net = _random_bn(build_network(name, spec.in_hw, 3, 20, alpha=alpha,
+                                   generator=torch.Generator().manual_seed(0)),
+                     seed=3)
+    n = sum(isinstance(m, ConvBN) for m in net.modules())
+    assert convbns is None or n == convbns
+    pred = Predictor(net, None, spec, obj_thresh=0.2,
+                     compute_dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(4)
+    canvases = rng.integers(0, 256, (4, 240, 320, 3)).astype(np.uint8)
+    hws = np.array([[240, 320], [200, 300], [240, 100], [120, 320]], np.int32)
+    before = TE.conv_epilogue.launches
+    pred.predict_batch(canvases, hws)
+    assert TE.conv_epilogue.launches == before + n
+    c = torch.from_numpy(canvases).to(dev)
+    h = torch.from_numpy(hws).to(dev)
+    fused = pred._forward_batch(c, h)
+    imgs = pred._letterbox_for_stem(c, h, pred.compute_dtype)
+    with torch.enable_grad():
+        plain = folded_logits(pred.net, pred._materialize(), imgs,
+                              pred.module_dtype)
+    assert TE.conv_epilogue.launches == before + 2 * n
+    for f, p in zip(fused, plain):
+        assert torch.equal(_bits(f), _bits(p))
+
+
+def test_epilogue_not_launched_in_training_sharded_or_export(dev):
+    """A train step, a forward on the TP/SP path (one rank's Sharded
+    activations) and torch.export's trace launch no epilogue."""
+    import types
+
+    from k210_yolo_framework_tpu_torch.export import export_raw
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    spec = voc_spec()
+    net = build_network("yolo_mobilev1", spec.in_hw, 3, 20, alpha=0.75,
+                        generator=torch.Generator().manual_seed(0))
+    before = TE.conv_epilogue.launches
+    cfg = TrainConfig(batch_size=2)
+    state = TT.create_train_state(net, cfg, dev)
+    images = torch.rand((2, *spec.in_hw, 3), device=dev)
+    labels = [torch.zeros((2, h, w, 3, 25), device=dev)
+              for h, w in spec.out_hws]
+    TT.make_train_step(spec, cfg)(state, images, labels)
+    one_rank = types.SimpleNamespace(
+        dp=1, mp=1, sp=1, model_group=None, space_group=None,
+        data_group=None, pixel_group=None, batch_group=lambda rows: None,
+        channel_range=lambda c: (0, c), row_range=lambda h: (0, h))
+    served = copy.deepcopy(net).to(dev).eval()
+    with torch.inference_mode():
+        sharded = served(images, dtype=torch.bfloat16, shard=one_rank)
+        whole = served(images, dtype=torch.bfloat16)
+    assert TE.conv_epilogue.launches == before + 30
+    assert [a.shape for a in sharded] == [b.shape for b in whole]
+    export_raw(net, None, 1, device=dev)
+    torch.cuda.synchronize()
+    assert TE.conv_epilogue.launches == before + 30
