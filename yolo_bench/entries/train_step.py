@@ -32,6 +32,9 @@ B1 = 0.9
 # leaf's are left out of the gradient and change comparisons: they move
 # under Adam by round-off alone
 GRAD_FLOOR = 1e-3
+# what a builder file may define that ``reference/train.py`` (YOLOv3's loss
+# and its decode, ``sigmoid(t) + offset``) does not honour
+NOT_TRAINED_BY_THE_REFERENCE = ("decode", "scale_x_y")
 
 
 def _draws(batch: int, in_hw, gen: torch.Generator):
@@ -53,6 +56,20 @@ def _draws(batch: int, in_hw, gen: torch.Generator):
                          (u[2] * 0.2 - 0.1) * w, (u[3] * 0.2 - 0.1) * h)
 
 
+def _refuse_own_decode(model_def: str) -> None:
+    """A net whose builder file brings its own decode or decode constants
+    would be trained against YOLOv3's loss, which reads neither: refuse it
+    until the reference has its loss."""
+    own = [k for k in NOT_TRAINED_BY_THE_REFERENCE
+           if hasattr(RN.builder_file(model_def), k)]
+    if own:
+        raise ValueError(
+            f"{model_def}: its builder file defines {own}, which "
+            f"reference/train.py (YOLOv3's loss and decode) does not "
+            f"honour; a train cell of this net needs a reference loss of "
+            f"its own")
+
+
 def hyper() -> dict:
     from k210_yolo_framework_tpu_torch.config import TrainConfig
     c = TrainConfig()
@@ -65,6 +82,7 @@ class Entry:
     def __init__(self, cell, seed: int, device: torch.device, trace: bool):
         self.cell, self.seed, self.device = cell, seed, device
         cfg, tr = cell.config, cell.traffic
+        _refuse_own_decode(cfg["model_def"])
         self.images_per_call = int(tr["batch"])
         self.inputs = traffic.make(tr, seed, device)
         gen = torch.Generator().manual_seed(seed * 8 + 2)

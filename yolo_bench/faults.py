@@ -96,3 +96,6 @@ def half_answers() -> Callable[[], None]:
 
 FAULTS = {"half_batch": half_batch, "state_unchanged": state_unchanged,
           "answers_altered": answers_altered, "half_answers": half_answers}
+# the faults a cell can have, by the entry kind that drives it
+FOR_ENTRY = {"train_step": ("half_batch", "state_unchanged"),
+             "serve_batch": ("answers_altered", "half_answers")}

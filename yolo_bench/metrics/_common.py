@@ -1,14 +1,27 @@
 """Helpers the metric readers share (a reader is ``metrics/<name>.py``
 with ``read(record) -> float | None``; ``record`` holds ``setup_s``,
 ``window`` (host-clock call times), ``trace`` (the traced stretch's
-summary, ``trace.summarize``; None untraced), ``counts``, ``config`` and
-``traffic``)."""
+summary, ``trace.summarize``, the port's own spans under its ``program``;
+None untraced), ``counts``, ``config`` and ``traffic``)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import importlib.util
+from pathlib import Path
+from typing import Callable, Optional
 
 from yolo_bench import counts as C
+
+
+def reader_of(name: str) -> Callable[[dict], Optional[float]]:
+    """The ``read`` of ``metrics/<name>.py``: for a metric that reads what
+    another reads, in cells that report another end-to-end metric."""
+    path = Path(__file__).with_name(f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        "yolo_bench_metric_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
 
 
 def per_call_ms(record: dict, seconds: float) -> Optional[float]:

@@ -5,11 +5,11 @@ device sat idle.
     python -m yolo_bench.program --workload <cell> --seed <n> [--seconds 5]
 
 runs the cell traced, as ``python -m yolo_bench.run --trace 1`` does, prints
-that run's result line and then one JSON line of :func:`program_spans` over
-the traced stretch, in ms a call (a step), with the share of the device's
-idle time that fell inside some program span.  The benchmark's own runs do
-not run this: a metric reader gets ``trace.summarize``'s summary, which
-holds no program spans.
+that run's result line and then one JSON line of the traced stretch's
+program spans (``trace.program_spans``, the summary's ``program``) in ms a
+call (a step), with the share of the device's idle time that fell inside
+some program span.  The benchmark's own runs do not run this; their metric
+readers read the same spans under the summary's ``program``.
 
 The port names its spans ``k210.<stage>`` (its ``utils/trace.span``),
 entered only while a profiler records; a commit of the port without them
@@ -19,174 +19,12 @@ gives an empty table.
 from __future__ import annotations
 
 import argparse
-import bisect
 import json
-import re
 import sys
-from collections import defaultdict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 from yolo_bench import run as R
 from yolo_bench import trace as TR
-
-PREFIX = "k210."
-
-# The profiler's own bookkeeping on the host (kineto's names)
-_PROFILER_OVERHEAD = ("Activity Buffer Request", "Buffer Flush")
-
-
-def _bookkeeping(ev) -> bool:
-    """A CUDA runtime or driver call (``cudaFuncSetAttribute``,
-    ``cuLaunchKernelEx``) or the profiler's own overhead.  Such an event
-    launches no torch op's kernels; where one ran outside every op,
-    ``torch.profiler`` keys it by its CUDA correlation id among the ops'
-    ids and may hand it an unrelated op's kernels, a second copy of
-    them."""
-    return (ev.name.startswith(_PROFILER_OVERHEAD)
-            or re.match(r"cu(da)?[A-Z]", ev.name) is not None)
-
-
-class _Span:
-    """One program span on one thread; ``parent`` the innermost span on
-    that thread that holds it."""
-    __slots__ = ("a", "b", "name", "parent", "child_us")
-
-    def __init__(self, a: float, b: float, name: str, parent):
-        self.a, self.b, self.name, self.parent = a, b, name, parent
-        self.child_us = 0.0
-
-
-def _nest(events) -> List[_Span]:
-    """One thread's program spans, by start, each with its parent."""
-    out: List[_Span] = []
-    stack: List[_Span] = []
-    for a, b, name in sorted(events, key=lambda x: (x[0], -x[1])):
-        while stack and b > stack[-1].b:    # not inside: a sibling's
-            stack.pop()
-        sp = _Span(a, b, name, stack[-1] if stack else None)
-        if sp.parent is not None:
-            sp.parent.child_us += b - a
-        out.append(sp)
-        stack.append(sp)
-    return out
-
-
-def _innermost(spans: List[_Span], starts: List[float],
-               t: float) -> Optional[_Span]:
-    """The latest-starting span that holds ``t``: from the last span to
-    start by ``t``, up its parents."""
-    j = bisect.bisect_right(starts, t) - 1
-    sp = spans[j] if j >= 0 else None
-    while sp is not None and not sp.a <= t <= sp.b:
-        sp = sp.parent
-    return sp
-
-
-def _self_intervals(spans: List[_Span]) -> List[tuple]:
-    """(a, b, span) over the thread's time, where ``span`` is the
-    innermost program span open: each span's range less its children's."""
-    kids: Dict[int, List[_Span]] = defaultdict(list)
-    for sp in spans:
-        if sp.parent is not None:
-            kids[id(sp.parent)].append(sp)
-    out = []
-    for sp in spans:
-        t = sp.a
-        for kid in kids[id(sp)]:            # by start, disjoint
-            if kid.a > t:
-                out.append((t, kid.a, sp))
-            t = max(t, kid.b)
-        if sp.b > t:
-            out.append((t, sp.b, sp))
-    return sorted(out, key=lambda x: x[0])
-
-
-def program_spans(events) -> Dict[str, dict]:
-    """The program's spans (``k210.*``) among a profiler's ``events``, by
-    name (the prefix dropped), in seconds: ``count``; ``host_s``, their
-    summed durations; ``self_s``, those less what nested program spans
-    cover; ``device_s`` (kernels and sets), ``launches`` (kernels) and
-    ``copies_s`` (memcpys) of the device events launched inside the span,
-    nested spans included; ``idle_s``, the device-idle time (the gaps
-    between the device's events, and before the first and after the last
-    within the host's events) that falls inside the span while no nested
-    program span is open, each gap split at the span boundaries.
-
-    A launch belongs to the innermost program span open at its host
-    event's start on the launching thread; from a thread with no program
-    span (autograd's backward thread), to the innermost one holding that
-    time on the calling thread, the one with the most program spans, whose
-    spans also split the idle gaps.  Kernels with no host event (the
-    program's ``ctypes`` libraries) belong to no span, and those the
-    profiler hands a runtime call or its own overhead
-    (:func:`_bookkeeping`) count nowhere.  The device's copies of the
-    ranges (user annotations) are no device time.  Empty where the
-    program has no spans."""
-    dev = [e for e in events if TR._is_device(e) and not TR._is_annotation(e)]
-    host = [e for e in events if not TR._is_device(e)]
-    busy = TR._union([(e.time_range.start, e.time_range.end) for e in dev])
-    by_thread: Dict[int, List[tuple]] = defaultdict(list)
-    for e in host:
-        if e.name.startswith(PREFIX):
-            by_thread[e.thread].append((e.time_range.start,
-                                        e.time_range.end,
-                                        e.name[len(PREFIX):]))
-    if not by_thread:
-        return {}
-    nested = {t: _nest(v) for t, v in by_thread.items()}
-    starts = {t: [sp.a for sp in v] for t, v in nested.items()}
-    main = max(nested, key=lambda t: len(nested[t]))
-
-    out: Dict[str, dict] = {}
-
-    def rec(name: str) -> dict:
-        if name not in out:
-            out[name] = {"count": 0, "host_s": 0.0, "self_s": 0.0,
-                         "device_s": 0.0, "launches": 0, "copies_s": 0.0,
-                         "idle_s": 0.0}
-        return out[name]
-
-    for spans in nested.values():
-        for sp in spans:
-            r = rec(sp.name)
-            r["count"] += 1
-            r["host_s"] += (sp.b - sp.a) / 1e6
-            r["self_s"] += (sp.b - sp.a - sp.child_us) / 1e6
-
-    for e in host:
-        kernels = getattr(e, "kernels", None) or ()
-        if not kernels or _bookkeeping(e):
-            continue
-        thread = e.thread if e.thread in nested else main
-        sp = _innermost(nested[thread], starts[thread], e.time_range.start)
-        while sp is not None:              # the span and every enclosing one
-            r = rec(sp.name)
-            for k in kernels:
-                dur = k.duration / 1e6
-                kind = TR._kind(k.name)
-                if kind == "copy":
-                    r["copies_s"] += dur
-                else:
-                    r["device_s"] += dur
-                    r["launches"] += kind == "kernel"
-            sp = sp.parent
-
-    lo = min(e.time_range.start for e in host)
-    hi = max(e.time_range.end for e in host)
-    edges = [lo] + [x for ab in busy for x in ab] + [hi]
-    gaps = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
-    selfs = _self_intervals(nested[main])
-    j = 0
-    for a, b in gaps:
-        while j < len(selfs) and selfs[j][1] <= a:
-            j += 1
-        k = j
-        while k < len(selfs) and selfs[k][0] < b:
-            lap = min(b, selfs[k][1]) - max(a, selfs[k][0])
-            if lap > 0:
-                rec(selfs[k][2].name)["idle_s"] += lap / 1e6
-            k += 1
-    return out
 
 
 def per_call(program: Dict[str, dict], summary: dict) -> dict:
@@ -214,7 +52,6 @@ def traced(cell: R.Cell, seed: int, seconds: float, device) -> tuple:
 
     def keep(prof, calls, images):
         seen["summary"] = summarize(prof, calls, images)
-        seen["program"] = program_spans(prof.prof.events())
         return seen["summary"]
 
     TR.summarize = keep
@@ -222,7 +59,7 @@ def traced(cell: R.Cell, seed: int, seconds: float, device) -> tuple:
         line = R.run(cell, seed, seconds, True, device)
     finally:
         TR.summarize = summarize
-    return line, per_call(seen["program"], seen["summary"])
+    return line, per_call(seen["summary"]["program"], seen["summary"])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -1,6 +1,7 @@
-"""The two detectors in plain fp32 PyTorch: yolo_mobilev1 (the K210
+"""The detectors in plain fp32 PyTorch: yolo_mobilev1 (the K210
 framework's MobileNetV1 variant under the two-scale head) and YOLOv3
-(darknet53 under the three-scale head).
+(darknet53 under the three-scale head) here, and any other net in a
+builder file of its own, ``builders/<model_def>.py`` (:func:`build`).
 
 Written from the published descriptions (the K210 framework's
 ``mobilenet_v1.py`` / ``yolo.py`` and ``cfg/yolov3.cfg``), not from the
@@ -23,6 +24,10 @@ kernel), which the benchmark's control uses; the default rounds nothing.
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -314,12 +319,51 @@ class YoloV3(nn.Module):
 
 
 BUILDERS = {"yolo_mobilev1": YoloMobileV1, "yolo": YoloV3}
+BUILDER_DIR = Path(__file__).resolve().parent / "builders"
+
+
+def builder_file(model_def: str) -> Optional[ModuleType]:
+    """``builders/<model_def>.py``, loaded by path, for a net that is not in
+    ``BUILDERS``; None for one that is.
+
+    The file defines ``Net(anchors, classes, alpha)``, a module made of
+    this file's ``Conv``, ``BN`` and ``HeadConv`` (``ConvBN``, ``DarkConv``
+    and the like are made of them) whose ``heads(x, ctx)`` takes NCHW
+    images and returns each output layer's raw logits, layer 0 the
+    coarsest grid.  Its output convs are the only convs with a bias, and
+    they are registered in output order (``weights.calibrate`` pairs them
+    with the outputs so).  It may define ``decode(logits, anchors, in_hw,
+    img_hws)`` where its decode is not ``serve.decode``'s, with the same
+    outputs in the same candidate order (layer, row, column, anchor); the
+    net's own constants (a ``scale_x_y``) live in the file."""
+    if model_def in BUILDERS:
+        return None
+    return _load_builder(BUILDER_DIR / f"{model_def}.py", model_def)
+
+
+@functools.lru_cache(maxsize=None)
+def _load_builder(path: Path, model_def: str) -> ModuleType:
+    """A builder file, loaded once a process: every caller of one
+    ``model_def`` gets the same module, and so the same ``Net`` class."""
+    if not path.is_file():
+        raise KeyError(f"unknown model_def {model_def!r}: not in "
+                       f"reference.nets.BUILDERS {sorted(BUILDERS)} and no "
+                       f"builder file {path}")
+    spec = importlib.util.spec_from_file_location(
+        "yolo_bench_builder_" + model_def.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def build(model_def: str, anchors: int, classes: int,
           alpha: float = 1.0) -> nn.Module:
-    """The reference net of ``model_def``, its tensors uninitialised."""
-    return BUILDERS[model_def](anchors, classes, alpha)
+    """The reference net of ``model_def``, its tensors uninitialised:
+    ``BUILDERS``' class, or the ``Net`` of its builder file
+    (:func:`builder_file`)."""
+    mod = builder_file(model_def)
+    return (BUILDERS[model_def] if mod is None else mod.Net)(anchors, classes,
+                                                            alpha)
 
 
 def forward(net: nn.Module, images: torch.Tensor, anchors: int,

@@ -20,8 +20,9 @@ def anchors_of(cfg: dict) -> np.ndarray:
 
 class Serving:
     """Set-up common to the serving entries: inputs, weights (calibrated
-    on the first pool batch), the reference net that holds them, and the
-    program's ``Predictor`` serving them in the configuration's dtype."""
+    on the first pool batch), the reference net that holds them and its
+    decode, and the program's ``Predictor`` serving them in the
+    configuration's dtype."""
 
     def __init__(self, cell, seed: int, device: torch.device):
         self.cell, self.seed, self.device = cell, seed, device
@@ -29,6 +30,9 @@ class Serving:
         self.inputs = traffic.make(tr, seed, device)
         self.ref = RN.build(cfg["model_def"], cfg["anchors_per_layer"],
                             cfg["classes"], cfg.get("alpha", 1.0)).to(device)
+        # the builder file's decode where it has one (nets.builder_file)
+        self.decode = getattr(RN.builder_file(cfg["model_def"]), "decode",
+                              RS.decode)
         weights.make_state(self.ref, cfg, seed * 8, device)
         n = int(cfg["weights"]["calibration_images"])
         weights.calibrate(self.ref, cfg, self.inputs["canvases"][0][:n],
@@ -72,8 +76,8 @@ class Serving:
         images = RS.unit_scale(RS.letterbox(
             canv, hws, cfg["in_hw"], getattr(torch, cfg["precision"])))
         logits = RN.forward(self.ref, images, cfg["anchors_per_layer"])
-        boxes, scores = RS.decode(logits, anchors_of(cfg), cfg["in_hw"],
-                                  hws)
+        boxes, scores = self.decode(logits, anchors_of(cfg), cfg["in_hw"],
+                                    hws)
         kept, live = RS.nms(boxes, scores, tr["obj_thresh"],
                             tr["iou_thresh"], tr["max_out"])
         return boxes, scores, RS.detections(boxes, scores, kept), live

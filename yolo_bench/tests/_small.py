@@ -1,23 +1,27 @@
 """The cells cut to a size the CPU runs in seconds, for the tests: the
-same files, smaller batches and pools, and YOLOv3 at 224x224."""
+same files, smaller batches and pools, and YOLOv3 at 224x224.  A cell's
+cut is ``small/<cell>.json`` (overrides of its ``config``, ``traffic`` and
+``check``, as ``run.Cell`` takes them); a cell with such a file is under
+the tests that run every small cell.  ``control/<cell>.json`` is the size
+at which its control runs (``test_yb_control.py``)."""
+
+import json
+from pathlib import Path
 
 import torch
 
 from yolo_bench import run as R
 
-SMALL = {
-    "v1-serve-b128": {"traffic": {"batch": 8, "pool": 2, "trace_start": 1,
-                                  "trace_calls": 2},
-                      "check": {"sample": 2}},
-    "yolov3-608-eval-b32": {
-        "config": {"in_hw": [224, 224], "out_hws": [[7, 7], [14, 14],
-                                                    [28, 28]]},
-        "traffic": {"batch": 2, "pool": 2, "trace_start": 1,
-                    "trace_calls": 2},
-        "check": {"sample": 2, "ref_block": 2}},
-    "v1-train-b128": {"traffic": {"batch": 6, "pool": 4, "trace_start": 3,
-                                  "trace_calls": 2}},
-}
+HERE = Path(__file__).resolve().parent
+
+
+def _cuts(folder: str) -> dict:
+    return {p.name[:-len(".json")]: json.loads(p.read_text())
+            for p in sorted((HERE / folder).glob("*.json"))}
+
+
+SMALL = _cuts("small")
+CONTROL_SIZES = _cuts("control")
 
 
 def cell(name: str, **more) -> R.Cell:

@@ -1,8 +1,10 @@
 """The work the readers divide by equals counts made by hand."""
 
+import pytest
 import torch
 
 from yolo_bench import counts
+from yolo_bench import run as R
 from yolo_bench.reference import nets as RN
 
 V1 = {"model_def": "yolo_mobilev1", "anchors_per_layer": 3, "classes": 20,
@@ -40,6 +42,17 @@ def test_the_demo_nets_published_work():
     assert counts.forward_flops(V1) == 1464771840
     assert round(counts.forward_flops(dict(YOLO, in_hw=[608, 608])) / 1e9,
                  1) == 139.8
+
+
+@pytest.mark.parametrize("config,forward,train", [
+    ("yolo_mobilev1-a0.75-voc-224x320", 1464771840, 4371091200),
+    ("yolov3-darknet53-voc-608", 139760347136, None)])
+def test_the_configurations_counts_are_as_they_were(config, forward, train):
+    """The counts the readers divide by, from the configuration files."""
+    cfg = R.load_json(R.HERE / "configs" / f"{config}.json")
+    assert counts.forward_flops(cfg) == forward
+    if train is not None:
+        assert counts.train_flops(cfg) == train
 
 
 def test_head_and_rotation_work_by_hand():

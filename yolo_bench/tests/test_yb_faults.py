@@ -1,19 +1,16 @@
 """The harness, its look for a chip skipped, drives a run with the
 program broken underneath, and ``correct`` comes out false: once for each
-fault the cell can have (``yolo_bench/faults.py``).  The limits are the
-cells' own."""
+fault the cell can have (``yolo_bench/faults.py``, by the entry kind that
+drives it), in every cell with a small cut.  The limits are the cells'
+own."""
 
 import pytest
 
 from yolo_bench import faults
 from yolo_bench.tests import _small
 
-CASES = [("v1-train-b128", "half_batch"), ("v1-train-b128",
-                                           "state_unchanged"),
-         ("v1-serve-b128", "answers_altered"),
-         ("v1-serve-b128", "half_answers"),
-         ("yolov3-608-eval-b32", "answers_altered"),
-         ("yolov3-608-eval-b32", "half_answers")]
+CASES = [(name, fault) for name in sorted(_small.SMALL)
+         for fault in faults.FOR_ENTRY[_small.cell(name).traffic["entry"]]]
 
 
 @pytest.mark.parametrize("name,fault", CASES,

@@ -43,6 +43,29 @@ def test_line_keys_and_metrics(name, trace):
         assert set(c) == {"value", "limit"}
 
 
+# what each small cell's check compared at seed 5, and the served and
+# reference detections behind a serving cell's share.  Traced, the window
+# makes at least ``trace_start + trace_calls`` calls, so every pool batch
+# is among its answers however slow the host is.
+PINNED = {
+    "v1-serve-b128": ({"off_share": 0.0}, {"served": 97, "reference": 102}),
+    "yolov3-608-eval-b32": ({"off_share": 0.0074375},
+                            {"served": 8000, "reference": 8000}),
+    "v1-train-b128": ({"loss_gap": 0.001001605632866481,
+                       "grad_median_gap": 0.004794981119466132,
+                       "change_gap": 0.03038773865147507}, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_the_small_cells_check_the_same_numbers(name):
+    line = _small.run(name, trace=True)
+    numbers, detail = PINNED[name]
+    got = {k: v["value"] for k, v in line["check"].items()}
+    assert got == pytest.approx(numbers, rel=1e-6, abs=1e-12)
+    assert {k: line["detail"][k] for k in detail} == detail
+
+
 def _command(cwd, *extra):
     return subprocess.run(
         [sys.executable, "-m", "yolo_bench.run", "--workload",

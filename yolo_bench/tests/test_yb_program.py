@@ -1,7 +1,8 @@
-"""``program.program_spans`` on synthetic event lists: which span a launch
+"""``trace.program_spans`` on synthetic event lists: which span a launch
 and an idle gap belong to, nesting, a launch from another thread; the
-trace summary the same with the program's spans present or not; the
-small cells traced on the CPU, with their spans once a call."""
+trace summary's other keys the same with the program's spans present or
+not, and as they were before it held ``program``; the small cells traced
+on the CPU, with their spans once a call."""
 
 from types import SimpleNamespace
 
@@ -77,7 +78,7 @@ def _summary(events):
 
 
 def test_program_spans_attribute_launches_and_idle():
-    got = P.program_spans(_events())
+    got = TR.program_spans(_events())
     assert set(got) == {"serve.batch", "serve.h2d", "serve.net",
                         "serve.head", "serve.d2h", "train.backward"}
     us = 1e-6
@@ -117,7 +118,7 @@ def test_touching_siblings_do_not_nest():
     host = [_host("k210.serve.batch", 0, 20), _host("k210.serve.d2h", 0, 10),
             _host("k210.serve.detections", 10, 20),
             _host("aten::x", 15, 16, kernels=[("k", 1.0)])]
-    got = P.program_spans(host + [_dev("k", 1, 2)])
+    got = TR.program_spans(host + [_dev("k", 1, 2)])
     assert got["serve.d2h"]["self_s"] == pytest.approx(10e-6)
     assert got["serve.d2h"]["device_s"] == 0.0
     assert got["serve.detections"]["device_s"] == pytest.approx(1e-6)
@@ -137,31 +138,62 @@ def test_bookkeeping_events_launch_nothing(name):
                                        ("Memcpy DtoD", 1.0)]),
             _host(name, 8, 9, thread=AUTOGRAD,
                   kernels=[("other_kernel", 64.0)])]
-    got = P.program_spans(host + [_dev("flat_kernel", 3, 4)])
+    got = TR.program_spans(host + [_dev("flat_kernel", 3, 4)])
     assert got["serve.head"]["device_s"] == pytest.approx(1e-6)
     assert got["serve.head"]["launches"] == 1
     assert got["serve.head"]["copies_s"] == 0.0
-    assert not P._bookkeeping(SimpleNamespace(name="aten::cumsum"))
-    assert not P._bookkeeping(SimpleNamespace(name="custom_op"))
+    assert not TR._bookkeeping(SimpleNamespace(name="aten::cumsum"))
+    assert not TR._bookkeeping(SimpleNamespace(name="custom_op"))
 
 
 def test_no_program_spans_give_an_empty_table():
-    assert P.program_spans(_events(program=False)) == {}
+    assert TR.program_spans(_events(program=False)) == {}
 
 
 def test_the_summary_is_the_same_with_the_program_spans():
     """The device's copies of the ranges count as no device time.  The idle
     gaps are the same gaps, named now after the innermost host event under
-    way, which a program span can be."""
-    with_spans = _summary(_events(program=True))
+    way, which a program span can be.  ``program`` is empty without the
+    program's spans and ``program_spans``' table with them."""
+    events = _events(program=True)
+    with_spans = _summary(events)
     without = _summary(_events(program=False))
     gaps_with, gaps_without = (with_spans.pop("idle_gaps"),
                                without.pop("idle_gaps"))
+    assert without.pop("program") == {}
+    program = with_spans.pop("program")
+    assert program == TR.program_spans(events)
+    for rec in program.values():
+        assert {"count", "device_s", "launches", "copies_s",
+                "idle_s"} <= set(rec)
+    assert program["serve.net"]["launches"] == 1
     assert with_spans == without
     assert sum(gaps_with.values()) == pytest.approx(
         sum(gaps_without.values()))
     assert max(gaps_without, key=gaps_without.get) == "yb.call"
-    assert max(gaps_with, key=gaps_with.get).startswith(P.PREFIX)
+    assert max(gaps_with, key=gaps_with.get).startswith(TR.PROGRAM_PREFIX)
+
+
+# ``summarize`` of ``_events()`` before it held ``program``
+_SPANS = {"call": {"copies_s": 1.4000000000000001e-05,
+                   "device_s": 1.5000000000000002e-05, "launches": 2,
+                   "ops": {"Memcpy DtoH": 4e-06, "Memcpy HtoD": 1e-05,
+                           "conv_kernel": 1e-05, "flat_kernel": 5e-06}}}
+_BEFORE = {"busy_s": 4.9e-05, "calls": 1,
+           "copies_s": 1.4000000000000001e-05,
+           "device_ops": {"Memcpy DtoH": 4e-06, "Memcpy HtoD": 1e-05,
+                          "bwd_kernel": 2e-05, "conv_kernel": 1e-05,
+                          "flat_kernel": 5e-06},
+           "images": 8, "launches": 3, "spans": _SPANS, "window_s": 0.00014}
+
+
+@pytest.mark.parametrize("program", [True, False], ids=["k210", "none"])
+def test_the_summary_keeps_its_keys_as_they_were(program):
+    got = _summary(_events(program=program))
+    got.pop("program")
+    assert got == dict(_BEFORE, idle_gaps=(
+        {"k210.serve.batch": 4.9e-05, "k210.serve.head": 1.2e-05,
+         "k210.serve.net": 2e-05} if program else {"yb.call": 8.1e-05}))
 
 
 def test_per_call_is_ms_a_call():
@@ -178,25 +210,23 @@ def test_per_call_is_ms_a_call():
          "launches": 40, "copies_ms": 0.0, "idle_ms": 0.5})
 
 
-SPANS = {"v1-serve-b128": ["serve.batch", "serve.h2d", "serve.letterbox",
-                           "serve.net", "serve.head", "serve.d2h",
-                           "serve.detections"],
-         "yolov3-608-eval-b32": ["serve.batch", "serve.h2d",
-                                 "serve.letterbox", "serve.net",
-                                 "serve.head", "serve.d2h",
-                                 "serve.detections"],
-         "v1-train-b128": ["train.step", "train.preprocess",
-                           "train.forward", "train.loss", "train.backward",
-                           "train.optimizer", "train.metrics",
-                           "preprocess.letterbox", "preprocess.augment",
-                           "preprocess.normalize", "preprocess.encode"]}
+# the program's stages a call, by the entry kind that drives the cell
+SPANS = {"serve_batch": ["serve.batch", "serve.h2d", "serve.letterbox",
+                         "serve.net", "serve.head", "serve.d2h",
+                         "serve.detections"],
+         "train_step": ["train.step", "train.preprocess", "train.forward",
+                        "train.loss", "train.backward", "train.optimizer",
+                        "train.metrics", "preprocess.letterbox",
+                        "preprocess.augment", "preprocess.normalize",
+                        "preprocess.encode"]}
 
 
-@pytest.mark.parametrize("name", sorted(SPANS))
+@pytest.mark.parametrize("name", sorted(_small.SMALL))
 def test_small_cell_traced_has_its_spans_once_a_call(name):
-    line, table = P.traced(_small.cell(name), 5, 0.3, torch.device("cpu"))
+    cell = _small.cell(name)
+    line, table = P.traced(cell, 5, 0.3, torch.device("cpu"))
     assert line["correct"] is True, line["check"]
     calls = table["calls"]
     assert calls == _small.SMALL[name]["traffic"]["trace_calls"]
-    for stage in SPANS[name]:
+    for stage in SPANS[cell.traffic["entry"]]:
         assert table["spans"][stage]["count"] == calls, stage

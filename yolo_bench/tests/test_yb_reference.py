@@ -1,5 +1,6 @@
 """The plain reference agrees with the port at tiny sizes on the CPU, in
-fp32: both builders' forward, the decode and NMS, one train step."""
+fp32: the builders' forward (tiny_yolo's from its builder file), the
+decode and NMS, one train step."""
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ YOLO = dict(V1, model_def="yolo", in_hw=[64, 64],
             anchors=[[[0.6, 0.5], [0.3, 0.3], [0.2, 0.2]],
                      [[0.1, 0.2], [0.1, 0.1], [0.1, 0.2]],
                      [[0.02, 0.02], [0.03, 0.05], [0.05, 0.04]]])
+# tiny_yolo's reference is a builder file (``reference/builders``)
+TINY = dict(V1, model_def="tiny_yolo")
 CPU = torch.device("cpu")
 
 
@@ -44,7 +47,8 @@ def _program_net(cfg, state):
     return net.eval()
 
 
-@pytest.mark.parametrize("cfg", [V1, YOLO], ids=["yolo_mobilev1", "yolo"])
+@pytest.mark.parametrize("cfg", [V1, YOLO, TINY],
+                         ids=["yolo_mobilev1", "yolo", "tiny_yolo"])
 @torch.no_grad()
 def test_forward_and_letterbox_match_the_port(cfg):
     from k210_yolo_framework_tpu_torch.ops import letterbox as LB

@@ -90,13 +90,18 @@ def calibrate(net: torch.nn.Module, cfg: dict, canvases: torch.Tensor,
     """Set every BatchNorm's running statistics to those of its input over
     these images, letterboxed and scaled to [0, 1] by the reference, then
     each output conv's bias to centre its channels there (plus
-    ``conf_bias`` on objectness)."""
+    ``conf_bias`` on objectness).  The output convs are the net's convs
+    with a bias, in the order the net registers them, which is the order
+    of its outputs (``nets.builder_file``)."""
     RN.ensure_fp32()
     images = RS.unit_scale(RS.letterbox(canvases, img_hws, cfg["in_hw"]))
     na = cfg["anchors_per_layer"]
     RN.forward(net, images, na, RN.Ctx("calibrate"))
     outs = RN.forward(net, images, na)
     heads = [m for _, m in RN.conv_layers(net) if m.bias is not None]
+    if len(heads) != len(outs):
+        raise ValueError(f"{cfg['model_def']}: {len(heads)} convs with a "
+                         f"bias, {len(outs)} outputs")
     step = 5 + cfg["classes"]
     w = cfg["weights"]
     target = torch.full((step,), float(w["box_logit_std"]),
