@@ -9,7 +9,8 @@ the greedy kernels' global path, the stem modes and data-parallel serving
 the model and space axes (phase 20: yolo_mobilev1; phase 21: the other
 three builders), quantized and patches serving on those axes (phase 22),
 the benchmark program and the entry contracts (phase 23), and the conv
-epilogue on the served nets (phase 24).
+epilogue on the served nets, YOLOv4's Mish and its head's ``scale_x_y``
+among them (phase 24).
 
     python3 chip_smoke.py
 
@@ -253,14 +254,20 @@ Phases (any failure raises and the script exits non-zero):
      processes sharing the card) and 1 (NCCL);
  24. the conv epilogue (``ops.conv_epilogue``, ``csrc/conv_epilogue.cu``)
      on the benchmark's served shapes: yolo_mobilev1 (alpha 0.75) at
-     224x320, B=128, and the darknet53 yolo at 608x608, B=32, bf16, every
-     BatchNorm drawn.  One ``predict_batch`` each, the launch count zeroed
-     just before it: one launch per ConvBN (30 and 72), and each call's
-     output bit for bit ``conv_epilogue_reference``'s on its arguments;
-     then all of a forward's calls timed against their plain versions and
-     the bytes bound, the profiler's tie of each kernel to its
-     ``k210::conv_epilogue`` op (every one must hold its kernel), and the
-     wrapper's host microseconds a call.
+     224x320, B=128, and the darknet53 yolo and YOLOv4 at 608x608, B=32,
+     bf16, every BatchNorm drawn.  One ``predict_batch`` each, the launch
+     count zeroed just before it: one launch per ConvBN (30, 72 and 107,
+     YOLOv4's 72 Mish calls among them), each leaky, ReLU and linear
+     call's output bit for bit ``conv_epilogue_reference``'s on its
+     arguments and each Mish call's within 8 fp32 ulps (plus one bf16 ulp
+     for a bf16 store); then all of a forward's calls timed against their
+     plain versions and the bytes bound, the profiler's tie of each kernel
+     to its ``k210::conv_epilogue`` op (every one must hold its kernel; 72
+     ``epilogue_mish_kernel`` for YOLOv4), and the wrapper's host
+     microseconds a call.  YOLOv4's head, with the net's ``scale_x_y``
+     taken by the ``Predictor``, on the served logits at the eval settings
+     (global path): the kernel bit for bit its plain version
+     ``_decode_and_select``, and timed.
 
 Beside every kernel time the script prints the bound it computes from the
 same inputs: the larger of the bytes the kernel must move over HBM's rate
@@ -270,7 +277,8 @@ Greedy NMS counts only the candidates each step has to test.
 The next-to-last line is one JSON object describing each kernel (``ms``
 by CUDA events; the head, the rotation and NMS also carry ``device_ms``;
 the head and NMS also their launches and times on the global path; the
-epilogue its 608x608 times under ``yolo608``);
+epilogue its 608x608 times under ``yolo608`` and ``yolov4``, the
+latter with its Mish figures and its head under ``head``);
 the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported: the
 script imports only the port, which imports nothing of the JAX package.
@@ -4197,11 +4205,21 @@ def bench_entry_phase(device, tag, serve_ips, step_ms, fused_ms):
 
 
 # ---- 24. the conv epilogue ------------------------------------------------
-# (builder, alpha, input, batch, canvas, ConvBNs): the served shapes of the
-# benchmark's two serving cells
-EPILOGUE_NETS = (("yolo_mobilev1", 0.75, (224, 320), BATCH, CANVAS_HW, 30),
+# (builder, alpha, input, batch, canvas, ConvBNs, of them Mish): the served
+# shapes of the benchmark's three serving cells
+EPILOGUE_NETS = (("yolo_mobilev1", 0.75, (224, 320), BATCH, CANVAS_HW, 30,
+                  0),
                  ("yolo", 1.0, (BIG_SIDE, BIG_SIDE), EVAL_BATCH, (512, 512),
-                  72))
+                  72, 0),
+                 ("yolov4", 1.0, (BIG_SIDE, BIG_SIDE), EVAL_BATCH,
+                  (512, 512), 107, 72))
+# the Mish kernel against F.mish (tests/test_torch_cuda_yolov4.py): within
+# 8 fp32 ulps of the operands' magnitude, plus one bf16 ulp of the value
+# for a bf16 store, and a bf16 store differing in under 1% of its values
+MISH_FP32_ULPS = 8
+MISH_BF16_DIFFER_SHARE = 0.01
+# the head's eval settings (keras_eval): obj 0.01, NMS 0.45, 100 a class
+EVAL_THRESH, EVAL_IOU, EVAL_MAX_OUT = 0.01, 0.45, 100
 
 
 def bits(t):
@@ -4259,10 +4277,41 @@ def recorded_epilogues(pred, canvases, hws):
     return launches, calls
 
 
+EPILOGUE_KERNELS = ("epilogue_kernel", "epilogue_mish_kernel")
+
+
+def is_epilogue_kernel(name: str) -> bool:
+    return any(k in name for k in EPILOGUE_KERNELS)
+
+
+def mish_outside(kw, got, want) -> tuple:
+    """A Mish call's kernel output ``got`` against its plain version
+    ``want``: (values outside MISH_FP32_ULPS's tolerance or NaN where the
+    other is not, the largest difference, the share of values that
+    differ)."""
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
+
+    core = TE.conv_epilogue_reference(**{**kw, "residual": None,
+                                         "store": torch.float32}).abs()
+    size = core if kw["residual"] is None else core + kw["residual"].abs()
+    tol = MISH_FP32_ULPS * torch.finfo(torch.float32).eps * size + 1e-37
+    if kw["store"] == torch.bfloat16:
+        tol = tol + torch.finfo(torch.bfloat16).eps * want.float().abs()
+    ok = ~want.isnan()
+    # equal infinities differ by NaN: count them as equal
+    err = torch.where(got == want, 0.0, (got.float() - want.float()).abs())
+    outside = int((got.isnan() != want.isnan()).sum()) \
+        + int((err[ok] > tol[ok]).sum())
+    return (outside, float(err[ok].max()),
+            float((got != want)[ok].float().mean()))
+
+
 def epilogue_profile(fn) -> tuple:
     """One ``fn()`` under torch.profiler: (``k210::conv_epilogue`` host
     ops, those holding an epilogue kernel, epilogue kernels on the card,
-    their device ms)."""
+    their device ms, of those kernels the Mish ones)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4273,12 +4322,13 @@ def epilogue_profile(fn) -> tuple:
         torch.cuda.synchronize()
     events = prof.events()
     ops = [e for e in events if e.name == "k210::conv_epilogue"]
-    held = sum(any("epilogue_kernel" in k.name for k in e.kernels)
+    held = sum(any(is_epilogue_kernel(k.name) for k in e.kernels)
                for e in ops)
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and "epilogue_kernel" in e.name]
+           and is_epilogue_kernel(e.name)]
     return (len(ops), held, len(dev),
-            sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+            sum("epilogue_mish_kernel" in e.name for e in dev))
 
 
 def epilogue_host_us(device, n: int = 2000) -> tuple:
@@ -4307,18 +4357,83 @@ def epilogue_host_us(device, n: int = 2000) -> tuple:
     return tuple(out)
 
 
+def v4_head_phase(pred, c_dev, h_dev, device, tag) -> dict:
+    """YOLOv4's head at 608x608 with ``scale_x_y`` on the served net's own
+    logits, at the eval settings: the kernel (global path) against its
+    plain version ``_decode_and_select``, bit for bit, and timed by
+    ``time_head``; the same logits decoded with s = 1 give other boxes.
+    Returns the head's JSON fields."""
+    import dataclasses
+
+    import torch
+
+    from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
+    from k210_yolo_framework_tpu_torch.ops.nms import finish_winners
+
+    spec = pred.spec
+    if not spec.scale_x_y or spec.scale_x_y != tuple(pred.net.scale_x_y):
+        raise AssertionError(f"the Predictor's spec has scale_x_y "
+                             f"{spec.scale_x_y}, not the net's")
+    logits = pred._forward_batch(c_dev, h_dev)
+    bsz = logits[0].shape[0]
+    kw = dict(classes=spec.class_num, max_out=EVAL_MAX_OUT,
+              iou_thresh=EVAL_IOU)
+    lbox = TH.letterbox_inverse_params(h_dev, spec.in_hw).contiguous()
+    p = TH._flatten_preds(logits, spec.class_num)
+    n = p.shape[1]
+
+    def winners(s, plain):
+        geom = TH._geometry_on(s, device)
+        if plain:
+            w_s, *w_box = TH._decode_and_select(
+                p, geom, lbox, class_softmax=False, stop_below=EVAL_THRESH,
+                **kw)
+            return finish_winners(w_s, torch.stack(w_box, dim=-1),
+                                  EVAL_THRESH)
+        return finish_winners(*TH._launch(
+            p, geom, lbox, score_thresh=EVAL_THRESH, class_softmax=False,
+            **kw), EVAL_THRESH)
+
+    layout = TH._plan(device, bsz, n, spec.class_num)[0]
+    geom = TH._geometry_on(spec, device)
+    got, want = winners(spec, False), winners(spec, True)
+    differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+    one = winners(dataclasses.replace(spec, scale_x_y=()), False)
+    moved = not torch.equal(one.boxes, got.boxes)
+    kept = int(got.valid.sum())
+    print(f"head yolov4 {spec.in_hw[0]}x{spec.in_hw[1]} b{bsz} (N={n}, "
+          f"{layout} layout, geometry rows 6-7 "
+          f"{sorted({round(float(v), 4) for v in geom[6]})} / "
+          f"{sorted({round(float(v), 4) for v in geom[7]})}), eval "
+          f"settings: kernel vs plain elements_differing={differ}, kept "
+          f"{kept}; the same logits at s = 1 move the boxes: {moved} {tag}")
+    if layout != "global" or differ or not kept or not moved:
+        raise AssertionError(f"head yolov4: {layout} layout, {differ} "
+                             f"differ, {kept} kept, s = 1 moves: {moved}")
+    k_ms, p_ms, b_ms, by, dev_k = time_head(
+        "yolov4 eval", spec, logits, h_dev, EVAL_THRESH, EVAL_MAX_OUT,
+        EVAL_IOU, device, tag, plain_iters=2, kern_iters=5)
+    return dict(n=n, batch=bsz, layout=layout, elements_differing=differ,
+                kept=kept, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=by, device_ms=dev_k)
+
+
 def epilogue_phase(device, tag) -> dict:
     """Phase 24: the conv epilogue on the served nets, yolo_mobilev1 (alpha
-    0.75) at 224x320, B=128, and the darknet53 yolo at 608x608, B=32, bf16,
-    seeded, every BatchNorm drawn.  Each is served once through
-    ``predict_batch``: one launch per ConvBN, and every call's output bit
-    for bit its plain version's on the same arguments.  Then the times
-    over all of a forward's calls (plain, kernel, kernel, plain), against
-    the bytes bound (x read once in its dtype, the residual once in fp32,
-    the output written once in its store dtype); whether the profiler ties
-    each kernel to its ``k210::conv_epilogue`` op; and the wrapper's host
-    cost a call.  Returns the kernel's JSON fields (yolo_mobilev1's at the
-    top, yolo's under ``yolo608``)."""
+    0.75) at 224x320, B=128, and the darknet53 yolo and YOLOv4 at 608x608,
+    B=32, bf16, seeded, every BatchNorm drawn.  Each is served once through
+    ``predict_batch``: one launch per ConvBN (YOLOv4: 107, 72 of them
+    Mish), every leaky, ReLU and linear call's output bit for bit its
+    plain version's on the same arguments, and every Mish call's within
+    MISH_FP32_ULPS of it.  Then the times over all of a forward's calls
+    (plain, kernel, kernel, plain), against the bytes bound (x read once
+    in its dtype, the residual once in fp32, the output written once in
+    its store dtype); whether the profiler ties each kernel to its
+    ``k210::conv_epilogue`` op; and the wrapper's host cost a call.
+    YOLOv4's head is held to its plain version with ``scale_x_y``
+    (:func:`v4_head_phase`).  Returns the kernel's JSON fields
+    (yolo_mobilev1's at the top, yolo's under ``yolo608``, YOLOv4's under
+    ``yolov4``)."""
     import torch
 
     from k210_yolo_framework_tpu_torch.inference import Predictor
@@ -4326,8 +4441,8 @@ def epilogue_phase(device, tag) -> dict:
     from k210_yolo_framework_tpu_torch.ops import conv_epilogue as TE
 
     fields, launches = {}, 0
-    for name, alpha, in_hw, bsz, canvas, n_convbn in EPILOGUE_NETS:
-        spec = builder_spec(2 if name != "yolo" else 3, in_hw)
+    for name, alpha, in_hw, bsz, canvas, n_convbn, n_mish in EPILOGUE_NETS:
+        spec = builder_spec(2 if name == "yolo_mobilev1" else 3, in_hw)
         net = drawn_bn(build_network(
             name, in_hw, spec.nanchors, spec.class_num, alpha=alpha,
             generator=torch.Generator().manual_seed(0)), seed=1)
@@ -4340,18 +4455,36 @@ def epilogue_phase(device, tag) -> dict:
         with torch.inference_mode():
             n, calls = recorded_epilogues(pred, canvases, hws)
             launches += n
-            differ = 0
+            differ, mish, outside, mish_err, mish_share = 0, 0, 0, 0.0, 0.0
             for kw, got in calls:
                 want = TE.conv_epilogue_reference(**kw)
-                differ += not (got.dtype == want.dtype
-                               and torch.equal(bits(got), bits(want)))
+                if got.dtype != want.dtype:
+                    differ += 1
+                elif kw["act"] == "mish":
+                    mish += 1
+                    out_k, err_k, share_k = mish_outside(kw, got, want)
+                    outside += out_k
+                    mish_err = max(mish_err, err_k)
+                    if kw["store"] == torch.bfloat16:
+                        mish_share = max(mish_share, share_k)
+                else:
+                    differ += not torch.equal(bits(got), bits(want))
+                del want
             print(f"epilogue {name} {in_hw[0]}x{in_hw[1]} b{bsz} bf16: "
                   f"{n} launches in one predict_batch, {len(calls)} ConvBN "
-                  f"calls, {differ} differing from the plain version "
-                  f"(bit for bit)")
-            if n != n_convbn or len(calls) != n_convbn or differ:
+                  f"calls, {differ} of the {len(calls) - mish} others "
+                  f"differing from the plain version (bit for bit); {mish} "
+                  f"Mish calls: {outside} values outside "
+                  f"{MISH_FP32_ULPS} fp32 ulps, max_abs_err {mish_err:.3g}, "
+                  f"bf16 stores differing in at most "
+                  f"{100 * mish_share:.3f}% of their values")
+            if n != n_convbn or len(calls) != n_convbn or differ \
+                    or mish != n_mish or outside \
+                    or mish_share >= MISH_BF16_DIFFER_SHARE:
                 raise AssertionError(f"epilogue {name}: {n} launches, "
-                                     f"{len(calls)} calls, {differ} differ")
+                                     f"{len(calls)} calls, {differ} differ, "
+                                     f"{mish} Mish, {outside} outside, "
+                                     f"{mish_share} bf16 share")
             args = [kw for kw, _ in calls]
             del calls
             k_ms, p_ms, (p1, k1, k2, p2) = alternating(
@@ -4359,8 +4492,10 @@ def epilogue_phase(device, tag) -> dict:
                 lambda: [TE.conv_epilogue(**kw) for kw in args], 3, 10)
             c_dev = torch.from_numpy(canvases).to(device)
             h_dev = torch.from_numpy(hws).to(device)
-            ops, held, kernels, dev_ms = epilogue_profile(
+            ops, held, kernels, dev_ms, mish_k = epilogue_profile(
                 lambda: pred._forward_batch(c_dev, h_dev))
+            head = (v4_head_phase(pred, c_dev, h_dev, device, tag)
+                    if name == "yolov4" else None)
         nbytes = sum(kw["x"].numel() * (
             kw["x"].element_size() + kw["store"].itemsize
             + (4 if kw["residual"] is not None else 0)) for kw in args)
@@ -4371,13 +4506,21 @@ def epilogue_phase(device, tag) -> dict:
               f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms (bytes; "
               f"{100 * b_ms / k_ms:.1f}% of it); profiler: {held} of {ops} "
               f"k210::conv_epilogue ops hold their kernel, {kernels} "
-              f"kernels, {dev_ms:.4f} ms {tag}")
-        if ops != n_convbn or held != n_convbn or kernels != n_convbn:
+              f"kernels ({mish_k} epilogue_mish_kernel), {dev_ms:.4f} ms "
+              f"{tag}")
+        if ops != n_convbn or held != n_convbn or kernels != n_convbn \
+                or mish_k != n_mish:
             raise AssertionError(f"epilogue {name}: the profiler tied "
-                                 f"{held} of {ops} ops to {kernels} kernels")
+                                 f"{held} of {ops} ops to {kernels} kernels, "
+                                 f"{mish_k} of them Mish")
         fields[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by="bytes", profiled_ms=dev_ms,
                             calls=n_convbn)
+        if n_mish:
+            fields[name].update(mish_calls=n_mish, mish_max_abs_err=mish_err,
+                                mish_bf16_differ_share=mish_share)
+        if head is not None:
+            fields[name]["head"] = head
         del pred, net, args, c_dev, h_dev
         torch.cuda.empty_cache()
     wrap_us, plain_us = epilogue_host_us(device)
@@ -4385,7 +4528,8 @@ def epilogue_phase(device, tag) -> dict:
           f"plain version {plain_us:.1f} us {tag}")
     return {"launches": launches, "max_abs_err": 0.0,
             **fields["yolo_mobilev1"], "library_ms": None,
-            "host_us": wrap_us, "yolo608": fields["yolo"]}
+            "host_us": wrap_us, "yolo608": fields["yolo"],
+            "yolov4": fields["yolov4"]}
 
 
 def main() -> int:

@@ -36,18 +36,27 @@ class YoloSpec:
     anchors:
         normalised anchor (w, h) pairs, shape [layers, anchor_num, 2], the
         ``data/{set}_anchor.npy`` layout.  Layer 0 holds the biggest anchors.
+    scale_x_y:
+        per-layer darknet ``scale_x_y`` s of the decode, ``x = (sigmoid(tx)
+        * s - (s - 1) / 2 + gx) / gw`` (YOLOv4: 1.05, 1.1, 1.2); empty, the
+        default, means 1 on every layer.  The port's own field (the JAX
+        package decodes with s = 1); it is left out of the hash, so a spec
+        without it hashes as it did.
     """
 
     in_hw: Tuple[int, int]
     out_hws: Tuple[Tuple[int, int], ...]
     class_num: int
     anchors: Tuple[Tuple[Tuple[float, float], ...], ...]
+    scale_x_y: Tuple[float, ...] = dataclasses.field(default=(), hash=False)
 
     # ---- constructors -----------------------------------------------------
 
     @classmethod
-    def create(cls, in_hw, out_hws, class_num, anchors) -> "YoloSpec":
-        """Build a spec from array-likes (anchors: [L, A, 2])."""
+    def create(cls, in_hw, out_hws, class_num, anchors,
+               scale_x_y=()) -> "YoloSpec":
+        """Build a spec from array-likes (anchors: [L, A, 2]; ``scale_x_y``
+        empty or one a layer)."""
         anchors = np.asarray(anchors, dtype=np.float64)
         if anchors.ndim != 3 or anchors.shape[-1] != 2:
             raise ValueError(f"anchors must be [layers, anchor_num, 2], got "
@@ -57,12 +66,17 @@ class YoloSpec:
         if len(out_hws) != anchors.shape[0]:
             raise ValueError(f"{len(out_hws)} output grids but "
                              f"{anchors.shape[0]} anchor layers")
+        scale_x_y = tuple(float(v) for v in scale_x_y)
+        if scale_x_y and len(scale_x_y) != len(out_hws):
+            raise ValueError(f"{len(scale_x_y)} scale_x_y values for "
+                             f"{len(out_hws)} output grids")
         return cls(
             in_hw=tuple(int(v) for v in in_hw),
             out_hws=out_hws,
             class_num=int(class_num),
             anchors=tuple(tuple(tuple(float(v) for v in a) for a in layer)
                           for layer in anchors),
+            scale_x_y=scale_x_y,
         )
 
     @classmethod
@@ -81,6 +95,10 @@ class YoloSpec:
     @property
     def nanchors(self) -> int:
         return len(self.anchors[0])
+
+    def xy_scale(self, layer: int) -> float:
+        """``scale_x_y`` of ``layer`` (1 where the spec has none)."""
+        return self.scale_x_y[layer] if self.scale_x_y else 1.0
 
     @property
     def nchannels(self) -> int:

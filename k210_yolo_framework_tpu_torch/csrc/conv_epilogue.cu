@@ -16,6 +16,12 @@
 //   4. the activation: ReLU as clamp_min(0) (NaN kept), ReLU6 as clamp(0, 6)
 //      (NaN kept), LeakyReLU as x > 0 ? x : x * alpha, in the expressions
 //      PyTorch's own CUDA kernels use, so -0, NaN and inf come out alike;
+//      Mish (YOLOv4) as x * tanh(softplus(x)) with one exp, e = exp(x):
+//      tanh(log(1 + e)) = (e^2 + 2e) / (e^2 + 2e + 2), and x above 20 (NaN
+//      and +inf too) passes through, as darknet's softplus threshold does.
+//      That is F.mish within a few fp32 ulps, not bit for bit: PyTorch
+//      computes tanh(log1p(exp(x))).  Mish runs in a kernel of its own,
+//      epilogue_mish_kernel, so that a device trace names it;
 //   5. + residual in fp32;
 //   6. one rounding to the store dtype (fp32, or x's dtype where every
 //      consumer would cast to it first: the same bits as its .to()).
@@ -46,7 +52,7 @@ constexpr int kThreads = 256;
 constexpr int kVec = 8;
 constexpr int kBlocksPerSm = 2048 / kThreads;
 
-enum Act { kNone = 0, kRelu = 1, kRelu6 = 2, kLeaky = 3 };
+enum Act { kNone = 0, kRelu = 1, kRelu6 = 2, kLeaky = 3, kMish = 4 };
 enum Layout { kChannelsLast = 0, kScalar = 1 };
 enum Type { kF32 = 0, kBF16 = 1 };
 
@@ -96,8 +102,17 @@ __device__ __forceinline__ void store8(T* p, const float (&v)[kVec]) {
     reinterpret_cast<uint4*>(p)[k] = pk.w[k];
 }
 
-// steps 1-4 on one element read as `x` (already widened)
-template <typename Tin>
+// x * tanh(softplus(x)) in fp32 with one exp; NaN, +inf and x > 20 pass
+__device__ __forceinline__ float mish(float x) {
+  if (!(x <= 20.0f)) return x;
+  const float e = expf(x);
+  const float n = __fadd_rn(__fmul_rn(e, e), __fmul_rn(2.0f, e));
+  return __fmul_rn(x, __fdiv_rn(n, __fadd_rn(n, 2.0f)));
+}
+
+// steps 1-4 on one element read as `x` (already widened); kMishAct
+// instantiates the Mish kernel, which ignores `act`
+template <typename Tin, bool kMishAct>
 __device__ __forceinline__ float epilogue(float x, bool scaled, float s,
                                           float mean, float mul, float bias,
                                           int act, float alpha) {
@@ -105,6 +120,7 @@ __device__ __forceinline__ float epilogue(float x, bool scaled, float s,
   float v = __fsub_rn(x, mean);
   v = __fmul_rn(v, mul);
   v = __fadd_rn(v, bias);
+  if (kMishAct) return mish(v);
   switch (act) {
     case kRelu:
       v = isnan(v) ? v : fmaxf(v, 0.0f);
@@ -121,16 +137,14 @@ __device__ __forceinline__ float epilogue(float x, bool scaled, float s,
   return v;
 }
 
-template <typename Tin, typename Tout, int kLayout>
-__global__ void __launch_bounds__(kThreads)
-    epilogue_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
-                    const float* __restrict__ mean,
-                    const float* __restrict__ mul,
-                    const float* __restrict__ bias,
-                    const Tin* __restrict__ scale,
-                    const float* __restrict__ res, int images,
-                    uint32_t per_image, uint32_t channels, uint32_t inner,
-                    int act, float alpha) {
+// the body of both kernels
+template <typename Tin, typename Tout, int kLayout, bool kMishAct>
+__device__ __forceinline__ void epilogue_body(
+    const Tin* __restrict__ x, Tout* __restrict__ out,
+    const float* __restrict__ mean, const float* __restrict__ mul,
+    const float* __restrict__ bias, const Tin* __restrict__ scale,
+    const float* __restrict__ res, int images, uint32_t per_image,
+    uint32_t channels, uint32_t inner, int act, float alpha) {
   const bool scaled = scale != nullptr;
   const uint32_t step = gridDim.x * kThreads;
   for (int b = blockIdx.y; b < images; b += gridDim.y) {
@@ -143,8 +157,9 @@ __global__ void __launch_bounds__(kThreads)
       for (uint32_t i = blockIdx.x * kThreads + threadIdx.x; i < per_image;
            i += step) {
         const uint32_t c = (i / inner) % channels;
-        float v = epilogue<Tin>(widen(xb[i]), scaled, s, __ldg(mean + c),
-                                __ldg(mul + c), __ldg(bias + c), act, alpha);
+        float v = epilogue<Tin, kMishAct>(widen(xb[i]), scaled, s,
+                                          __ldg(mean + c), __ldg(mul + c),
+                                          __ldg(bias + c), act, alpha);
         if (rb) v = __fadd_rn(v, __ldg(rb + i));
         ob[i] = narrow<Tout>(v);
       }
@@ -162,7 +177,8 @@ __global__ void __launch_bounds__(kThreads)
       load8(bias + c0, h);
 #pragma unroll
       for (int k = 0; k < kVec; ++k)
-        v[k] = epilogue<Tin>(v[k], scaled, s, m[k], g[k], h[k], act, alpha);
+        v[k] = epilogue<Tin, kMishAct>(v[k], scaled, s, m[k], g[k], h[k],
+                                       act, alpha);
       if (rb) {
         float r[kVec];
         load8(rb + i, r);
@@ -172,6 +188,38 @@ __global__ void __launch_bounds__(kThreads)
       store8(ob + i, v);
     }
   }
+}
+
+// none, ReLU, ReLU6 and LeakyReLU
+template <typename Tin, typename Tout, int kLayout>
+__global__ void __launch_bounds__(kThreads)
+    epilogue_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ mul,
+                    const float* __restrict__ bias,
+                    const Tin* __restrict__ scale,
+                    const float* __restrict__ res, int images,
+                    uint32_t per_image, uint32_t channels, uint32_t inner,
+                    int act, float alpha) {
+  epilogue_body<Tin, Tout, kLayout, false>(x, out, mean, mul, bias, scale,
+                                           res, images, per_image, channels,
+                                           inner, act, alpha);
+}
+
+// Mish
+template <typename Tin, typename Tout, int kLayout>
+__global__ void __launch_bounds__(kThreads)
+    epilogue_mish_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
+                         const float* __restrict__ mean,
+                         const float* __restrict__ mul,
+                         const float* __restrict__ bias,
+                         const Tin* __restrict__ scale,
+                         const float* __restrict__ res, int images,
+                         uint32_t per_image, uint32_t channels,
+                         uint32_t inner, int act, float alpha) {
+  epilogue_body<Tin, Tout, kLayout, true>(x, out, mean, mul, bias, scale,
+                                          res, images, per_image, channels,
+                                          inner, act, alpha);
 }
 
 template <typename Tin, typename Tout>
@@ -190,14 +238,16 @@ cudaError_t launch(const void* x, void* out, const float* mean,
   const Tin* xi = static_cast<const Tin*>(x);
   Tout* o = static_cast<Tout*>(out);
   const Tin* sc = static_cast<const Tin*>(scale);
-  if (layout == kChannelsLast)
-    epilogue_kernel<Tin, Tout, kChannelsLast><<<grid, kThreads, 0, stream>>>(
-        xi, o, mean, mul, bias, sc, res, images, per_image, channels, inner,
-        act, alpha);
-  else
-    epilogue_kernel<Tin, Tout, kScalar><<<grid, kThreads, 0, stream>>>(
-        xi, o, mean, mul, bias, sc, res, images, per_image, channels, inner,
-        act, alpha);
+  const auto kernel =
+      act == kMish ? (layout == kChannelsLast
+                          ? epilogue_mish_kernel<Tin, Tout, kChannelsLast>
+                          : epilogue_mish_kernel<Tin, Tout, kScalar>)
+                   : (layout == kChannelsLast
+                          ? epilogue_kernel<Tin, Tout, kChannelsLast>
+                          : epilogue_kernel<Tin, Tout, kScalar>);
+  kernel<<<grid, kThreads, 0, stream>>>(xi, o, mean, mul, bias, sc, res,
+                                        images, per_image, channels, inner,
+                                        act, alpha);
   return cudaGetLastError();
 }
 

@@ -38,7 +38,10 @@
 // (ops/nms_pallas.greedy_plan).
 //
 // Inputs : preds [B, N, E] fp32 (E = 5 + C: tx ty tw th conf cls...),
-//          geom  [8, N] fp32 (gx, gy, 1/gw, 1/gh, anchor_w, anchor_h, 1, 0),
+//          geom  [8, N] fp32 (gx, gy, 1/gw, 1/gh, anchor_w, anchor_h, s,
+//                -(s - 1) / 2): s is the layer's darknet scale_x_y, 1 (and
+//                0) where it has none, which leaves the sigmoid bit for bit,
+//                x = (sigmoid(tx) * s - (s - 1) / 2 + gx) / gw,
 //          lbox  [B, 8] fp32 (off_y, off_x, sy, sx, img_h, img_w, 0, 0),
 //          scratch: null (shared memory) or yolo_head_scratch_bytes(n, G)
 //          a block, 16-byte aligned (the global path).
@@ -104,8 +107,11 @@ yolo_head_kernel(const float* __restrict__ preds,
   bool is_tame = true;
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const float* p = p_img + (size_t)j * e;
-    const float cx = (sigmoid(p[0]) + geom[j]) * geom[2 * n + j];
-    const float cy = (sigmoid(p[1]) + geom[n + j]) * geom[3 * n + j];
+    const float sxy = geom[6 * n + j], shift = geom[7 * n + j];
+    const float cx =
+        (sigmoid(p[0]) * sxy + shift + geom[j]) * geom[2 * n + j];
+    const float cy =
+        (sigmoid(p[1]) * sxy + shift + geom[n + j]) * geom[3 * n + j];
     const float bw = expf(p[2]) * geom[4 * n + j];
     const float bh = expf(p[3]) * geom[5 * n + j];
     const float oy = (cy - off_y) * sy;

@@ -61,6 +61,7 @@ class _RawProgram(nn.Module):
 
 def _served_net(net: YoloNet, state: Optional[Mapping[str, torch.Tensor]],
                 device) -> YoloNet:
+    net.require("export")
     net = copy.deepcopy(net)
     if state is not None:
         net.load_state_dict(state)
@@ -88,6 +89,7 @@ class ServingProgram(nn.Module):
 
     def __init__(self, predictor, top_k: Optional[int] = None):
         super().__init__()
+        predictor.net.require("export")
         predictor._require_calibrated()
         self.spec = predictor.spec
         self.compute_dtype = predictor.compute_dtype

@@ -39,6 +39,7 @@ runner: ``serve.batch`` over ``serve.h2d`` and the three between).
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -167,7 +168,8 @@ class Predictor:
     set on the Predictor's copy of the net: ``'patches'`` needs a builder
     with a stride-2 stem and ``quantize`` None or ``'int8'``.  ``device`` is
     required: a CUDA device that is not there raises, and nothing falls
-    back to the CPU."""
+    back to the CPU.  A ``spec`` without ``scale_x_y`` takes the net's
+    (``YoloNet.scale_x_y``: YOLOv4's), which the head decodes with."""
 
     def __init__(self, net: YoloNet, state: Optional[Mapping[str, torch.Tensor]],
                  spec: YoloSpec, obj_thresh: float = 0.7,
@@ -238,6 +240,9 @@ class Predictor:
             for conv in self.net.modules():
                 if isinstance(conv, Conv) and conv.int8_capable:
                     conv.hold_int8_weight()
+        if not spec.scale_x_y and getattr(net, "scale_x_y", ()):
+            spec = dataclasses.replace(spec,
+                                       scale_x_y=tuple(net.scale_x_y))
         self.spec = spec
         self.obj_thresh = obj_thresh
         self.iou_thresh = iou_thresh
@@ -423,6 +428,7 @@ class Predictor:
         shard = None
         if PM.axis_size(mesh, PM.MODEL_AXIS) * PM.axis_size(
                 mesh, PM.SPACE_AXIS) > 1:
+            self.net.require("tpsp")
             shard = ShardContext(mesh)
         held_by = PM.world_group(mesh) if shard is not None else group
         src = dist.get_global_rank(held_by, 0)

@@ -4,8 +4,10 @@ Counterpart of ``k210_yolo_framework_tpu/models/layers.py`` (``ConvBN``,
 ``DarknetConvBN``, ``darknet_head_conv``, ``leaky_relu``, ``relu6``,
 ``upsample2x``) and of flax's 2x2 ``max_pool(..., padding="SAME")``
 (``max_pool_same``); ``smooth_witness`` smooths those kinks for checks
-of gradients.  Inside the net tensors are NCHW; the public entry points
-(``models/yolonet.py``) take and return NHWC, as the JAX package does.
+of gradients.  ``mish`` and ``spp`` serve YOLOv4
+(``models/cspdarknet.py``), which the JAX package does not build.  Inside
+the net tensors are NCHW; the public entry points (``models/yolonet.py``)
+take and return NHWC, as the JAX package does.
 
 Where the rounding happens follows flax: each conv casts its input and its
 weights to the compute ``dtype`` and returns that dtype; BatchNorm runs in
@@ -69,9 +71,9 @@ from k210_yolo_framework_tpu_torch.parallel.sharded import (
 __all__ = ["BatchNorm", "Conv", "ConvBN", "DarknetConvBN", "Int8Act",
            "STEM_MODES", "cat_channels",
            "darknet_head_conv", "leaky_relu", "max_pool_same", "name_convs",
-           "exact_div", "relu", "relu6", "residual_add", "set_data_group",
-           "smooth_max_pool_same", "smooth_witness", "split_dtype",
-           "upsample2x"]
+           "exact_div", "mish", "relu", "relu6", "residual_add",
+           "set_data_group", "smooth_max_pool_same", "smooth_witness",
+           "split_dtype", "spp", "upsample2x"]
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -197,6 +199,24 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_(x, 0.0, 6.0)
 
 
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """Mish, ``x * tanh(softplus(x))`` (YOLOv4's trunk activation; smooth,
+    so ``smooth_witness`` keeps it); in place without gradients."""
+    return F.mish(x, inplace=not torch.is_grad_enabled())
+
+
+def spp(x: torch.Tensor) -> torch.Tensor:
+    """YOLOv4's spatial pyramid pooling on an NCHW tensor:
+    ``[maxpool13(x), maxpool9(x), maxpool5(x), x]`` on channels, each pool
+    stride 1 with its window centred and -inf past the map (darknet's
+    stride-1 ``[maxpool]``).  The 9 and 13 windows are two and three 5x5
+    pools in a row, which take the same maxima."""
+    # max_pool2d's padding is -inf
+    p5 = F.max_pool2d(x, 5, 1, 2)
+    p9 = F.max_pool2d(p5, 5, 1, 2)
+    return torch.cat([F.max_pool2d(p9, 5, 1, 2), p9, p5, x], dim=1)
+
+
 def upsample2x(x):
     """Nearest-neighbour 2x upsample of an NCHW tensor (keras
     ``UpSampling2D(2)``), or of a ``Sharded`` one: a rank's rows s of H
@@ -290,8 +310,9 @@ def smooth_max_pool_same(x, stride: int):
 
 def smooth_witness(net: nn.Module, pools: bool = True) -> nn.Module:
     """A copy of ``net`` with a * x + (1 - a) * softplus(x) in place of
-    each ConvBN's ReLU, ReLU6 (a = 0) or LeakyReLU(a), and with ``pools``
-    tiny_yolo's max-pools by ``smooth_max_pool_same``.  Its gradients are
+    each ConvBN's ReLU, ReLU6 (a = 0) or LeakyReLU(a) (Mish, which has no
+    kink, is kept), and with ``pools`` tiny_yolo's max-pools by
+    ``smooth_max_pool_same``.  Its gradients are
     well conditioned, where the kinks, and at small grids pool windows
     whose two largest values lie within rounding, send a gradient to
     another element between two programs (on an H100 against the CPU, 1%
@@ -299,7 +320,7 @@ def smooth_witness(net: nn.Module, pools: bool = True) -> nn.Module:
     devices or frameworks holds this copy to a tight tolerance."""
     net = copy.deepcopy(net)
     for m in net.modules():
-        if isinstance(m, ConvBN) and m.act is not None:
+        if isinstance(m, ConvBN) and m.act not in (None, mish):
             with torch.no_grad():
                 a = -float(m.act(torch.tensor([-1.0])))   # slope below 0
             m.act = lambda x, a=a: a * x + (1 - a) * F.softplus(x)
@@ -761,9 +782,10 @@ class ConvBN(nn.Module):
 
         In eval mode with no gradient recorded, outside ``torch.compile``
         and ``torch.export``, on a tensor that is not ``Sharded`` and with
-        no activation but ReLU, ReLU6 or LeakyReLU, the scale, BN,
+        no activation but ReLU, ReLU6, LeakyReLU or Mish, the scale, BN,
         activation and residual add run as one pass
-        (``ops.conv_epilogue``), bit for bit the steps they replace.  It
+        (``ops.conv_epilogue``), bit for bit the steps they replace (Mish:
+        within rounding, ``conv_epilogue``'s docstring).  It
         stores in the compute dtype where the owner passes ``narrow``
         (every consumer of the output casts to that dtype first, so the
         values are the same) and not under Int8Act (the int8 convs
@@ -818,24 +840,28 @@ def _epilogue_act(act) -> Optional[Tuple[str, float]]:
         return "relu", 0.0
     if act is relu6:
         return "relu6", 0.0
+    if act is mish:
+        return "mish", 0.0
     alpha = getattr(act, "leaky_alpha", None)
     return None if alpha is None else ("leaky_relu", alpha)
 
 
 class DarknetConvBN(nn.Module):
-    """``DarknetConv2D_BN_Leaky``: no bias, BN, LeakyReLU 0.1; the stride-2
-    variant pads top/left only.  ``stem_mode`` as ``ConvBN``'s (these stems
-    are stride 1: ``"patches"`` is refused by the Predictor)."""
+    """``DarknetConv2D_BN_Leaky``: no bias, BN, LeakyReLU 0.1 (or ``act``:
+    YOLOv4's trunk passes :func:`mish`); the stride-2 variant pads top/left
+    only.  ``stem_mode`` as ``ConvBN``'s (these stems are stride 1:
+    ``"patches"`` is refused by the Predictor)."""
 
     def __init__(self, cin: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1),
-                 stem_mode: str = "default"):
+                 stem_mode: str = "default", act: Optional[Callable] = None):
         super().__init__()
         explicit = ((1, 0), (1, 0)) if tuple(strides) == (2, 2) else None
         self.dark_conv_bn = ConvBN(cin, features, kernel, strides,
                                    explicit_pad=explicit,
-                                   act=leaky_relu(0.1), stem_mode=stem_mode)
+                                   act=act or leaky_relu(0.1),
+                                   stem_mode=stem_mode)
 
     @property
     def stem_mode(self) -> str:

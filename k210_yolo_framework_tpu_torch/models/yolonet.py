@@ -9,13 +9,16 @@ the compute ``dtype``.  ``net.train()`` is the JAX package's
 statistics updated in place; ``net.eval()`` serves.
 
 All four builders of the JAX package: ``yolo_mobilev1``, ``yolo_mobilev2``
-and ``tiny_yolo`` (two scales) and the darknet53 ``yolo`` (three).
+and ``tiny_yolo`` (two scales) and the darknet53 ``yolo`` (three); and one
+the JAX package lacks, ``yolov4`` (CSPDarknet53, SPP, PANet; three scales
+with darknet's ``scale_x_y``, which the head decodes with).
 
 ``shard`` (a ``parallel.sharded.ShardContext``) runs this rank's part of
 the forward on a mesh with a model or space axis: the image enters whole,
 each layer computes its channels and rows (``parallel/sharded.py``), and
 the head outputs are gathered, so every rank returns them whole.
-All four builders take it.
+The four builders of the JAX package take it; ``yolov4`` refuses it, and
+``torch.export`` (``YoloNet.require``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
+from k210_yolo_framework_tpu_torch.models.cspdarknet import (
+    ConvStack,
+    CSPDarknet53,
+)
 from k210_yolo_framework_tpu_torch.models.darknet import (
     Darknet53,
     LastLayers,
@@ -37,14 +44,16 @@ from k210_yolo_framework_tpu_torch.models.layers import (
     DarknetConvBN,
     cat_channels,
     darknet_head_conv,
+    spp,
     upsample2x,
 )
 from k210_yolo_framework_tpu_torch.models.mobilenet_v1 import MobileNetV1
 from k210_yolo_framework_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from k210_yolo_framework_tpu_torch.parallel.sharded import Sharded
+from k210_yolo_framework_tpu_torch.utils.trace import span
 
 __all__ = ["YoloNet", "YoloMobileV1", "YoloMobileV2", "TinyYolo", "Yolo",
-           "build_network", "init_weights", "NETWORKS"]
+           "YoloV4", "build_network", "init_weights", "NETWORKS"]
 
 
 class _TwoScaleHead(nn.Module):
@@ -75,6 +84,11 @@ class YoloNet(nn.Module):
     ``"default"``) for its stem; ``net.stem_mode`` reads and sets it."""
 
     n_out_layers = 2
+    # darknet's per-layer decode scale (``config.YoloSpec.scale_x_y``):
+    # empty, 1 on every layer
+    scale_x_y: tuple = ()
+    # paths a builder has not (:meth:`require`): "tpsp", "export"
+    lacks: frozenset = frozenset()
 
     def __init__(self, anchor_num: int, class_num: int,
                  in_hw: Sequence[int]):
@@ -86,6 +100,18 @@ class YoloNet(nn.Module):
     def _heads(self, x: torch.Tensor, dtype: torch.dtype,
                input_scale: Optional[torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    def require(self, path: str) -> None:
+        """Raise where this builder has no ``path``: ``"tpsp"`` (a mesh
+        with a model or space axis) or ``"export"`` (``torch.export``)."""
+        if path in self.lacks:
+            what = {"tpsp": "path on a mesh with a model or space axis",
+                    "export": "torch.export program"}[path]
+            name = next((k for k, v in NETWORKS.items()
+                         if v is type(self)), type(self).__name__)
+            raise NotImplementedError(
+                f"{name} ({type(self).__name__}) has no {what}: serve it "
+                "eagerly, on one device or a data-parallel mesh")
 
     @property
     def stem(self) -> nn.Module:
@@ -115,6 +141,7 @@ class YoloNet(nn.Module):
         if shard is None:
             heads = self._heads(x, dtype, input_scale)
         else:
+            self.require("tpsp")
             heads = [h.full() for h in self._heads(Sharded(x, shard), dtype,
                                                    input_scale)]
         return [h.permute(0, 2, 3, 1) for h in heads]
@@ -224,11 +251,81 @@ class Yolo(YoloNet):
         return [y1, y2, self.y3_out(y, dtype)]
 
 
+class YoloV4(YoloNet):
+    """YOLOv4 (darknet ``cfg/yolov4.cfg``), three scales: the CSPDarknet53
+    trunk (``models/cspdarknet.py``); SPP on its stride-32 output between
+    two three-conv stacks; PANet's top-down path (each step a 1x1 and an
+    upsample of the coarser output, concatenated after a 1x1 of the finer
+    tap, ``[tap, upsample]``, then five convs) and bottom-up path (each
+    step a stride-2 3x3 of the finer output concatenated before the
+    top-down output of that scale, ``[down, earlier]``, then five convs);
+    a 3x3 and an output conv a scale.  Layer 0 of the outputs is the
+    coarsest grid, the reverse of the cfg's ``[yolo]`` order, and
+    ``scale_x_y`` is in that order.  ``alpha`` is unused.
+
+    The spans ``net.csp`` (the trunk), ``net.spp`` (the stacks around SPP)
+    and ``net.pan`` (the rest up to the output convs, the 3x3 before each
+    among it) are ``utils.trace`` ranges, once a forward."""
+
+    n_out_layers = 3
+    scale_x_y = (1.05, 1.1, 1.2)
+    lacks = frozenset({"tpsp", "export"})
+
+    def __init__(self, anchor_num: int, class_num: int, in_hw: Sequence[int],
+                 alpha: float = 1.0, stem_mode: str = "default"):
+        super().__init__(anchor_num, class_num, in_hw)
+        out = anchor_num * (class_num + 5)
+        self.backbone = CSPDarknet53(stem_mode=stem_mode)
+        c8, c16, c32 = self.backbone.tap_channels
+        self.spp_pre = ConvStack(c32, 512, 3)
+        self.spp_post = ConvStack(4 * 512, 512, 3)
+        self.up1_conv = DarknetConvBN(512, 256, (1, 1))
+        self.tap16_conv = DarknetConvBN(c16, 256, (1, 1))
+        self.td16 = ConvStack(512, 256, 5)
+        self.up2_conv = DarknetConvBN(256, 128, (1, 1))
+        self.tap8_conv = DarknetConvBN(c8, 128, (1, 1))
+        self.td8 = ConvStack(256, 128, 5)
+        self.y3_conv = DarknetConvBN(128, 256, (3, 3))
+        self.down38 = DarknetConvBN(128, 256, (3, 3), (2, 2))
+        self.bu38 = ConvStack(512, 256, 5)
+        self.y2_conv = DarknetConvBN(256, 512, (3, 3))
+        self.down19 = DarknetConvBN(256, 512, (3, 3), (2, 2))
+        self.bu19 = ConvStack(1024, 512, 5)
+        self.y1_conv = DarknetConvBN(512, 1024, (3, 3))
+        # the output convs, in output order
+        self.y1_out = darknet_head_conv(1024, out)
+        self.y2_out = darknet_head_conv(512, out)
+        self.y3_out = darknet_head_conv(256, out)
+
+    def _heads(self, x, dtype, input_scale):
+        with span("net.csp"):
+            tap8, tap16, tap32 = self.backbone(x, dtype, input_scale)
+        with span("net.spp"):
+            n19 = self.spp_post(spp(self.spp_pre(tap32, dtype)), dtype)
+        with span("net.pan"):
+            up = upsample2x(self.up1_conv(n19, dtype, narrow=True))
+            n38 = self.td16(cat_channels(
+                [self.tap16_conv(tap16, dtype, narrow=True), up]), dtype)
+            up = upsample2x(self.up2_conv(n38, dtype, narrow=True))
+            n76 = self.td8(cat_channels(
+                [self.tap8_conv(tap8, dtype, narrow=True), up]), dtype)
+            b76 = self.y3_conv(n76, dtype, narrow=True)
+            m38 = self.bu38(cat_channels(
+                [self.down38(n76, dtype, narrow=True), n38]), dtype)
+            b38 = self.y2_conv(m38, dtype, narrow=True)
+            m19 = self.bu19(cat_channels(
+                [self.down19(m38, dtype, narrow=True), n19]), dtype)
+            b19 = self.y1_conv(m19, dtype, narrow=True)
+        return [self.y1_out(b19, dtype), self.y2_out(b38, dtype),
+                self.y3_out(b76, dtype)]
+
+
 NETWORKS: Dict[str, type] = {
     "yolo_mobilev1": YoloMobileV1,
     "yolo_mobilev2": YoloMobileV2,
     "tiny_yolo": TinyYolo,
     "yolo": Yolo,
+    "yolov4": YoloV4,
 }
 
 

@@ -160,10 +160,15 @@ def xywh_grid_to_all(grid_pred_xy: torch.Tensor, grid_pred_wh: torch.Tensor,
                      layer: int, spec: YoloSpec
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw head output [..., h, w, a, 2] each -> whole-image scale:
-    ``(sigmoid(xy) + offset) / grid_wh`` and ``exp(wh) * anchors``."""
+    ``(sigmoid(xy) + offset) / grid_wh`` and ``exp(wh) * anchors``; where
+    the layer has a ``scale_x_y`` s other than 1 the sigmoid is
+    ``sigmoid(xy) * s - (s - 1) / 2``, as darknet decodes."""
     offset, anchors, out_wh = _grid_consts(layer, spec, grid_pred_xy)
-    return ((torch.sigmoid(grid_pred_xy) + offset) / out_wh,
-            torch.exp(grid_pred_wh) * anchors)
+    xy = torch.sigmoid(grid_pred_xy)
+    s = spec.xy_scale(layer)
+    if s != 1.0:
+        xy = xy * s - (s - 1.0) / 2.0
+    return (xy + offset) / out_wh, torch.exp(grid_pred_wh) * anchors
 
 
 def xywh_all_to_grid(all_true_xy: torch.Tensor, all_true_wh: torch.Tensor,

@@ -11,7 +11,8 @@ eval arithmetic as the layers run it, step by step::
 
     x * scale.to(x.dtype)         (the stem's per-image post-conv scale)
     t = x.to(fp32) - mean; t *= mul; t += bias
-    the activation, in place      (F.relu, clamp_(0, 6), F.leaky_relu)
+    the activation, in place      (F.relu, clamp_(0, 6), F.leaky_relu,
+                                   F.mish)
     t += residual                 (fp32)
     t.to(store)
 
@@ -22,10 +23,13 @@ consumer's ``.to()`` would, and its cast becomes a no-op.
 ``conv_epilogue`` dispatches by the device of ``x``: CPU tensors go through
 the plain version; CUDA tensors through ``csrc/conv_epilogue.cu``, which
 equals it bit for bit, counted in ``conv_epilogue.launches``; any other
-device raises.  Nothing falls back from the kernel.  The kernel is launched
-from inside the registered operator ``torch.ops.k210.conv_epilogue``, so a
-profiler ties it to that host op, and so to the span around the net's
-forward that holds it.
+device raises.  Mish is the exception: the kernel computes it with one exp
+(``(e^2 + 2e) / (e^2 + 2e + 2)`` for ``tanh(softplus(x))``, x above 20
+passed through, as darknet does), a few fp32 ulps from ``F.mish``.
+Nothing falls back from the kernel.  The kernel is launched from inside
+the registered operator ``torch.ops.k210.conv_epilogue``, so a profiler
+ties it to that host op, and so to the span around the net's forward that
+holds it.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from k210_yolo_framework_tpu_torch.ops import _build
 __all__ = ["ACTS", "conv_epilogue", "conv_epilogue_reference"]
 
 # activation kinds, in the kernel's numbering
-ACTS = ("none", "relu", "relu6", "leaky_relu")
+ACTS = ("none", "relu", "relu6", "leaky_relu", "mish")
 
 # the kernel's type codes
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,6 +74,8 @@ def conv_epilogue_reference(x: torch.Tensor, mean: torch.Tensor,
         torch.clamp_(t, 0.0, 6.0)
     elif act == "leaky_relu":
         F.leaky_relu(t, alpha, inplace=True)
+    elif act == "mish":
+        F.mish(t, inplace=True)
     if residual is not None:
         t.add_(residual)
     return t.to(store)

@@ -11,7 +11,9 @@ more candidates than a block holds, in a global scratch tensor) or raises.
 There is no fallback from the kernel to the plain version.
 
 Reference math: decode as ``ops/decode.py`` of the JAX package (sigmoid xy +
-grid offset, exp wh * anchor), ``correct_box`` letterbox inverse with ROUND
+grid offset, exp wh * anchor), with darknet's per-layer ``scale_x_y`` s
+where the spec has one (``sigmoid * s - (s - 1) / 2``; s = 1 leaves the
+sigmoid as it is, bit for bit), ``correct_box`` letterbox inverse with ROUND
 semantics, score = sigmoid(cls) * sigmoid(conf) or the firmware's softmax
 flavour over the real classes.
 """
@@ -42,7 +44,9 @@ _NEG = -1e9
 
 
 def candidate_geometry(spec: YoloSpec) -> np.ndarray:
-    """[8, N] per-candidate constants: gx, gy, 1/gw, 1/gh, aw, ah, 1, 0.
+    """[8, N] per-candidate constants: gx, gy, 1/gw, 1/gh, aw, ah, s and
+    -(s - 1) / 2, with s the layer's ``spec.xy_scale`` (1 and 0 without
+    one).
 
     Candidate order: layers concatenated, within a layer row-major
     (gy, gx, anchor) — the order of the head outputs flattened from
@@ -55,11 +59,12 @@ def candidate_geometry(spec: YoloSpec) -> np.ndarray:
         aw = anchors[l][:, 0][a]
         ah = anchors[l][:, 1][a]
         n = h * w * spec.nanchors
+        s = spec.xy_scale(l)
         cols.append(np.stack([
             gx.reshape(n), gy.reshape(n),
             np.full(n, 1.0 / w), np.full(n, 1.0 / h),
             aw.reshape(n), ah.reshape(n),
-            np.ones(n), np.zeros(n)]))
+            np.full(n, s), np.full(n, -(s - 1.0) / 2.0)]))
     return np.concatenate(cols, axis=1).astype(np.float32)
 
 
@@ -100,9 +105,10 @@ def _decode(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
     gx, gy = geom[0], geom[1]
     inv_gw, inv_gh = geom[2], geom[3]
     aw, ah = geom[4], geom[5]
+    s, shift = geom[6], geom[7]                     # scale_x_y: 1, 0 or s
 
-    cx = (torch.sigmoid(p[:, :, 0]) + gx) * inv_gw                 # [B, N]
-    cy = (torch.sigmoid(p[:, :, 1]) + gy) * inv_gh
+    cx = (torch.sigmoid(p[:, :, 0]) * s + shift + gx) * inv_gw     # [B, N]
+    cy = (torch.sigmoid(p[:, :, 1]) * s + shift + gy) * inv_gh
     bw = torch.exp(p[:, :, 2]) * aw
     bh = torch.exp(p[:, :, 3]) * ah
 

@@ -286,7 +286,9 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
     the update (:func:`prune_step`) and ``logs["sparsity"]`` is their share
     of zeros.  With ``mesh`` each rank is given its data coordinate's
     slots of the global batch and the step is the global batch's (module
-    docstring); the state must be replicated (:func:`shard_state`)."""
+    docstring); the state must be replicated (:func:`shard_state`).  A
+    spec or net with a ``scale_x_y`` other than 1 is refused at the step
+    (:func:`_refuse_scale_x_y`)."""
     body = _train_body(spec, cfg, compute_dtype, train_epoch_step, mesh)
 
     def step(state: TrainState, images: torch.Tensor, labels):
@@ -294,6 +296,21 @@ def make_train_step(spec: YoloSpec, cfg: TrainConfig,
             return body(state, images, labels)
 
     return step
+
+
+def _refuse_scale_x_y(spec: YoloSpec, net) -> None:
+    """Raise where the spec's or the net's ``scale_x_y`` is not 1 on every
+    layer: ``training/loss`` is YOLOv3's and decodes with s = 1, so it
+    would train or score such a net (YOLOv4) toward boxes its head does
+    not decode.  Every train and eval step calls it first."""
+    for owner, scale_x_y in (("the spec", spec.scale_x_y),
+                             (type(net).__name__,
+                              getattr(net, "scale_x_y", ()))):
+        if any(s != 1.0 for s in scale_x_y):
+            raise NotImplementedError(
+                f"{owner} has scale_x_y {tuple(scale_x_y)}: the loss "
+                "(training/loss) is YOLOv3's, with no scale_x_y, so a net "
+                "such as yolov4 is served, not trained")
 
 
 def _train_body(spec: YoloSpec, cfg: TrainConfig,
@@ -315,6 +332,7 @@ def _train_body(spec: YoloSpec, cfg: TrainConfig,
 
     def body(state: TrainState, images: torch.Tensor, labels):
         net, opt = state.net, state.optimizer
+        _refuse_scale_x_y(spec, net)
         net.train()
         with span("train.forward"):
             outs = _forward(net, images, compute_dtype, axes)
@@ -364,7 +382,8 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
     """(net, pr, images, labels) -> (pr, logs) with BatchNorm on its
     running statistics; the net's train/eval mode is restored after.  With
     ``mesh`` each rank is given its slots of the test batch; ``val_loss``
-    is the mean over ranks and the counters the sum."""
+    is the mean over ranks and the counters the sum.  A spec or net with a
+    ``scale_x_y`` other than 1 is refused (:func:`_refuse_scale_x_y`)."""
     axes = _axes(mesh)
     group = None if axes is None else axes.data
     # eval-mode BatchNorm reduces nothing: only a TP/SP forward needs the
@@ -373,6 +392,7 @@ def make_eval_step(spec: YoloSpec, cfg: TrainConfig,
 
     @torch.no_grad()
     def step(net: YoloNet, pr, images, labels):
+        _refuse_scale_x_y(spec, net)
         was_training = net.training
         net.eval()
         try:

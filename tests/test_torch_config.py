@@ -34,7 +34,9 @@ def _fields(obj):
 @pytest.mark.parametrize("name", sorted(SPEC_ARGS))
 def test_yolo_spec_matches_jax(name):
     jspec, tspec = _pair(name)
-    assert _fields(tspec) == _fields(jspec)
+    # the port's one field more, darknet's per-layer scale_x_y: empty
+    # (1 on every layer) in every spec made as the JAX package makes it
+    assert _fields(tspec) == _fields(jspec) + [("scale_x_y", ())]
     assert type(tspec).__module__ == "k210_yolo_framework_tpu_torch.config"
     for prop in ("nlayers", "nanchors", "nchannels"):
         assert getattr(tspec, prop) == getattr(jspec, prop)
@@ -61,7 +63,8 @@ def test_from_files_and_create_guards_match_jax(tmp_path):
     np.save(path, ANCHORS3)
     grids = ((7, 10), (14, 20), (28, 40))
     assert _fields(TC.YoloSpec.from_files(str(path), out_hws=grids)) \
-        == _fields(JC.YoloSpec.from_files(str(path), out_hws=grids))
+        == _fields(JC.YoloSpec.from_files(str(path), out_hws=grids)) \
+        + [("scale_x_y", ())]
     for args, match in ((((224, 320), grids, 20, ANCHORS3[0]), "anchors"),
                         (((224, 320), grids[:2], 20, ANCHORS3), "grids")):
         for mod in (TC, JC):

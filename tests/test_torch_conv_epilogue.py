@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 SPECIAL = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 6.0, -1e-40]
 
 ACT_FNS = {"none": None, "relu": TL.relu, "relu6": TL.relu6,
-           "leaky_relu": TL.leaky_relu(0.1)}
+           "leaky_relu": TL.leaky_relu(0.1), "mish": TL.mish}
 
 
 def _bits(t):
