@@ -1063,6 +1063,16 @@ def time_head(name, s, preds, hws_, thresh, max_out, iou, device, tag,
     where = (scratch_line(TH._kernel_lib().yolo_head_scratch_bytes, bsz, n,
                           s.class_num, rows)
              if layout == "global" else "shared memory")
+    if layout == "global" and TH._takes_ordered(device, n, max_out, thresh):
+        # one launch more, its rows' scan depths read off the tally
+        tally = TH.ordered_tally(device)
+        before = int(tally.item())
+        kern()
+        depth = (int(tally.item()) - before) / (bsz * s.class_num)
+        scratch = TH._kernel_lib().yolo_head_ordered_scratch_bytes(
+            bsz, n, s.class_num)
+        where = (f"in score order, scratch {scratch} B, scan depth "
+                 f"{depth:.1f} a row")
     print(f"head b{bsz} {name:<6} (N={n}, thresh {thresh}, iou {iou}, "
           f"max_out {max_out}, {layout} layout, G={rows}, {blocks} blocks "
           f"an SM, {where}): kernel "
@@ -2634,7 +2644,8 @@ STEM_BUILDERS = (("yolo_mobilev1", 0.75, ("default", "patches",
 
 
 def counts():
-    """(head launches, head global, NMS launches, NMS global)."""
+    """(head launches, head global, NMS launches, NMS global); the head's
+    launches in score order are ``fused_decode_nms.ordered_launches``."""
     from k210_yolo_framework_tpu_torch.ops import nms_pallas as TN
     from k210_yolo_framework_tpu_torch.ops import yolo_head_pallas as TH
 
@@ -2649,6 +2660,7 @@ def zero_counts() -> None:
 
     for fn in (TH.fused_decode_nms, TN.batched_nms_pallas):
         fn.launches = fn.global_launches = 0
+    TH.fused_decode_nms.ordered_launches = 0
 
 
 def scratch_line(lib_fn, bsz, n, classes, rows) -> str:
@@ -2883,13 +2895,14 @@ def big_yolo(device, tag, ann, canvases, hws, image):
               for k, p in scenes}
     torch.cuda.synchronize()
     head, head_global, _, _ = counts()
+    ordered = TH.fused_decode_nms.ordered_launches
     print(f"yolo{BIG_SIDE}: N={n}, serving B={BIG_BATCH} bf16: head kernel "
-          f"launches {head} ({head_global} on the global path) in "
-          f"{2 * len(scenes)} calls; plan "
+          f"launches {head} ({head_global} on the global path, {ordered} in "
+          f"score order) in {2 * len(scenes)} calls; plan "
           f"{TH._plan(device, BIG_BATCH, n, spec.class_num)}")
-    if head != 2 * len(scenes) or head_global != head:
+    if head != 2 * len(scenes) or head_global != head or ordered != head:
         raise AssertionError("the head kernel did not run on the global path "
-                             "once per serving call")
+                             "in score order once per serving call")
     c_dev = torch.from_numpy(c8).to(device)
     h_dev = torch.from_numpy(h8).to(device)
     img_t = torch.from_numpy(image).to(device)

@@ -1,6 +1,8 @@
 // Fused YOLO head for Hopper (sm_90a): decode + letterbox inverse + per-class
-// greedy NMS, one thread block per (image, group of G classes), one warp per
-// class row.  The selection loop is the shared one of greedy_select.cuh.
+// greedy NMS.  In shared memory: one thread block per (image, group of G
+// classes), one warp per class row, the selection loop the shared one of
+// greedy_select.cuh.  On the global path: a decode kernel, then one block
+// per class row selecting in score order (ordered_select.cuh).
 //
 // Replaces the TPU kernel k210_yolo_framework_tpu/ops/yolo_head_pallas.py:_kernel
 // together with its selection loop, k210_yolo_framework_tpu/ops/nms_pallas.py:
@@ -10,10 +12,12 @@
 // -fmad=false (no mul+add contraction) and no fast math, so the two agree
 // bit for bit wherever the transcendental functions do.
 //
-// What bounds it: not bytes.  The input is [B, N, 5+C] fp32 logits (about
-// 13 MB at B=128, N=1050, C=20).  The bound is each row's chain of up to
-// max_out steps, each a pass over the candidates still live
-// (greedy_select.cuh).  The block:
+// What bounds it: not bytes.  The input is [B, N, E] fp32 logits (13 MB at
+// B=128, N=1050, C=20; 73 MB at B=32, N=22,743).  Where a block holds its
+// rows in shared memory (up to 11,622 candidates on an H100: every builder
+// below about 448x448), the bound is each row's chain of up to max_out
+// steps, each a pass over the candidates still live (greedy_select.cuh),
+// and rows there are short.  The block:
 //   * decodes each candidate of its image once for its G rows: one thread a
 //     candidate computes the box, the letterbox inverse, its area and conf
 //     (and, for class_softmax, the max and the class-order sum), writes the
@@ -30,12 +34,29 @@
 // candidate), which fits the most candidates.  The wrapper picks G
 // (ops/nms_pallas.rows_per_block) against the footprint yolo_head_smem_bytes
 // and the blocks the batch gives: 20 at B=128 (serving), 5 at B=32 (eval),
-// 1 at B=1 on an H100.  Where not even G == 1 fits (above 11,622
-// candidates on an H100: the darknet53 yolo from 448x448 up), the block
-// decodes into its own slab of a global scratch tensor instead
-// (greedy::GlobalBoxes, yolo_head_scratch_bytes a block), and the same loop
-// runs there; the wrapper picks that path and its G
-// (ops/nms_pallas.greedy_plan).
+// 1 at B=1 on an H100.
+//
+// Above that (the global path: the darknet53 and CSP nets from 448x448 up)
+// a row at the eval settings keeps ~9,700 live candidates, and the step
+// loop, run in global scratch, re-tested them at each of its 100 steps, a
+// chain of dependent loads in one warp: 18.7 ms a call at B=32 on an H100.
+// There the selection runs in score order instead (ordered_select.cuh), in
+// two kernels, 0.74 ms:
+//   * yolo_head_kernel_decode, one thread a candidate over the whole card:
+//     the same decode, the box and area written once to the scratch, and
+//     each class score at or above the threshold appended as a 64-bit key
+//     (score bits, index) to its row's list, a segment a block, with the
+//     row's NaN flag;
+//   * yolo_head_kernel_select, one block a row: radix select of the next
+//     kCap keys, a sort in shared memory, and a scan that tests each
+//     candidate once, against the winners kept before it.
+// The two agree with the step loop bit for bit where the threshold is above
+// -1e9; at or below it (suppressed candidates stay selectable) and where a
+// select block's shared memory cannot hold max_out winners, the wrapper
+// runs the step loop in global scratch (greedy::GlobalBoxes,
+// yolo_head_scratch_bytes a block).  The wrapper picks the path
+// (ops/nms_pallas.greedy_plan, ops/yolo_head_pallas._launch).  Every kernel
+// here has yolo_head_kernel in its name.
 //
 // Inputs : preds [B, N, E] fp32 (E = 5 + C: tx ty tw th conf cls...),
 //          geom  [8, N] fp32 (gx, gy, 1/gw, 1/gh, anchor_w, anchor_h, s,
@@ -44,12 +65,15 @@
 //                x = (sigmoid(tx) * s - (s - 1) / 2 + gx) / gw,
 //          lbox  [B, 8] fp32 (off_y, off_x, sy, sx, img_h, img_w, 0, 0),
 //          scratch: null (shared memory) or yolo_head_scratch_bytes(n, G)
-//          a block, 16-byte aligned (the global path).
+//          a block (the step loop's global path) or
+//          yolo_head_ordered_scratch_bytes(B, N, C) (the ordered path),
+//          16-byte aligned.
 // Outputs: out_scores [B, C, M] and out_boxes [B, C, M, 4] winner buffers;
 //          slot k holds winner k, unfilled slots hold -1e9 and zero boxes.
 //          The caller masks slots below the threshold.
 
 #include "greedy_select.cuh"
+#include "ordered_select.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -66,6 +90,56 @@ using greedy::nan_max;
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
+
+// An image's correct_box factors (lbox row b).
+struct Letterbox {
+  float off_y, off_x, sy, sx, ih, iw;
+  __device__ explicit Letterbox(const float* lb)
+      : off_y(lb[0]), off_x(lb[1]), sy(lb[2]), sx(lb[3]), ih(lb[4]),
+        iw(lb[5]) {}
+};
+
+// Candidate j's box (y0, x0, y1, x1) in the image's pixels, from its logits
+// p: the decode, then the letterbox inverse.
+__device__ __forceinline__ float4 decode_box(const float* p,
+                                             const float* geom, int n, int j,
+                                             const Letterbox& lb) {
+  const float sxy = geom[6 * n + j], shift = geom[7 * n + j];
+  const float cx = (sigmoid(p[0]) * sxy + shift + geom[j]) * geom[2 * n + j];
+  const float cy =
+      (sigmoid(p[1]) * sxy + shift + geom[n + j]) * geom[3 * n + j];
+  const float bw = expf(p[2]) * geom[4 * n + j];
+  const float bh = expf(p[3]) * geom[5 * n + j];
+  const float oy = (cy - lb.off_y) * lb.sy;
+  const float ox = (cx - lb.off_x) * lb.sx;
+  const float oh = bh * lb.sy;
+  const float ow = bw * lb.sx;
+  return make_float4((oy - oh * 0.5f) * lb.ih, (ox - ow * 0.5f) * lb.iw,
+                     (oy + oh * 0.5f) * lb.ih, (ox + ow * 0.5f) * lb.iw);
+}
+
+// A candidate's class scores from its logits p: sigmoid(cls) * conf, or the
+// softmax over the real classes (its sum in class order) times conf.
+struct ClassScores {
+  const float* p;
+  float conf, mx, sum;
+  int softmax;
+
+  __device__ ClassScores(const float* p_, int classes, int class_softmax)
+      : p(p_), conf(sigmoid(p_[4])), mx(0.0f), sum(0.0f),
+        softmax(class_softmax) {
+    if (softmax) {
+      mx = p[5];
+      for (int k = 1; k < classes; ++k) mx = nan_max(mx, p[5 + k]);
+      sum = expf(p[5] - mx);
+      for (int k = 1; k < classes; ++k) sum = sum + expf(p[5 + k] - mx);
+    }
+  }
+  __device__ float operator()(int c) const {
+    return softmax ? expf(p[5 + c] - mx) / sum * conf
+                   : sigmoid(p[5 + c]) * conf;
+  }
+};
 
 // Floats a candidate of the block's own in its global slab: box and area.
 constexpr int kGlobalPerCandidate = 5;
@@ -86,10 +160,7 @@ yolo_head_kernel(const float* __restrict__ preds,
   const int n_rows = min(rows, classes - c0);
   const int e = 5 + classes;
   const float* p_img = preds + (size_t)b * n * e;
-  const float* lb = lbox + (size_t)b * 8;
-  const float off_y = lb[0], off_x = lb[1];
-  const float sy = lb[2], sx = lb[3];
-  const float ih = lb[4], iw = lb[5];
+  const Letterbox lb(lbox + (size_t)b * 8);
 
   // the block's arrays: in shared memory at stride n, or in its own slab
   // of the scratch tensor at a 16-byte aligned stride
@@ -107,37 +178,12 @@ yolo_head_kernel(const float* __restrict__ preds,
   bool is_tame = true;
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const float* p = p_img + (size_t)j * e;
-    const float sxy = geom[6 * n + j], shift = geom[7 * n + j];
-    const float cx =
-        (sigmoid(p[0]) * sxy + shift + geom[j]) * geom[2 * n + j];
-    const float cy =
-        (sigmoid(p[1]) * sxy + shift + geom[n + j]) * geom[3 * n + j];
-    const float bw = expf(p[2]) * geom[4 * n + j];
-    const float bh = expf(p[3]) * geom[5 * n + j];
-    const float oy = (cy - off_y) * sy;
-    const float ox = (cx - off_x) * sx;
-    const float oh = bh * sy;
-    const float ow = bw * sx;
-    const float y0 = (oy - oh * 0.5f) * ih;
-    const float x0 = (ox - ow * 0.5f) * iw;
-    const float y1 = (oy + oh * 0.5f) * ih;
-    const float x1 = (ox + ow * 0.5f) * iw;
-    s_box[j] = make_float4(y0, x0, y1, x1);
-    if (kLayout != kOwn) s_more[j] = box_area(y0, x0, y1, x1);
-    is_tame &= tame_box(y0, x0, y1, x1);
-    const float conf = sigmoid(p[4]);
-    if (class_softmax) {
-      // softmax over the real classes, summed in class order
-      float mx = p[5];
-      for (int k = 1; k < classes; ++k) mx = nan_max(mx, p[5 + k]);
-      float sum = expf(p[5] - mx);
-      for (int k = 1; k < classes; ++k) sum = sum + expf(p[5 + k] - mx);
-      for (int g = 0; g < n_rows; ++g)
-        s_score[g * ns + j] = expf(p[5 + c0 + g] - mx) / sum * conf;
-    } else {
-      for (int g = 0; g < n_rows; ++g)
-        s_score[g * ns + j] = sigmoid(p[5 + c0 + g]) * conf;
-    }
+    const float4 box = decode_box(p, geom, n, j, lb);
+    s_box[j] = box;
+    if (kLayout != kOwn) s_more[j] = box_area(box.x, box.y, box.z, box.w);
+    is_tame &= tame_box(box.x, box.y, box.z, box.w);
+    const ClassScores cs(p, classes, class_softmax);
+    for (int g = 0; g < n_rows; ++g) s_score[g * ns + j] = cs(c0 + g);
   }
   // also orders the decode's writes to the global slab before the loops'
   // reads
@@ -173,6 +219,65 @@ decltype(&yolo_head_kernel<kOwn>) pick_kernel(int rows, bool global) {
   return greedy::pick_kernel(rows, global, yolo_head_kernel<kOwn>,
                              yolo_head_kernel<kShared>,
                              yolo_head_kernel<kGlobal>);
+}
+
+// The ordered path's first kernel: decodes candidate j = blockIdx.x * kSeg
+// + threadIdx.x of image blockIdx.y once, writes its box and area to the
+// scratch, and appends its key to segment blockIdx.x of each class row
+// whose score is at or above the threshold (ordered::append_segment).
+__global__ void __launch_bounds__(ordered::kSeg)
+yolo_head_kernel_decode(const float* __restrict__ preds,
+                        const float* __restrict__ geom,
+                        const float* __restrict__ lbox, void* scratch, int n,
+                        int classes, float score_thresh, int class_softmax) {
+  __shared__ int counts[2 * (ordered::kSeg / 32)];
+  const int b = blockIdx.y, seg = blockIdx.x, n_seg = gridDim.x;
+  const int j = seg * ordered::kSeg + threadIdx.x;
+  const bool valid = j < n;
+  const ordered::Scratch sc =
+      ordered::scratch_at(scratch, gridDim.y, n, classes);
+  const float* p =
+      preds + ((size_t)b * n + (valid ? j : 0)) * (5 + classes);
+  if (valid) {
+    const float4 box = decode_box(p, geom, n, j, Letterbox(lbox + b * 8));
+    sc.boxes[(size_t)b * n + j] = box;
+    sc.areas[(size_t)b * n + j] = box_area(box.x, box.y, box.z, box.w);
+  }
+  const ClassScores cs(p, classes, class_softmax);
+  for (int c = 0; c < classes; ++c) {
+    const float s = valid ? cs(c) : 0.0f;
+    const size_t at = ((size_t)b * classes + c) * n_seg + seg;
+    ordered::append_segment(sc.keys + at * ordered::kSeg, sc.info + at,
+                            valid && s >= score_thresh, valid && s != s, s,
+                            j, counts, c & 1);
+  }
+}
+
+// The ordered path's second kernel: row (image blockIdx.y, class
+// blockIdx.x) in score order (ordered::select_row), one block a row.
+__global__ void __launch_bounds__(ordered::kThreads)
+yolo_head_kernel_select(void* scratch, float* __restrict__ out_scores,
+                        float* __restrict__ out_boxes,
+                        unsigned long long* tested, int n, int max_out,
+                        float iou_thresh) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, classes = gridDim.x;
+  const int n_seg = (n + ordered::kSeg - 1) / ordered::kSeg;
+  const size_t row = (size_t)b * classes + blockIdx.x;
+  const ordered::Scratch sc =
+      ordered::scratch_at(scratch, gridDim.y, n, classes);
+  ordered::Shared sh;
+  sh.keys = reinterpret_cast<ordered::Key*>(smem4);
+  sh.wbox = reinterpret_cast<float4*>(sh.keys + ordered::kCap);
+  sh.cbox = sh.wbox + max_out;
+  sh.warea = reinterpret_cast<float*>(sh.cbox + ordered::kThreads);
+  sh.carea = sh.warea + max_out;
+  sh.seg_cnt = reinterpret_cast<int*>(sh.carea + ordered::kThreads);
+  ordered::select_row(sc.keys + row * n_seg * ordered::kSeg,
+                      sc.info + row * n_seg, n_seg, sc.boxes + (size_t)b * n,
+                      sc.areas + (size_t)b * n, max_out, iou_thresh,
+                      out_scores + row * max_out,
+                      out_boxes + row * max_out * 4, tested, sh);
 }
 
 }  // namespace
@@ -241,6 +346,54 @@ int yolo_head_decode_nms(const float* preds, const float* geom,
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       preds, geom, lbox, out_scores, out_boxes, scratch, n, classes, rows,
       max_out, iou_thresh, score_thresh, class_softmax);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of global scratch of an ordered launch (ordered::scratch_bytes); a
+// multiple of 16.
+size_t yolo_head_ordered_scratch_bytes(int batch, int n, int classes) {
+  return ordered::align16(ordered::scratch_bytes(batch, n, classes));
+}
+
+// Dynamic shared memory of an ordered launch's select block.
+size_t yolo_head_ordered_smem_bytes(int n, int max_out) {
+  return ordered::smem_bytes((n + ordered::kSeg - 1) / ordered::kSeg,
+                             max_out);
+}
+
+// The most dynamic shared memory the select kernel may ask for on the
+// current device.  Returns the cudaError_t of the queries.
+int yolo_head_ordered_max_smem(int* bytes) {
+  return max_dynamic_smem(yolo_head_kernel_select, bytes);
+}
+
+// Launches the ordered path on `stream`: yolo_head_kernel_decode over
+// (ceil(n / kSeg), batch) blocks, then yolo_head_kernel_select over
+// (classes, batch), both on the yolo_head_ordered_scratch_bytes(batch, n,
+// classes) bytes at `scratch` (16-byte aligned).  Adds each row's scan
+// depth to *tested where `tested` is not null.  For a threshold above -1e9
+// only (the note of ordered_select.cuh).  Returns the cudaError_t of the
+// launches.
+int yolo_head_ordered(const float* preds, const float* geom,
+                      const float* lbox, float* out_scores, float* out_boxes,
+                      void* scratch, unsigned long long* tested, int batch,
+                      int n, int classes, int max_out, float iou_thresh,
+                      float score_thresh, int class_softmax, void* stream) {
+  if (!(score_thresh > greedy::kNeg)) return (int)cudaErrorInvalidValue;
+  const size_t smem = yolo_head_ordered_smem_bytes(n, max_out);
+  cudaError_t err = cudaFuncSetAttribute(
+      yolo_head_kernel_select, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 decode_grid((n + ordered::kSeg - 1) / ordered::kSeg, batch);
+  yolo_head_kernel_decode<<<decode_grid, ordered::kSeg, 0, s>>>(
+      preds, geom, lbox, scratch, n, classes, score_thresh, class_softmax);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  yolo_head_kernel_select<<<dim3(classes, batch), ordered::kThreads, smem,
+                            s>>>(scratch, out_scores, out_boxes, tested, n,
+                                 max_out, iou_thresh);
   return (int)cudaGetLastError();
 }
 

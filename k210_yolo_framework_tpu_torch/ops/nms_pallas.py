@@ -29,7 +29,9 @@ meaning here: the buffers are exactly ``max_out`` wide.  The CUDA kernels
 (``csrc/greedy_select.cuh``), one warp per row and G rows of one image a
 block; ``greedy_plan`` picks the layout of the rows and G for both:
 ``shared`` (G > 1) or ``own`` (G == 1) in a block's shared memory, and
-``global`` (a scratch tensor, any N) where neither fits.
+``global`` (a scratch tensor, any N) where neither fits.  On ``global``
+the fused head selects in score order instead where the threshold is
+above -1e9 (``csrc/ordered_select.cuh``: the same winners, bit for bit).
 """
 
 from __future__ import annotations

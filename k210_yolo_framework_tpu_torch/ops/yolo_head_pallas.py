@@ -4,11 +4,15 @@ Counterpart of ``k210_yolo_framework_tpu/ops/yolo_head_pallas.py``.
 
 ``fused_decode_nms`` dispatches by the device of its input: on the CPU it
 runs ``fused_decode_nms_reference`` (plain torch, whole batch at once); on a
-CUDA device it launches the hand-written kernel ``csrc/yolo_head.cu`` (one
-thread block per image and group of class rows, one warp per row; the rows'
-layout and G from ``ops/nms_pallas.greedy_plan``: in shared memory, or, for
-more candidates than a block holds, in a global scratch tensor) or raises.
-There is no fallback from the kernel to the plain version.
+CUDA device it launches the hand-written kernels of ``csrc/yolo_head.cu``
+or raises.  In shared memory: one thread block per image and group of class
+rows, one warp per row (the rows' layout and G from
+``ops/nms_pallas.greedy_plan``).  For more candidates than a block holds,
+the global path: a decode kernel, then one block a class row selecting in
+score order (``csrc/ordered_select.cuh``; the same winners as the step
+loop, bit for bit), or, at a threshold at or below -1e9, the step loop in
+a global scratch tensor.  There is no fallback from the kernels to the
+plain version.
 
 Reference math: decode as ``ops/decode.py`` of the JAX package (sigmoid xy +
 grid offset, exp wh * anchor), with darknet's per-layer ``scale_x_y`` s
@@ -38,7 +42,7 @@ from k210_yolo_framework_tpu_torch.ops.nms_pallas import (
 )
 
 __all__ = ["candidate_geometry", "letterbox_inverse_params",
-           "fused_decode_nms", "fused_decode_nms_reference"]
+           "fused_decode_nms", "fused_decode_nms_reference", "ordered_tally"]
 
 _NEG = -1e9
 
@@ -191,6 +195,18 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.yolo_head_blocks_per_sm.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.yolo_head_blocks_per_sm.restype = ctypes.c_int
+    lib.yolo_head_ordered.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.yolo_head_ordered.restype = ctypes.c_int
+    lib.yolo_head_ordered_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.yolo_head_ordered_scratch_bytes.restype = ctypes.c_size_t
+    lib.yolo_head_ordered_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.yolo_head_ordered_smem_bytes.restype = ctypes.c_size_t
+    lib.yolo_head_ordered_max_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.yolo_head_ordered_max_smem.restype = ctypes.c_int
     return lib
 
 
@@ -211,6 +227,48 @@ def _smem_limit(device: torch.device) -> int:
         _check(lib, lib.yolo_head_max_dynamic_smem(ctypes.byref(nbytes)),
                "shared-memory query")
     return nbytes.value
+
+
+@functools.cache
+def _ordered_smem_limit(device: torch.device) -> int:
+    """The most dynamic shared memory the ordered path's select block may
+    ask for on ``device``."""
+    lib = _kernel_lib()
+    nbytes = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(lib, lib.yolo_head_ordered_max_smem(ctypes.byref(nbytes)),
+               "shared-memory query")
+    return nbytes.value
+
+
+def ordered_tally(device) -> torch.Tensor:
+    """The int64 tally on CUDA ``device`` to which every ordered launch
+    there adds its rows' scan depths (candidates visited in score order, up
+    to the last winner a row needs or its list's end).  Read it only off
+    the serving path (``.item()`` waits for the card).  Made on first use:
+    make it before a CUDA graph captures the head (an eager call does), or
+    the graph would zero it at each replay."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return _tally(index)
+
+
+@functools.cache
+def _tally(index: int) -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.int64, device=torch.device("cuda",
+                                                                 index))
+
+
+def _takes_ordered(device: torch.device, n: int, max_out: int,
+                   score_thresh: float) -> bool:
+    """Whether a global-path launch can select in score order: a float32
+    threshold above -1e9 (at or below it a suppressed candidate stays
+    selectable, ``csrc/ordered_select.cuh``) and max_out winners that fit
+    the select block's shared memory."""
+    return bool(np.float32(score_thresh) > np.float32(_NEG)) and \
+        _kernel_lib().yolo_head_ordered_smem_bytes(n, max_out) \
+        <= _ordered_smem_limit(device)
 
 
 def _sms(device: torch.device) -> int:
@@ -242,12 +300,15 @@ def _blocks_per_sm(device: torch.device, n: int, rows: int,
 def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
             classes: int, max_out: int, iou_thresh: float,
             score_thresh: float, class_softmax: bool,
-            rows: int | None = None, layout: str | None = None):
+            rows: int | None = None, layout: str | None = None,
+            ordered: bool | None = None):
     """Run ``csrc/yolo_head.cu`` on the current stream; returns the winner
     buffers [B, C, M] and [B, C, M, 4].  ``rows`` class rows a block and
     their ``layout`` default to ``_plan``'s; a forced ``rows`` must fit
     shared memory unless ``layout`` is ``"global"``, which runs the global
-    path at any N (default G: ``global_rows``)."""
+    path at any N (default G: ``global_rows``).  The global path selects
+    in score order where ``_takes_ordered`` (``rows`` does not apply
+    there), else runs the step loop; ``ordered`` forces one of the two."""
     bsz, n, e = p.shape
     for name, t in (("logits", p), ("geometry", geom), ("lbox", lbox)):
         if t.device != p.device or t.dtype != torch.float32 \
@@ -280,24 +341,46 @@ def _launch(p: torch.Tensor, geom: torch.Tensor, lbox: torch.Tensor, *,
         raise ValueError(f"{rows} class rows a block of {n} candidates do "
                          f"not fit one block's shared memory (1 to "
                          f"{max_rows} rows)")
+    if layout != "global":
+        if ordered:
+            raise ValueError("the ordered path is the global layout's")
+    elif ordered is None:
+        ordered = _takes_ordered(p.device, n, max_out, score_thresh)
+    elif ordered and not _takes_ordered(p.device, n, max_out, score_thresh):
+        raise ValueError(f"no ordered path at threshold {score_thresh} "
+                         f"with max_out {max_out}")
     scratch = None
-    if layout == "global":
+    if ordered:
+        scratch = torch.empty(
+            lib.yolo_head_ordered_scratch_bytes(bsz, n, classes),
+            dtype=torch.uint8, device=p.device)
+    elif layout == "global":
         blocks = bsz * -(-classes // rows)
         scratch = torch.empty(
             blocks * lib.yolo_head_scratch_bytes(n, rows) // 4,
             dtype=torch.float32, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.yolo_head_decode_nms(
-            p.data_ptr(), geom.data_ptr(), lbox.data_ptr(),
-            out_scores.data_ptr(), out_boxes.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            bsz, n, classes, rows, max_out, iou_thresh, score_thresh,
-            int(class_softmax), stream)
+        if ordered:
+            err = lib.yolo_head_ordered(
+                p.data_ptr(), geom.data_ptr(), lbox.data_ptr(),
+                out_scores.data_ptr(), out_boxes.data_ptr(),
+                scratch.data_ptr(), ordered_tally(p.device).data_ptr(),
+                bsz, n, classes, max_out, iou_thresh, score_thresh,
+                int(class_softmax), stream)
+        else:
+            err = lib.yolo_head_decode_nms(
+                p.data_ptr(), geom.data_ptr(), lbox.data_ptr(),
+                out_scores.data_ptr(), out_boxes.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                bsz, n, classes, rows, max_out, iou_thresh, score_thresh,
+                int(class_softmax), stream)
     _check(lib, err, "kernel launch")
     fused_decode_nms.launches += 1
     if scratch is not None:
         fused_decode_nms.global_launches += 1
+    if ordered:
+        fused_decode_nms.ordered_launches += 1
     return out_scores, out_boxes
 
 
@@ -309,7 +392,8 @@ def fused_decode_nms(preds: Sequence[torch.Tensor], spec: YoloSpec,
 
     CPU tensors go through ``fused_decode_nms_reference``; CUDA tensors
     through the kernel at any N, counted in ``fused_decode_nms.launches``
-    (and those on the global path also in ``.global_launches``)."""
+    (those on the global path also in ``.global_launches``, and those of
+    them that selected in score order also in ``.ordered_launches``)."""
     device = preds[0].device
     if device.type == "cpu":
         return fused_decode_nms_reference(preds, spec, img_hws, score_thresh,
@@ -327,3 +411,4 @@ def fused_decode_nms(preds: Sequence[torch.Tensor], spec: YoloSpec,
 
 fused_decode_nms.launches = 0
 fused_decode_nms.global_launches = 0
+fused_decode_nms.ordered_launches = 0

@@ -103,9 +103,11 @@ def test_kernel_matches_plain(dev, case, class_softmax, thresh):
     hws = torch.from_numpy(np.random.default_rng(1).integers(
         100, 512, (16, 2)).astype(np.int32)).to(dev)
     before = TH.fused_decode_nms.launches
+    ordered = TH.fused_decode_nms.ordered_launches
     got = TH.fused_decode_nms(preds, spec, hws, thresh, 0.3, 30, class_softmax)
     torch.cuda.synchronize()
     assert TH.fused_decode_nms.launches == before + 1
+    assert TH.fused_decode_nms.ordered_launches == ordered
     want = TH.fused_decode_nms_reference(preds, spec, hws, thresh, 0.3, 30,
                                          class_softmax)
     _close(got, want, thresh)
@@ -166,14 +168,25 @@ def test_wrapper_rejects_bad_inputs(dev):
     assert TH._plan(dev, 1, limit, 20) == ("own", 1)
     assert TH._plan(dev, 1, limit + 1, 20)[0] == "global"
     before = TH.fused_decode_nms.global_launches
+    ordered = TH.fused_decode_nms.ordered_launches
     TH._launch(big[:, :limit].contiguous(), torch.zeros((8, limit), device=dev),
                lbox[:1].contiguous(), **kw)
     TH._launch(big, torch.zeros((8, limit + 1), device=dev),
                lbox[:1].contiguous(), **kw)
     torch.cuda.synchronize()
     assert TH.fused_decode_nms.global_launches == before + 1
+    # the global path selects in score order, the shared layouts never
+    assert TH.fused_decode_nms.ordered_launches == ordered + 1
     with pytest.raises(ValueError, match="layout"):
         TH._launch(p, geom, lbox, layout="shared", **kw)
+    with pytest.raises(ValueError, match="ordered"):
+        TH._launch(p, geom, lbox, ordered=True, **kw)
+    for thresh in (-1e9, -1e9 + 1.0, float("nan")):
+        # -1e9 + 1 rounds to -1e9 in float32: the step loop's rule
+        with pytest.raises(ValueError, match="no ordered path"):
+            TH._launch(big, torch.zeros((8, limit + 1), device=dev),
+                       lbox[:1].contiguous(), layout="global", ordered=True,
+                       **{**kw, "score_thresh": thresh})
 
 
 def test_predictor_on_card_uses_the_kernel(dev):
@@ -645,26 +658,38 @@ def _check_rows(case, res, classes, max_out):
         assert v.any()
 
 
-@pytest.mark.parametrize("layout", [None, "global"])
+@pytest.mark.parametrize("layout", [None, "global", "global_loop"])
 @pytest.mark.parametrize("case", sorted(GREEDY_CASES))
 def test_head_kernel_greedy_cases(dev, case, layout):
     """The head kernel against its plain version (``_close``) on the cases
     the warp-per-row loop must get right, in the planned layout and on the
-    global path."""
+    global path: in score order where the threshold is above -1e9 (bit for
+    bit the step loop's winners there), the step loop below; and the step
+    loop on the global path, forced (``global_loop``)."""
     bsz, thresh, max_out, rows = GREEDY_CASES[case]
     p, geom, lbox, classes = _greedy_inputs(case, dev)
     kw = dict(classes=classes, max_out=max_out, iou_thresh=0.3)
     before = TH.fused_decode_nms.launches
-    got = finish_winners(*TH._launch(p, geom, lbox, score_thresh=thresh,
-                                     class_softmax=False, rows=rows,
-                                     layout=layout, **kw), thresh)
+    ordered = TH.fused_decode_nms.ordered_launches
+    raw = TH._launch(p, geom, lbox, score_thresh=thresh, class_softmax=False,
+                     rows=rows, layout=layout and "global",
+                     ordered=False if layout == "global_loop" else None, **kw)
+    got = finish_winners(*raw, thresh)
     torch.cuda.synchronize()
     assert TH.fused_decode_nms.launches == before + 1
+    takes = layout == "global" and thresh > -1e9
+    assert TH.fused_decode_nms.ordered_launches == ordered + int(takes)
     w_s, *w_box = TH._decode_and_select(p, geom, lbox, class_softmax=False,
                                         stop_below=thresh, **kw)
     want = finish_winners(w_s, torch.stack(w_box, dim=-1), thresh)
     _close(got, want, thresh)
     _check_rows(case, got, classes, max_out)
+    if takes:
+        loop = TH._launch(p, geom, lbox, score_thresh=thresh,
+                          class_softmax=False, rows=rows, layout="global",
+                          ordered=False, **kw)
+        for g, w in zip(raw, loop):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("layout", [None, "global"])
@@ -759,6 +784,185 @@ def test_greedy_kernels_take_any_candidate_count(dev, what, bsz):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     assert got.valid.any()
+
+
+# (B, threshold, max_out, class_softmax) of the ordered path's cases, each
+# on the global path; the inputs are made in _ordered_inputs
+ORDERED_CASES = {
+    "ties_and_zeros": (2, 0.0, 100, False),  # equal scores; +0 scores, kept
+    "rounds": (2, 0.3, 100, False),          # 6,000 equal boxes on top
+    "one_suppresses_all": (2, 0.01, 100, False),
+    "nan": (4, 0.01, 100, False),            # a NaN row; a NaN image
+    "wild_boxes": (4, 0.01, 100, False),     # NaN, inf, beyond +-1e18
+    "below_floor": (4, 0.01, 100, False),    # corners below -1e9
+    "max_out_long": (2, 0.9, 300, False),    # rows of fewer than max_out
+    "limit_plus_1": (2, 0.01, 100, False),
+    "softmax": (4, 0.03, 100, True),
+    "eval608": (8, 0.01, 100, False),        # the eval cell's settings
+    "v4_608": (4, 0.01, 100, False),         # YOLOv4's scale_x_y
+    "n72828": (1, 0.01, 100, False),
+}
+V4_SCALE = (1.05, 1.1, 1.2)
+
+
+def _ordered_inputs(case, dev, seed=12):
+    """(flat logits [B, N, 25], geometry [8, N], lbox [B, 8]) of a case."""
+    bsz = ORDERED_CASES[case][0]
+    rng = np.random.default_rng(seed)
+    if case in ("eval608", "v4_608", "nan", "wild_boxes", "softmax",
+                "n72828"):
+        spec = _yolo_spec_at(1088 if case == "n72828" else 608)
+        if case == "v4_608":
+            spec = YoloSpec.create(spec.in_hw, spec.out_hws, 20,
+                                   np.asarray(spec.anchors), V4_SCALE)
+        n = sum(h * w for h, w in spec.out_hws) * spec.nanchors
+        geom = TH._geometry_on(spec, dev).clone()
+    else:
+        n = _own_capacity(dev) + 1 if case in (
+            "limit_plus_1", "max_out_long", "ties_and_zeros") else 22_743
+        geom = torch.from_numpy(np.concatenate([
+            rng.uniform(0, 40, (2, n)), rng.uniform(0.01, 0.1, (2, n)),
+            rng.uniform(0.02, 0.3, (2, n)), np.ones((1, n)),
+            np.zeros((1, n))]).astype(np.float32)).to(dev)
+    p = rng.normal(0, 2, (bsz, n, 25)).astype(np.float32)
+    p[..., 4] -= 2.0
+    if case == "ties_and_zeros":
+        p[..., 4] = 2.0
+        p[..., 5:] = -200.0                    # exactly +0 ...
+        p[:, ::200, 5:] = 2.0                  # ... or one score
+    elif case == "rounds":
+        p[:, :6000, :4] = 0.5                  # 6,000 equal boxes, the
+        p[:, :6000, 4:] = 6.0 + p[:, :6000, 4:] * 1e-3   # row's best
+        geom[:, :6000] = geom[:, :1]
+    elif case == "one_suppresses_all":
+        p[..., :4] = 0.25
+        geom[:] = geom[:, :1]
+    elif case == "nan":
+        p[0, 7, 5 + 3] = np.nan                # image 0, class 3
+        p[1, 100, 4] = np.nan                  # every row of image 1
+    elif case == "wild_boxes":
+        p[:, 1::37, 0] = np.nan                # a NaN box
+        p[:, ::41, 2] = 100.0                  # exp overflows to inf
+        p[:, 2::43, 3] = 44.0                  # ~1e20 tall, finite
+        p[:, 2::86, 2] = 44.0                  # and wide: the area is inf
+        for wild in (np.s_[1::37], np.s_[::41], np.s_[2::43]):
+            p[:, wild, 4:] += 4.0              # such boxes win
+    elif case == "below_floor":
+        some = rng.random(n) < 0.3
+        geom[0, torch.from_numpy(some).to(dev)] = -3e10
+        p[:, some, 2] = rng.uniform(0, 26, (bsz, int(some.sum())))
+        p[:, some, 4:] += 3.0
+    if case in ("eval608", "v4_608", "nan", "wild_boxes", "softmax",
+                "n72828"):
+        p[..., 4] += 1.0
+        hws = rng.integers(100, 1200, (bsz, 2))
+    else:
+        hws = np.tile([[375, 500]], (bsz, 1))
+    lbox = TH.letterbox_inverse_params(
+        torch.from_numpy(hws.astype(np.int32)).to(dev),
+        (608, 608)).contiguous()
+    return torch.from_numpy(p).to(dev), geom, lbox
+
+
+@pytest.mark.parametrize("case", sorted(ORDERED_CASES))
+def test_ordered_path_equals_the_step_loop_and_plain(dev, case):
+    """On the global path at a threshold above -1e9 the head selects in
+    score order: one ordered launch a call; its raw winner buffers equal
+    the step loop's (forced on the same path) bit for bit, and its
+    detections the plain version's on the card bit for bit.  The tally of
+    scan depths grows by each row's depth, at most its live candidates."""
+    bsz, thresh, max_out, softmax = ORDERED_CASES[case]
+    p, geom, lbox = _ordered_inputs(case, dev)
+    n = p.shape[1]
+    assert n > _own_capacity(dev) and TH._plan(dev, bsz, n, 20)[0] == "global"
+    kw = dict(classes=20, max_out=max_out, iou_thresh=0.45,
+              score_thresh=thresh, class_softmax=softmax)
+    tally = TH.ordered_tally(dev)
+    depth0 = int(tally.item())
+    ordered = TH.fused_decode_nms.ordered_launches
+    got = TH._launch(p, geom, lbox, **kw)
+    torch.cuda.synchronize()
+    assert TH.fused_decode_nms.ordered_launches == ordered + 1
+    depth = int(tally.item()) - depth0
+    loop = TH._launch(p, geom, lbox, layout="global", ordered=False, **kw)
+    assert TH.fused_decode_nms.ordered_launches == ordered + 1
+    for g, w in zip(got, loop):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    # the plain loop runs a stopped row on into slots below the threshold,
+    # which callers mask: compare what they keep
+    w_s, *w_box = TH._decode_and_select(
+        p, geom, lbox, classes=20, max_out=max_out, iou_thresh=0.45,
+        class_softmax=softmax, stop_below=thresh)
+    want = finish_winners(w_s, torch.stack(w_box, dim=-1), thresh)
+    for g, w in zip(finish_winners(*got, thresh), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    *_, scores = TH._decode(p, geom, lbox, classes=20, class_softmax=softmax)
+    rows_nan = scores.isnan().any(-1)
+    live = int(((scores >= thresh) & ~rows_nan[..., None]).sum())
+    valid = got[0] >= thresh
+    assert 0 < depth <= live
+    if case == "rounds":
+        # one of the 6,000 equal boxes wins, the rest are scanned past:
+        # more than two rounds of 2,048 keys a row
+        assert valid.all() and depth >= bsz * 20 * 6000
+    elif case == "one_suppresses_all":
+        assert valid.sum(-1).eq(1).all() and depth == live
+    elif case == "nan":
+        assert rows_nan[0, 3] and rows_nan[1].all()
+        assert not valid[0, 3].any() and not valid[1].any()
+        assert valid[0, [0, 1, 2, 4]].any(-1).all()
+    elif case == "wild_boxes":
+        won = got[1][valid]
+        assert won.isnan().any() and won.isinf().any()
+        assert ((won.abs() > 1e19) & won.isfinite()).any()
+    elif case == "below_floor":
+        assert (got[1][valid] == -1e9).any()
+    elif case == "max_out_long":
+        assert 0 < valid.sum(-1).max() < max_out
+    elif case == "ties_and_zeros":
+        assert (got[0][valid] == 0).any() and valid.all()
+    else:
+        assert valid.any(-1).all()
+
+
+def test_serve_graph_replays_a_608_call_bit_for_bit(dev):
+    """The darknet53 yolo at 608x608 (N = 22,743, the ordered path) at the
+    eval settings: ``_run_batch`` captured in a CUDA graph after a warm-up
+    replays two other batches bit for bit against eager calls, one ordered
+    launch a call (what ``bench --mode serve_scan`` replays)."""
+    spec = _yolo_spec_at(608)
+    net = build_network("yolo", spec.in_hw, 3, 20,
+                        generator=torch.Generator().manual_seed(0))
+    pred = Predictor(net, None, spec, obj_thresh=0.01, iou_thresh=0.45,
+                     max_out=100, compute_dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(8)
+
+    def batch():
+        c = rng.integers(0, 256, (2, 512, 512, 3)).astype(np.uint8)
+        h = np.stack([rng.integers(300, 513, 2), rng.integers(300, 513, 2)],
+                     -1).astype(np.int32)
+        return torch.from_numpy(c).to(dev), torch.from_numpy(h).to(dev)
+
+    static_c, static_h = batch()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    ordered = TH.fused_decode_nms.ordered_launches
+    with torch.cuda.stream(side):
+        pred._run_batch(static_c, static_h)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert TH.fused_decode_nms.ordered_launches == ordered + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pred._run_batch(static_c, static_h)
+    for _ in range(2):
+        c, h = batch()
+        static_c.copy_(c)
+        static_h.copy_(h)
+        graph.replay()
+        want = pred._run_batch(c, h)
+        assert int(want.valid.sum()) > 0
+        for field, got, ref in zip(want._fields, captured, want):
+            assert torch.equal(got, ref), field
 
 
 def test_scratch_footprints_follow_their_definition(dev):

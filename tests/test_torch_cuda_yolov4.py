@@ -169,8 +169,8 @@ def _winners(spec, preds, hws, dev, plain):
 
 def test_head_with_scale_x_y_on_the_global_path(dev):
     """N = 22,743 at B = 4 (the global path) with YOLOv4's scale_x_y, eval
-    settings (0.01, NMS 0.45, 100 a class): the kernel against its plain
-    version on the card, bit for bit (both decode ``(sigmoid(t) * s +
+    settings (0.01, NMS 0.45, 100 a class), in score order: the kernel
+    against its plain version on the card, bit for bit (both decode ``(sigmoid(t) * s +
     shift + gx) * inv_gw`` in that order, with no fused multiply-add); the
     same logits at s = 1 give other boxes."""
     spec = _spec()
@@ -179,10 +179,12 @@ def test_head_with_scale_x_y_on_the_global_path(dev):
                        dtype=torch.int32, device=dev)
     n = sum(h * w for h, w in spec.out_hws) * 3
     assert n == 22_743 and TH._plan(dev, 4, n, 20)[0] == "global"
-    before = TH.fused_decode_nms.global_launches
+    before = (TH.fused_decode_nms.global_launches,
+              TH.fused_decode_nms.ordered_launches)
     got = _winners(spec, preds, hws, dev, plain=False)
     torch.cuda.synchronize()
-    assert TH.fused_decode_nms.global_launches == before + 1
+    assert TH.fused_decode_nms.global_launches == before[0] + 1
+    assert TH.fused_decode_nms.ordered_launches == before[1] + 1
     want = _winners(spec, preds, hws, dev, plain=True)
     _close(got, want, 0.01)
     for g, w in zip(got, want):
