@@ -21,10 +21,6 @@ A stride-2 conv pads top and left by one, as the port's darknet53 does;
 darknet pads one on every side, but every map this net takes a stride-2
 conv of has an even size, whose last window ends on its last row and
 column: the bottom and right pad is never read, so the two are equal.
-
-A ConvBN's eval output is stored in the compute dtype where it reaches
-convs only (``layers.ConvBN.forward``'s ``narrow``): every conv here but
-``part_b`` and each unit's sum, which enter the next fp32 residual sum.
 """
 
 from __future__ import annotations
@@ -48,7 +44,9 @@ _CSP_STAGES = ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
 
 class _CSPStage(nn.Module):
     """``down``, ``part_a``, ``part_b``, ``res_<i>_1x1`` /
-    ``res_<i>_3x3``, ``post_b`` and ``transition`` (module docstring)."""
+    ``res_<i>_3x3``, ``post_b`` and ``transition`` (module docstring).
+    ``part_b`` and each unit's 3x3 are ``wide``: their outputs are addends
+    of the units' fp32 sums."""
 
     def __init__(self, cin: int, filters: int, num_blocks: int,
                  first: bool):
@@ -57,26 +55,26 @@ class _CSPStage(nn.Module):
         inner = filters // 2 if first else half
         self.down = DarknetConvBN(cin, filters, (3, 3), (2, 2), act=mish)
         self.part_a = DarknetConvBN(filters, half, (1, 1), act=mish)
-        self.part_b = DarknetConvBN(filters, half, (1, 1), act=mish)
+        self.part_b = DarknetConvBN(filters, half, (1, 1), act=mish,
+                                    wide=True)
         for i in range(num_blocks):
             setattr(self, f"res_{i}_1x1",
                     DarknetConvBN(half, inner, (1, 1), act=mish))
             setattr(self, f"res_{i}_3x3",
-                    DarknetConvBN(inner, half, (3, 3), act=mish))
+                    DarknetConvBN(inner, half, (3, 3), act=mish, wide=True))
         self.post_b = DarknetConvBN(half, half, (1, 1), act=mish)
         self.transition = DarknetConvBN(2 * half, filters, (1, 1), act=mish)
         self.num_blocks = num_blocks
 
     def forward(self, x, dtype: torch.dtype):
-        x = self.down(x, dtype, narrow=True)
-        a = self.part_a(x, dtype, narrow=True)
-        # B and each unit's sum enter the next fp32 sum: stored wide
+        x = self.down(x, dtype)
+        a = self.part_a(x, dtype)
         b = self.part_b(x, dtype)
         for i in range(self.num_blocks):
-            y = getattr(self, f"res_{i}_1x1")(b, dtype, narrow=True)
+            y = getattr(self, f"res_{i}_1x1")(b, dtype)
             b = getattr(self, f"res_{i}_3x3")(y, dtype, residual=b)
-        b = self.post_b(b, dtype, narrow=True)
-        return self.transition(cat_channels([b, a]), dtype, narrow=True)
+        b = self.post_b(b, dtype)
+        return self.transition(cat_channels([b, a]), dtype)
 
 
 class CSPDarknet53(nn.Module):
@@ -98,7 +96,7 @@ class CSPDarknet53(nn.Module):
                 input_scale: Optional[torch.Tensor] = None):
         """x: NCHW.  ``input_scale`` [B]: per-image normalisation folded in
         after the stem conv."""
-        x = self.stem(x, dtype, input_scale, narrow=True)
+        x = self.stem(x, dtype, input_scale)
         x = self.stage_2(self.stage_1(x, dtype), dtype)
         tap8 = self.stage_3(x, dtype)
         tap16 = self.stage_4(tap8, dtype)
@@ -120,5 +118,5 @@ class ConvStack(nn.Module):
 
     def forward(self, x, dtype: torch.dtype):
         for i in range(self.n):
-            x = getattr(self, f"conv_{i}")(x, dtype, narrow=True)
+            x = getattr(self, f"conv_{i}")(x, dtype)
         return x

@@ -9,12 +9,6 @@ blocks take their widths as constructor arguments, so tests can build them
 narrow.  On a TP/SP mesh every block takes and returns ``Sharded``
 activations: the pools and the residual adds take them
 (``layers.max_pool_same``, ``layers.residual_add``).
-
-A ConvBN's eval output is stored in the compute dtype
-(``layers.ConvBN.forward``'s ``narrow``) where it reaches convs only,
-through pools (rounding commutes with max), upsamples and concats: every
-conv here but darknet53's ``down`` convs and residual sums, which enter
-the next fp32 sum.
 """
 
 from __future__ import annotations
@@ -59,35 +53,33 @@ class TinyYoloBody(nn.Module):
         after the stem conv."""
         for i in range(4):
             x = getattr(self, f"conv_{i}")(x, dtype,
-                                           input_scale if i == 0 else None,
-                                           narrow=True)
+                                           input_scale if i == 0 else None)
             x = self.pool(x, 2)
-        x1 = self.conv_4(x, dtype, narrow=True)
-        x = self.conv_5(self.pool(x1, 2), dtype, narrow=True)
-        x = self.conv_6(self.pool(x, 1), dtype, narrow=True)
-        return x1, self.conv_7(x, dtype, narrow=True)
+        x1 = self.conv_4(x, dtype)
+        x = self.conv_5(self.pool(x1, 2), dtype)
+        x = self.conv_6(self.pool(x, 1), dtype)
+        return x1, self.conv_7(x, dtype)
 
 
 class _ResBlockBody(nn.Module):
     """A stride-2 ``down`` conv, then ``num_blocks`` residual units
-    (1x1 to filters / 2, 3x3 back to filters)."""
+    (1x1 to filters / 2, 3x3 back to filters).  ``down`` and each unit's
+    3x3 are ``wide``: their outputs are addends of the units' fp32 sums."""
 
     def __init__(self, cin: int, filters: int, num_blocks: int):
         super().__init__()
-        self.down = DarknetConvBN(cin, filters, (3, 3), (2, 2))
+        self.down = DarknetConvBN(cin, filters, (3, 3), (2, 2), wide=True)
         for i in range(num_blocks):
             setattr(self, f"res_{i}_1x1",
                     DarknetConvBN(filters, filters // 2, (1, 1)))
             setattr(self, f"res_{i}_3x3",
-                    DarknetConvBN(filters // 2, filters, (3, 3)))
+                    DarknetConvBN(filters // 2, filters, (3, 3), wide=True))
         self.num_blocks = num_blocks
 
     def forward(self, x, dtype: torch.dtype):
-        # ``down`` and each unit's sum enter the next fp32 sum: stored wide;
-        # the 1x1 feeds the 3x3 alone
         x = self.down(x, dtype)
         for i in range(self.num_blocks):
-            y = getattr(self, f"res_{i}_1x1")(x, dtype, narrow=True)
+            y = getattr(self, f"res_{i}_1x1")(x, dtype)
             # the sum is a new tensor, or without gradients written into
             # the 3x3's fresh output: x may be a tap the caller keeps
             x = getattr(self, f"res_{i}_3x3")(y, dtype, residual=x)
@@ -112,7 +104,7 @@ class Darknet53(nn.Module):
                 input_scale: Optional[torch.Tensor] = None):
         """x: NCHW.  ``input_scale`` [B]: per-image normalisation folded in
         after the stem conv."""
-        x = self.stem(x, dtype, input_scale, narrow=True)
+        x = self.stem(x, dtype, input_scale)
         x = self.stage_2(self.stage_1(x, dtype), dtype)
         tap8 = self.stage_3(x, dtype)
         tap16 = self.stage_4(tap8, dtype)
@@ -135,5 +127,5 @@ class LastLayers(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype):
         for i in range(5):
-            x = getattr(self, f"trunk_{i}")(x, dtype, narrow=True)
-        return x, self.branch(x, dtype, narrow=True)
+            x = getattr(self, f"trunk_{i}")(x, dtype)
+        return x, self.branch(x, dtype)

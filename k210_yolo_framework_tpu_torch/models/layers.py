@@ -738,6 +738,11 @@ class ConvBN(nn.Module):
     JAX's own ``"default"`` stem (``_StemConv``, im2col and a matmul) and
     its trace-time choice of ``nn.Conv`` are TPU dispatch workarounds: the
     same function in another summation order, which ``F.conv2d`` computes.
+
+    ``wide``: the eval output is an addend of a later fp32 residual sum, and
+    the block that makes the sum marks it; :meth:`forward`'s fused pass then
+    stores it in fp32.  Every other ConvBN's output reaches convs only, each
+    of which casts it to the compute dtype first: it is stored in that dtype.
     """
 
     def __init__(self, cin: int, features: int,
@@ -745,7 +750,8 @@ class ConvBN(nn.Module):
                  strides: Tuple[int, int] = (1, 1),
                  explicit_pad: Optional[Pads] = None,
                  act: Optional[Callable] = None, depthwise: bool = False,
-                 bn_momentum: float = 0.99, stem_mode: str = "default"):
+                 bn_momentum: float = 0.99, stem_mode: str = "default",
+                 wide: bool = False):
         super().__init__()
         if explicit_pad is not None:
             pads = explicit_pad
@@ -759,6 +765,7 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(cout, bn_momentum)
         self.act = act
         self.stem_mode = stem_mode
+        self.wide = wide
 
     @property
     def stem_mode(self) -> str:
@@ -773,7 +780,7 @@ class ConvBN(nn.Module):
 
     def forward(self, x, dtype: torch.dtype = torch.float32,
                 post_conv_scale: Optional[torch.Tensor] = None,
-                residual=None, narrow: bool = False):
+                residual=None):
         """``x`` NCHW, or ``Sharded`` on a TP/SP mesh: then this rank's
         part of the conv (``Conv.forward_sharded``, ``forward_int8`` or
         ``forward_patches``), and the scale, BN and activation on it.
@@ -786,11 +793,9 @@ class ConvBN(nn.Module):
         activation and residual add run as one pass
         (``ops.conv_epilogue``), bit for bit the steps they replace (Mish:
         within rounding, ``conv_epilogue``'s docstring).  It
-        stores in the compute dtype where the owner passes ``narrow``
-        (every consumer of the output casts to that dtype first, so the
-        values are the same) and not under Int8Act (the int8 convs
-        quantize from fp32); in fp32 otherwise, as the other path
-        returns."""
+        stores in fp32, as the other path returns, where ``wide`` is set
+        or under Int8Act (the int8 convs quantize from fp32); in the
+        compute dtype otherwise.  There a ``residual`` must be fp32."""
         dtype, int8_act = split_dtype(dtype)
         if int8_act is not None and self.training:
             # round() has no gradient: the conv stack would not train
@@ -811,7 +816,10 @@ class ConvBN(nn.Module):
         if act is not None and not isinstance(y, Sharded) \
                 and not self.bn.training and not torch.is_grad_enabled() \
                 and not torch.compiler.is_compiling():
-            store = dtype if narrow and int8_act is None else torch.float32
+            if residual is not None and residual.dtype != torch.float32:
+                raise ValueError(f"a {residual.dtype} residual: the skip's "
+                                 "producer lacks wide=True")
+            store = torch.float32 if self.wide or int8_act else dtype
             return conv_epilogue(y, *self.bn.eval_terms(), *act,
                                  scale=post_conv_scale, residual=residual,
                                  store=store)
@@ -849,19 +857,20 @@ def _epilogue_act(act) -> Optional[Tuple[str, float]]:
 class DarknetConvBN(nn.Module):
     """``DarknetConv2D_BN_Leaky``: no bias, BN, LeakyReLU 0.1 (or ``act``:
     YOLOv4's trunk passes :func:`mish`); the stride-2 variant pads top/left
-    only.  ``stem_mode`` as ``ConvBN``'s (these stems are stride 1:
-    ``"patches"`` is refused by the Predictor)."""
+    only.  ``stem_mode`` and ``wide`` as ``ConvBN``'s (these stems are
+    stride 1: ``"patches"`` is refused by the Predictor)."""
 
     def __init__(self, cin: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1),
-                 stem_mode: str = "default", act: Optional[Callable] = None):
+                 stem_mode: str = "default", act: Optional[Callable] = None,
+                 wide: bool = False):
         super().__init__()
         explicit = ((1, 0), (1, 0)) if tuple(strides) == (2, 2) else None
         self.dark_conv_bn = ConvBN(cin, features, kernel, strides,
                                    explicit_pad=explicit,
                                    act=act or leaky_relu(0.1),
-                                   stem_mode=stem_mode)
+                                   stem_mode=stem_mode, wide=wide)
 
     @property
     def stem_mode(self) -> str:
@@ -873,8 +882,8 @@ class DarknetConvBN(nn.Module):
 
     def forward(self, x, dtype: torch.dtype = torch.float32,
                 post_conv_scale: Optional[torch.Tensor] = None,
-                residual=None, narrow: bool = False):
-        return self.dark_conv_bn(x, dtype, post_conv_scale, residual, narrow)
+                residual=None):
+        return self.dark_conv_bn(x, dtype, post_conv_scale, residual)
 
 
 class darknet_head_conv(nn.Module):  # noqa: N801 (the JAX package's name)

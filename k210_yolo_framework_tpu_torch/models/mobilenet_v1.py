@@ -10,9 +10,7 @@ reference fork's deviations from stock MobileNet:
   * every stride-2 conv pads ((1, 1), (1, 1)) explicitly and runs VALID.
 
 Returns the stride-16 tap (block 11's output) and the stride-32 trunk.
-Every output reaches a conv only, directly or through the head's upsample
-and concat, so each ConvBN may store in the compute dtype
-(``layers.ConvBN.forward``'s ``narrow``).
+No residual sum: no ConvBN is ``wide``.
 """
 
 from __future__ import annotations
@@ -49,7 +47,7 @@ class _DWBlock(nn.Module):
         self.pw = ConvBN(cin, filters, (1, 1), act=leaky_relu(0.3))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return self.pw(self.dw(x, dtype, narrow=True), dtype, narrow=True)
+        return self.pw(self.dw(x, dtype), dtype)
 
 
 class MobileNetV1(nn.Module):
@@ -77,7 +75,7 @@ class MobileNetV1(nn.Module):
         """x: NCHW, or the stem's patches in the ``"patches"`` stem mode.
         ``input_scale`` [B]: per-image normalisation folded in after the
         stem conv."""
-        x = self.stem(x, dtype, input_scale, narrow=True)
+        x = self.stem(x, dtype, input_scale)
         x = self.block_1(x, dtype)
         tap16 = None
         for i in range(2, 2 + len(_BLOCKS)):

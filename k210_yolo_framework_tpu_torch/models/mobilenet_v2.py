@@ -14,7 +14,9 @@ reference fork's deviations from stock MobileNetV2:
 BN momentum 0.999 (eps 1e-3) everywhere; ReLU6 after the stem, each expand,
 each depthwise and ``conv_last``; ``project`` is linear.  Returns the
 stride-16 tap (block 13's expand output, after its ReLU6) and the stride-32
-trunk (``conv_last``'s output).
+trunk (``conv_last``'s output).  The stem, or a block's ``project``, is
+``wide`` where the next block is residual: its output is an addend of
+that block's fp32 sum.
 """
 
 from __future__ import annotations
@@ -83,21 +85,19 @@ class _InvertedResBlock(nn.Module):
         self.expand_channels = c
         self.out_channels = pointwise
 
-    def forward(self, x, dtype: torch.dtype, narrow: bool = False):
+    def forward(self, x, dtype: torch.dtype):
         """-> (output, the expand conv's output or None); ``x`` a tensor
         or a ``Sharded`` one.  Both BN outputs are fp32, so the residual add
         is fp32.  Without gradients the add writes into ``project``'s fresh
         output, never into ``x`` or the expand output, which the caller may
-        keep as a tap.  ``narrow``: the output may be stored in the compute
-        dtype (it enters no residual add); the expand and depthwise outputs
-        reach convs only."""
+        keep as a tap."""
         inputs = x
         expand_out = None
         if self.expand is not None:
-            x = expand_out = self.expand(x, dtype, narrow=True)
-        return self.project(self.depthwise(x, dtype, narrow=True), dtype,
-                            residual=inputs if self.residual else None,
-                            narrow=narrow), expand_out
+            x = expand_out = self.expand(x, dtype)
+        y = self.project(self.depthwise(x, dtype), dtype,
+                         residual=inputs if self.residual else None)
+        return y, expand_out
 
 
 class MobileNetV2(nn.Module):
@@ -111,10 +111,13 @@ class MobileNetV2(nn.Module):
                            explicit_pad=((1, 1), (1, 1)), act=relu6,
                            bn_momentum=BN_MOMENTUM, stem_mode=stem_mode)
         c = 32
+        prev = self.stem
         for bid, (f, s, e) in enumerate(_BLOCKS):
             cap = {1: 48, 2: 124}.get(bid) if a > 0.6 else None
             block = _InvertedResBlock(c, f, s, e, a, bid, cap)
             setattr(self, f"block_{bid}", block)
+            prev.wide = block.residual   # prev's output: this block's skip
+            prev = block.project
             if bid == 13:
                 self.tap16_channels = block.expand_channels
             c = block.out_channels
@@ -127,13 +130,10 @@ class MobileNetV2(nn.Module):
                 input_scale: Optional[torch.Tensor] = None):
         """x: NCHW.  ``input_scale`` [B]: per-image normalisation folded in
         after the stem conv."""
-        # an output that enters the next block's residual add stays fp32
-        blocks = [getattr(self, f"block_{bid}") for bid in range(len(_BLOCKS))]
-        feeds_sum = [b.residual for b in blocks[1:]] + [False]
-        x = self.stem(x, dtype, input_scale, narrow=not blocks[0].residual)
+        x = self.stem(x, dtype, input_scale)
         tap16 = None
-        for bid, block in enumerate(blocks):
-            x, expand_out = block(x, dtype, narrow=not feeds_sum[bid])
+        for bid in range(len(_BLOCKS)):
+            x, expand_out = getattr(self, f"block_{bid}")(x, dtype)
             if bid == 13:   # 'block_13_expand_relu'
                 tap16 = expand_out
-        return tap16, self.conv_last(x, dtype, narrow=True)
+        return tap16, self.conv_last(x, dtype)

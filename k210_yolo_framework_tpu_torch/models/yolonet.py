@@ -71,10 +71,10 @@ class _TwoScaleHead(nn.Module):
 
     def forward(self, tap16: torch.Tensor, trunk32: torch.Tensor,
                 dtype: torch.dtype) -> List[torch.Tensor]:
-        y1 = self.y1_out(self.y1_conv(trunk32, dtype, narrow=True), dtype)
-        x = upsample2x(self.up_conv(trunk32, dtype, narrow=True))
+        y1 = self.y1_out(self.y1_conv(trunk32, dtype), dtype)
+        x = upsample2x(self.up_conv(trunk32, dtype))
         x = cat_channels([x, tap16])
-        y2 = self.y2_out(self.y2_conv(x, dtype, narrow=True), dtype)
+        y2 = self.y2_out(self.y2_conv(x, dtype), dtype)
         return [y1, y2]
 
 
@@ -241,12 +241,10 @@ class Yolo(YoloNet):
         tap8, tap16, tap32 = self.backbone(x, dtype, input_scale)
         x, y = self.last_512(tap32, dtype)
         y1 = self.y1_out(y, dtype)
-        x = cat_channels([upsample2x(self.up1_conv(x, dtype, narrow=True)),
-                          tap16])
+        x = cat_channels([upsample2x(self.up1_conv(x, dtype)), tap16])
         x, y = self.last_256(x, dtype)
         y2 = self.y2_out(y, dtype)
-        x = cat_channels([upsample2x(self.up2_conv(x, dtype, narrow=True)),
-                          tap8])
+        x = cat_channels([upsample2x(self.up2_conv(x, dtype)), tap8])
         _, y = self.last_128(x, dtype)
         return [y1, y2, self.y3_out(y, dtype)]
 
@@ -303,19 +301,19 @@ class YoloV4(YoloNet):
         with span("net.spp"):
             n19 = self.spp_post(spp(self.spp_pre(tap32, dtype)), dtype)
         with span("net.pan"):
-            up = upsample2x(self.up1_conv(n19, dtype, narrow=True))
+            up = upsample2x(self.up1_conv(n19, dtype))
             n38 = self.td16(cat_channels(
-                [self.tap16_conv(tap16, dtype, narrow=True), up]), dtype)
-            up = upsample2x(self.up2_conv(n38, dtype, narrow=True))
+                [self.tap16_conv(tap16, dtype), up]), dtype)
+            up = upsample2x(self.up2_conv(n38, dtype))
             n76 = self.td8(cat_channels(
-                [self.tap8_conv(tap8, dtype, narrow=True), up]), dtype)
-            b76 = self.y3_conv(n76, dtype, narrow=True)
+                [self.tap8_conv(tap8, dtype), up]), dtype)
+            b76 = self.y3_conv(n76, dtype)
             m38 = self.bu38(cat_channels(
-                [self.down38(n76, dtype, narrow=True), n38]), dtype)
-            b38 = self.y2_conv(m38, dtype, narrow=True)
+                [self.down38(n76, dtype), n38]), dtype)
+            b38 = self.y2_conv(m38, dtype)
             m19 = self.bu19(cat_channels(
-                [self.down19(m38, dtype, narrow=True), n19]), dtype)
-            b19 = self.y1_conv(m19, dtype, narrow=True)
+                [self.down19(m38, dtype), n19]), dtype)
+            b19 = self.y1_conv(m19, dtype)
         return [self.y1_out(b19, dtype), self.y2_out(b38, dtype),
                 self.y3_out(b76, dtype)]
 

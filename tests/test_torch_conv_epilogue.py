@@ -4,8 +4,9 @@ takes its plain version: that version equals the layers' own eval path
 bit; every builder's eval forward through it equals the same forward with
 gradients on, where each ConvBN runs those steps as their own passes; the
 ConvBNs that store in the compute dtype are the ones whose consumers all
-cast to it; and training, the TP/SP path, a witness with smooth
-activations and ``torch.export`` never take it.  The kernel itself is held
+cast to it, and a residual stored in the compute dtype is refused; and
+training, the TP/SP path, a witness with smooth activations and
+``torch.export`` never take it.  The kernel itself is held
 to the plain version in ``tests/test_torch_cuda.py``.
 """
 
@@ -166,6 +167,33 @@ def test_builder_eval_forward_on_cpu_is_unchanged(name, dtype, monkeypatch):
         else set(convbns.values())
     assert {n for n, d in stores.items() if d == torch.float32} == wide
     assert set(stores) == set(convbns.values())
+
+
+@pytest.mark.parametrize("name", ["yolo", "yolo_mobilev2", "yolov4",
+                                  "convbn"])
+def test_a_skip_stored_narrow_is_refused(name):
+    """A residual sum whose skip was stored in bf16 would lose bits in the
+    sum: with one ``wide`` mark cleared on a builder (its first, an addend
+    of the first residual sum), the bf16 eval forward without gradients
+    raises; a lone ConvBN refuses a bf16 residual and takes an fp32 one."""
+    with torch.no_grad():
+        if name == "convbn":
+            conv = TL.ConvBN(4, 4, act=TL.leaky_relu(0.1)).eval()
+            x = torch.rand((1, 4, 6, 6))
+            with pytest.raises(ValueError, match="lacks wide=True"):
+                conv(x, torch.bfloat16, residual=x.bfloat16())
+            y = conv(x, torch.bfloat16, residual=x)
+            assert y.dtype == torch.bfloat16 and y.shape == x.shape
+            return
+        net, x = _net(name)
+        first = next(m for m in net.modules()
+                     if isinstance(m, TL.ConvBN) and m.wide)
+        first.wide = False
+        try:
+            with pytest.raises(ValueError, match="lacks wide=True"):
+                net(x, dtype=torch.bfloat16)
+        finally:
+            first.wide = True
 
 
 def _one_rank():
